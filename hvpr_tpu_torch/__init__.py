@@ -1,0 +1,20 @@
+"""PyTorch/CUDA port of ``hvpr_tpu`` for one NVIDIA H100.
+
+Mirrors the JAX package's layout (``config``, ``ops``, ``models``, ``utils``)
+and its batch-dict keys and tensor layouts, so the two can be held against
+each other on the same inputs. The port imports ``torch`` and numpy/yaml
+only; the three TPU kernels on the inference path are hand-written CUDA
+(``csrc/``), built with nvcc at first use and loaded with ctypes
+(``ops/_kernels.py``).
+"""
+
+import torch
+
+
+def resolve_device(device='cuda'):
+    """``torch.device`` for an entry point; a CUDA device must exist."""
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but torch sees no CUDA "
+                           "device; pass device='cpu' to run on the CPU")
+    return device

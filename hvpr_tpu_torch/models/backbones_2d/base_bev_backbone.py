@@ -1,0 +1,84 @@
+"""Scale-aware BEV conv backbone with CBAM-gated SFM blocks, eval branch.
+
+Port of ``BaseBEVBackboneScale`` in
+``hvpr_tpu/models/backbones_2d/base_bev_backbone.py`` (eval branch): per
+level a strided conv block, the scale stream's strided conv, SFM_LAYER_NUMS
+rounds of conv -> CBAM gate by the scale map -> residual, and a transpose-conv
+upsampling; the levels are concatenated. Takes and returns NHWC tensors
+(the JAX layout); inside, the NHWC maps permuted to NCHW are channels_last
+memory for cuDNN. These convs are XLA convolutions in the JAX package, not
+TPU kernels, so they run on cuDNN here. BACKBONE_2D.COMPUTE_DTYPE bf16 runs
+them in bf16 with f32 params and BN.
+"""
+
+import torch
+from torch import nn
+
+from ..model_utils.layers import ConvBNReLU, DeconvBNReLU
+from .spatial_attention import SpatialAttention
+
+
+def _compute_dtype(model_cfg):
+    name = str(model_cfg.get('COMPUTE_DTYPE', 'fp32')).lower()
+    return torch.bfloat16 if name in ('bf16', 'bfloat16') else None
+
+
+class BaseBEVBackboneScale(nn.Module):
+    """Module keys follow the reference: ``blocks.i`` = [pad, conv, bn, relu,
+    conv, bn, relu, ...] (index 0 is an identity standing for the
+    reference's ZeroPad2d; the conv pads itself), ``scale_layers.i`` = [pad,
+    conv, bn, relu], ``sfmblocks_down.i`` and ``deblocks.i`` = [conv, bn,
+    relu], ``attention.spatial``."""
+
+    def __init__(self, model_cfg, input_channels, scale_channels):
+        super().__init__()
+        layer_nums = list(model_cfg['LAYER_NUMS'])
+        strides = list(model_cfg['LAYER_STRIDES'])
+        filters = list(model_cfg['NUM_FILTERS'])
+        scale_filters = list(model_cfg['NUM_SCALE_FILTERS'])
+        up_strides = list(model_cfg['UPSAMPLE_STRIDES'])
+        up_filters = list(model_cfg['NUM_UPSAMPLE_FILTERS'])
+        self.sfm_layer_nums = list(model_cfg['SFM_LAYER_NUMS'])
+        self.dt = _compute_dtype(model_cfg)
+        dt = self.dt
+
+        blocks, sfm, scale, deblocks = [], [], [], []
+        c_in, s_in = input_channels, scale_channels
+        for i, n in enumerate(layer_nums):
+            layers = [nn.Identity(), *ConvBNReLU(c_in, filters[i],
+                                                 stride=strides[i], dtype=dt)]
+            for _ in range(n):
+                layers.extend(ConvBNReLU(filters[i], filters[i], dtype=dt))
+            blocks.append(nn.Sequential(*layers))
+            sfm.append(ConvBNReLU(filters[i], filters[i], dtype=dt))
+            scale.append(nn.Sequential(nn.Identity(), *ConvBNReLU(
+                s_in, scale_filters[i], stride=strides[i], dtype=dt)))
+            deblocks.append(DeconvBNReLU(filters[i], up_filters[i],
+                                         int(up_strides[i]), dtype=dt))
+            c_in, s_in = filters[i], scale_filters[i]
+        self.blocks = nn.ModuleList(blocks)
+        self.sfmblocks_down = nn.ModuleList(sfm)
+        self.scale_layers = nn.ModuleList(scale)
+        self.deblocks = nn.ModuleList(deblocks)
+        self.attention = SpatialAttention()
+        self.num_bev_features = sum(up_filters)
+
+    def _level(self, i, x, y):
+        x_att = x
+        for _ in range(self.sfm_layer_nums[i]):
+            t = self.attention(self.sfmblocks_down[i](x_att), y)
+            if self.dt is not None:
+                t = t.to(self.dt)
+            x_att = t + x_att
+        return x_att
+
+    def forward(self, batch_dict):
+        x = batch_dict['spatial_features'].permute(0, 3, 1, 2)
+        y = batch_dict['spatial_scale_features'].permute(0, 3, 1, 2)
+        ups = []
+        for i, block in enumerate(self.blocks):
+            x = block(x)
+            y = self.scale_layers[i](y)
+            ups.append(self.deblocks[i](self._level(i, x, y)))
+        batch_dict['spatial_features_2d'] = torch.cat(ups, dim=1).permute(0, 2, 3, 1)
+        return batch_dict

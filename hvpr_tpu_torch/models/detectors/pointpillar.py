@@ -1,0 +1,18 @@
+"""HVPR ``MixAnchor_Memory`` detector, eval path.
+
+Port of ``MixAnchorMemory`` in ``hvpr_tpu/models/detectors/pointpillar.py``:
+in eval the point stream is skipped and memory lookups stand in for point
+features, so the forward is vfe -> map_to_bev -> backbone_2d -> dense_head.
+"""
+
+from .detector3d_template import Detector3DTemplate
+
+
+class MixAnchorMemory(Detector3DTemplate):
+
+    def forward(self, batch_dict):
+        batch_dict = dict(batch_dict)   # never mutate the caller's dict
+        for stage in (self.vfe, self.map_to_bev_module, self.backbone_2d,
+                      self.dense_head):
+            batch_dict = stage(batch_dict)
+        return batch_dict

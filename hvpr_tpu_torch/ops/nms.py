@@ -1,0 +1,59 @@
+"""Greedy rotated BEV NMS with fixed-size outputs (plain PyTorch).
+
+Port of ``hvpr_tpu/ops/nms.py`` ``nms_bev_fixed``/``_nms_topk``: exact top-k
+pre-selection (a stable descending sort, so equal scores keep the lower
+index first, as ``lax.top_k`` does), then greedy suppression as the unique
+fixed point of ``keep <- valid & ~any_i(A[i, j] & keep[i])`` with
+``A[i, j] = iou(i, j) > thresh and i < j`` over the score-sorted boxes.
+
+Boxes scored ``-inf`` neither suppress nor survive, so only the live
+candidates enter the IoU matrix: the result is the one the JAX package gets
+at ``pre_maxsize`` (its ``NMS_STAGE_SIZES`` ladder exists to save TPU time on
+exactly this and needs no port).
+"""
+
+import torch
+
+from .rotated_iou import boxes_iou_bev
+
+
+def nms_bev_fixed(boxes, scores, thresh, pre_maxsize=4096, post_maxsize=500):
+    """Rotated BEV NMS of one sample.
+
+    Args:
+        boxes: (N, 7) [x, y, z, dx, dy, dz, heading].
+        scores: (N,) float; rows that must not enter carry ``-inf``.
+        thresh: IoU suppression threshold.
+    Returns:
+        keep_idx (post_maxsize,) int64 indices into the inputs (slots past
+        the kept ones hold the index of the top-scored box), keep_mask
+        (post_maxsize,) bool, num_kept () int64 survivors before the cap.
+    """
+    n = boxes.shape[0]
+    dev = boxes.device
+    k = min(pre_maxsize, n)
+    order = torch.sort(scores, descending=True, stable=True).indices[:k]
+    valid = scores[order] > -torch.inf
+    n_live = max(1, int(valid.sum()))
+    order, valid = order[:n_live], valid[:n_live]
+
+    boxes_k = boxes[order]
+    iou = boxes_iou_bev(boxes_k, boxes_k)
+    row = torch.arange(n_live, device=dev)
+    suppress = ((iou > thresh) & (row[:, None] < row[None, :])).float()
+    valid_f = valid.float()
+    cur = valid_f
+    for _ in range(n_live):
+        new = valid_f * ((cur @ suppress) <= 0.0).float()
+        if torch.equal(new, cur):
+            break
+        cur = new
+    keep = cur > 0.0
+
+    kept = torch.nonzero(keep).squeeze(1)[:post_maxsize]
+    keep_idx = torch.full((post_maxsize,), int(order[0]), dtype=torch.int64,
+                          device=dev)
+    keep_idx[:kept.numel()] = order[kept]
+    keep_mask = torch.zeros(post_maxsize, dtype=torch.bool, device=dev)
+    keep_mask[:kept.numel()] = True
+    return keep_idx, keep_mask, keep.sum()

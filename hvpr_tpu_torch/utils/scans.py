@@ -1,0 +1,69 @@
+"""Seeded synthetic lidar scans (numpy only).
+
+The port's copy of ``bench.py``'s ``synthetic_scans``/``realistic_scans`` and
+of ``make_scene`` from ``tests/kitti_fixture.py``: the draws come from the
+same generator in the same order, so a seed gives the same scans as the JAX
+package's benchmark.
+"""
+
+import numpy as np
+
+
+def make_scene(rng, n_cars=49):
+    """Non-overlapping lidar-frame car boxes (N, 7) on a jittered 7x7 grid
+    (``make_scene`` with ``easy=False``)."""
+    xs, ys = np.meshgrid(np.linspace(8, 40, 7), np.linspace(-13.5, 13.5, 7))
+    boxes = np.zeros((n_cars, 7), dtype=np.float32)
+    boxes[:, 0] = xs.ravel()[:n_cars] + rng.uniform(-0.5, 0.5, n_cars)
+    boxes[:, 1] = ys.ravel()[:n_cars] + rng.uniform(-0.5, 0.5, n_cars)
+    boxes[:, 2] = rng.uniform(-1.2, -0.6, n_cars)
+    boxes[:, 3] = rng.uniform(3.6, 4.3, n_cars)
+    boxes[:, 4] = rng.uniform(1.5, 1.8, n_cars)
+    boxes[:, 5] = rng.uniform(1.4, 1.7, n_cars)
+    boxes[:, 6] = rng.uniform(-np.pi, np.pi, n_cars)
+    return boxes
+
+
+def synthetic_scans(rng, batch, n, pcr):
+    """(batch, n, 4) points uniform over the point-cloud range."""
+    pts = np.zeros((batch, n, 4), dtype=np.float32)
+    pts[..., 0] = rng.uniform(pcr[0] + 0.1, pcr[3] - 0.1, (batch, n))
+    pts[..., 1] = rng.uniform(pcr[1] + 0.1, pcr[4] - 0.1, (batch, n))
+    pts[..., 2] = rng.uniform(pcr[2] + 0.1, pcr[5] - 0.1, (batch, n))
+    pts[..., 3] = rng.uniform(0, 1, (batch, n))
+    return pts
+
+
+def realistic_scans(rng, batch, n, pcr):
+    """(batch, n, 4) KITTI-like scans: 49 cars of 200 points each plus
+    ground points whose density falls off as 1/r over a +-24 degree cone,
+    so near pillars fill their 32-point cap and far ones hold 1-2 points."""
+    pts = np.zeros((batch, n, 4), dtype=np.float32)
+    n_obj_pts = 200
+    for b in range(batch):
+        boxes = make_scene(rng)
+        clusters = []
+        for box in boxes:
+            local = rng.uniform(-0.4, 0.4, (n_obj_pts, 3)) * box[3:6]
+            c, s = np.cos(box[6]), np.sin(box[6])
+            clusters.append(np.stack([
+                local[:, 0] * c - local[:, 1] * s + box[0],
+                local[:, 0] * s + local[:, 1] * c + box[1],
+                local[:, 2] + box[2],
+            ], axis=1))
+        obj = np.concatenate(clusters, axis=0)
+
+        n_bg = n - len(obj)
+        r_min, r_max = 2.0, float(pcr[3]) - 0.5
+        u = rng.uniform(0, 1, n_bg)
+        r = r_min * (r_max / r_min) ** u
+        az = rng.uniform(-0.42, 0.42, n_bg)
+        bg = np.stack([r * np.cos(az), r * np.sin(az),
+                       rng.normal(-1.6, 0.15, n_bg)], axis=1)
+        xyz = np.concatenate([obj, bg], axis=0)[:n]
+        xyz[:, 0] = np.clip(xyz[:, 0], pcr[0] + 0.1, pcr[3] - 0.1)
+        xyz[:, 1] = np.clip(xyz[:, 1], pcr[1] + 0.1, pcr[4] - 0.1)
+        xyz[:, 2] = np.clip(xyz[:, 2], pcr[2] + 0.1, pcr[5] - 0.1)
+        pts[b, :, :3] = xyz
+        pts[b, :, 3] = rng.uniform(0, 1, n)
+    return pts
