@@ -6,21 +6,33 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``hvpr_tpu_torch/csrc`` into
-``build/``, holds each kernel against its plain PyTorch version on the card
-at the shapes the inference path gives it, then runs the HVPR inference
-pipeline (voxelize -> PillarVFE_Scale -> memory scatter -> scale BEV backbone
--> anchor head -> rotated NMS) on ``tools/cfgs/kitti_models/hvpr.yaml`` at
-batch 8 on seeded KITTI-like scans with seeded random weights, checks that
-the run launched every kernel and that its detections equal those of the
-same pipeline through the plain versions, and prints:
+``build/`` (one nvcc per source, all at once), then drives two paths of
+``tools/cfgs/kitti_models/hvpr.yaml`` at full width on seeded KITTI-like
+scans with seeded random weights:
 
-- a ``{"kernels": [...]}`` JSON line (times, bounds, launches, errors);
-- the card's name and power limit as nvidia-smi reports them;
-- last, ``{"ok": true, "device": {...}}``.
+- inference, batch 8: voxelize -> PillarVFE_Scale -> memory scatter -> scale
+  BEV backbone -> anchor head -> rotated NMS. Each inference kernel (K1-K3)
+  is held against its plain PyTorch version at the shapes the path gives
+  it, the path must launch each of them, and its detections must equal
+  those of the same pipeline through the plain versions.
+- training, batch 4, ``TRAIN_ATTEND_MODE: gather``: the point stream, the
+  VFE, the attentive scatter with the memory reconstruction, the dual-pass
+  backbone, the dual heads with their losses, backward and the
+  adam_onecycle update. Each train kernel (K4 ball query, K5 FPS, K6/K7 the
+  memory reconstruction forward/backward) is held against its plain
+  version at the shapes of one step, one step through the kernels must
+  equal one step through the plain versions from the same state bit for bit
+  under torch's deterministic algorithms (each gradient, loss term and
+  updated weight), and 5 more steps must launch each kernel its expected
+  number of times.
 
-Any failed check exits nonzero. Without a CUDA device it exits 2 at once.
+It prints a ``{"kernels": [...]}`` JSON line (times, bounds, launches,
+errors), the card's name and power limit as nvidia-smi reports them, and
+last ``{"ok": true, "device": {...}}``. Any failed check exits nonzero.
+Without a CUDA device it exits 2 at once.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -29,10 +41,40 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+CFG = 'tools/cfgs/kitti_models/hvpr.yaml'
 BATCH = 8
+TRAIN_BATCH = 4
 N_POINTS = 16384
+TRAIN_STEPS = 5                    # timed steps after the two comparison steps
+TOTAL_STEPS = 100                  # the OneCycle schedule's length
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
+F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
+INFER_KERNELS = ('segment_sweep', 'memory_lookup', 'bev_canvas')
+# launches of each train kernel in one step of hvpr.yaml: 2 SA levels x 2
+# radii ball queries, one FPS per level, one reconstruction each way
+STEP_LAUNCHES = {'ball_query': 4, 'fps_chunks': 2, 'memory_recon_fwd': 1,
+                 'memory_recon_bwd': 1}
+# K6/K7 against their plain versions: both accumulate exact bf16 products
+# in f64 and round once, so they agree but for an order-dependent last f64
+# bit of a row sum; allowed: 1e-5 of the output's largest magnitude
+RECON_RTOL = 1e-5
+META = {
+    'segment_sweep': ('hvpr_tpu_torch/csrc/segment_sweep.cu',
+                      'hvpr_tpu/ops/segment_sweep.py:106'),
+    'memory_lookup': ('hvpr_tpu_torch/csrc/memory_lookup.cu',
+                      'hvpr_tpu/ops/memory_lookup.py:168'),
+    'bev_canvas': ('hvpr_tpu_torch/csrc/bev_canvas.cu',
+                   'hvpr_tpu/ops/bev_canvas.py:128'),
+    'ball_query': ('hvpr_tpu_torch/csrc/ball_query.cu',
+                   'hvpr_tpu/ops/pn2_select.py:135'),
+    'fps_chunks': ('hvpr_tpu_torch/csrc/fps_chunks.cu',
+                   'hvpr_tpu/ops/pn2_select.py:302'),
+    'memory_recon_fwd': ('hvpr_tpu_torch/csrc/memory_recon.cu',
+                         'hvpr_tpu/ops/memory_recon.py:141'),
+    'memory_recon_bwd': ('hvpr_tpu_torch/csrc/memory_recon.cu',
+                         'hvpr_tpu/ops/memory_recon.py:169'),
+}
 
 
 def fail(msg):
@@ -58,10 +100,10 @@ def cuda_ms(fn, reps=20, warmup=3):
 
 
 def seed_weights(module, seed):
-    """Seeded random weights: He-normal convs/linears, the memory uniform in
-    +-1/sqrt(C), BN running statistics and affine terms perturbed so that BN
-    is exercised, and the cls bias at 0 so that thousands of anchors clear
-    SCORE_THRESH and reach NMS."""
+    """Seeded random weights: He-normal convs/linears (the point stream's
+    1x1 convs too), the memory uniform in +-1/sqrt(C), BN running statistics
+    and affine terms perturbed so that BN is exercised, and the cls bias at
+    0 so that thousands of anchors clear SCORE_THRESH and reach NMS."""
     import torch
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
@@ -97,7 +139,8 @@ def capture_calls(modules_and_names, run):
     def recorder(key, fn):
         def wrapped(*args, **kwargs):
             calls.setdefault(key, []).append((
-                tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args),
+                tuple(a.detach().clone() if isinstance(a, torch.Tensor) else a
+                      for a in args),
                 dict(kwargs)))
             return fn(*args, **kwargs)
         return wrapped
@@ -111,6 +154,15 @@ def capture_calls(modules_and_names, run):
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
     return calls
+
+
+def load_cfg(train_attend_mode=None):
+    from hvpr_tpu_torch.config import ConfigDict, cfg_from_yaml_file
+    cfg = ConfigDict()
+    cfg_from_yaml_file(CFG, cfg)
+    if train_attend_mode is not None:
+        cfg.MODEL.MAP_TO_BEV.TRAIN_ATTEND_MODE = train_attend_mode
+    return cfg
 
 
 def net_batch(net, points, mask):
@@ -153,16 +205,18 @@ def stage_ms(net, points, mask, reps=5):
     return {name: statistics.median(v) for name, v in times.items()}
 
 
-def main():
+def bound(ops, flops_per_s, nbytes):
+    """(bound ms, 'operations' or 'bytes') of work of ``ops`` operations at
+    ``flops_per_s`` that moves ``nbytes``."""
+    t_ops, t_bytes = ops / flops_per_s, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, 'operations' if t_ops > t_bytes else 'bytes'
+
+
+def inference_phase(smi):
+    """Kernels K1-K3 against their plain versions and the inference path.
+    Returns ({kernel: entry}, the path's launch counts)."""
     import numpy as np
     import torch
-
-    if not torch.cuda.is_available():
-        print('chip_smoke: torch sees no CUDA device', file=sys.stderr)
-        return 2
-    sys.path.insert(0, ROOT)
-    os.chdir(ROOT)      # the configs' _BASE_CONFIG_ paths are repo-relative
-    from hvpr_tpu_torch.config import ConfigDict, cfg_from_yaml_file
     from hvpr_tpu_torch.models import DatasetMeta, build_network
     from hvpr_tpu_torch.models.backbones_2d.map_to_bev import (
         memory_module, pointpillar_scatter)
@@ -170,31 +224,7 @@ def main():
     from hvpr_tpu_torch.ops import _kernels
     from hvpr_tpu_torch.utils.scans import realistic_scans
 
-    # fp32 convs and matmuls in full f32 (no TF32), deterministic cuDNN:
-    # the two pipeline runs below must differ only by the kernels
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
-
-    # 1. build
-    t0 = time.perf_counter()
-    report = _kernels.build_all()
-    print(f'build: {time.perf_counter() - t0:.2f} s for {sorted(report)}')
-    for name, rep in sorted(report.items()):
-        for line in rep['log'].splitlines():
-            if any(w in line for w in ('registers', 'spill', 'smem', 'error', 'warning')):
-                print(f'  {name}: {line.strip()}')
-
-    # 2. the card
-    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'], capture_output=True,
-                         text=True, timeout=60).stdout.strip().splitlines()[0]
-    print(f'card: {smi}')
-
-    # 3. network, weights, scans
-    cfg = ConfigDict()
-    cfg_from_yaml_file('tools/cfgs/kitti_models/hvpr.yaml', cfg)
+    cfg = load_cfg()
     meta = DatasetMeta(cfg.DATA_CONFIG, cfg.CLASS_NAMES)
     net = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), meta, device='cuda')
     seed_weights(net.module, seed=0)
@@ -203,7 +233,7 @@ def main():
                                               N_POINTS, pcr)).cuda()
     mask = torch.ones(BATCH, N_POINTS, dtype=torch.bool, device='cuda')
 
-    # 4. capture every wrapper call of one pipeline run (the warm-up)
+    # capture every wrapper call of one pipeline run (the warm-up)
     calls = capture_calls(
         [(pillar_vfe, 'segment_sweep', 'segment_sweep'),
          (memory_module, 'memory_lookup_fused', 'memory_lookup'),
@@ -211,7 +241,7 @@ def main():
         lambda: net.pipeline(points, mask))
     torch.cuda.synchronize()
 
-    # 5. each kernel against its plain version at the main path's shapes
+    # each kernel against its plain version at the main path's shapes
     entries = {}
     wrappers = {'segment_sweep': pillar_vfe.segment_sweep,
                 'memory_lookup': memory_module.memory_lookup_fused,
@@ -266,10 +296,8 @@ def main():
     print(f'memory_lookup: {r_valid} of {r} rows are valid pillars')
     ops = 2.0 * r_valid * m * c + 2.0 * c * float(cnt_k.sum())  # logits + selected output
     nbytes = 2 * r * c * 4 + m * c * 4 + r
-    entries['memory_lookup'].update(
-        bound_ms=max(ops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
-        bound_by='operations' if ops / BF16_FLOPS_PER_S > nbytes / HBM_BYTES_PER_S
-        else 'bytes', library_ms=None)
+    b_ms, b_by = bound(ops, BF16_FLOPS_PER_S, nbytes)
+    entries['memory_lookup'].update(bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
     canvas_bytes, lib_ms = 0, 0.0
     for a, kw in calls['bev_canvas']:
@@ -287,7 +315,7 @@ def main():
     entries['bev_canvas'].update(bound_ms=canvas_bytes / HBM_BYTES_PER_S * 1e3,
                                  bound_by='bytes', library_ms=lib_ms)
 
-    # 6. the main path, counts from zero
+    # the main path, counts from zero
     _kernels.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -295,10 +323,10 @@ def main():
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = _kernels.launch_counts()
-    print(f'main path launches: {launches}')
-    for name in _kernels.KERNELS:
+    print(f'inference path launches: {launches}')
+    for name in INFER_KERNELS:
         if launches[name] == 0:
-            fail(f'the main path launched {name} no time')
+            fail(f'the inference path launched {name} no time')
 
     post = cfg.MODEL.POST_PROCESSING
     for key, shape in (('pred_boxes', (BATCH, 500, 7)), ('pred_scores', (BATCH, 500)),
@@ -348,20 +376,330 @@ def main():
         cls = net.module(net_batch(net, points, mask))['batch_cls_preds']
     live = (torch.sigmoid(cls).amax(dim=-1) >= post.SCORE_THRESH).sum(dim=1)
     print(f'NMS candidates clearing SCORE_THRESH per scan: {live.tolist()}')
+    return entries, launches
 
-    meta_k = {
-        'segment_sweep': ('hvpr_tpu_torch/csrc/segment_sweep.cu',
-                          'hvpr_tpu/ops/segment_sweep.py:106'),
-        'memory_lookup': ('hvpr_tpu_torch/csrc/memory_lookup.cu',
-                          'hvpr_tpu/ops/memory_lookup.py:168'),
-        'bev_canvas': ('hvpr_tpu_torch/csrc/bev_canvas.cu',
-                       'hvpr_tpu/ops/bev_canvas.py:128'),
-    }
+
+def train_stage_ms(net, batch, reps=3):
+    """Median milliseconds of each part of ``Network.train_step``, run as it
+    is: forward hooks on the five stages and a wrapper of the optimizer's
+    ``step`` record CUDA events, and each part is the device timeline between
+    its two events (host gaps included). The parts: the five forward stages
+    (the head with its targets and losses), the backward (the head's end to
+    the optimizer's start) and the optimizer update with its clip."""
+    import torch
+    mod = net.module
+    opt = net.train_state.optimizer
+    stages = [('backbone_3d', mod.backbone_3d), ('vfe', mod.vfe),
+              ('map_to_bev', mod.map_to_bev_module),
+              ('backbone_2d', mod.backbone_2d), ('dense_head+loss', mod.dense_head)]
+    events = {}
+
+    def mark(key):
+        events[key] = torch.cuda.Event(enable_timing=True)
+        events[key].record()
+
+    handles = []
+    for name, stage in stages:
+        handles.append(stage.register_forward_pre_hook(
+            lambda *_, n=name: mark(n + ':start')))
+        handles.append(stage.register_forward_hook(
+            lambda *_, n=name: mark(n + ':end')))
+    opt_step = opt.step
+
+    def timed_opt_step(grads):
+        mark('optimizer:start')
+        norm = opt_step(grads)
+        mark('optimizer:end')
+        return norm
+
+    opt.step = timed_opt_step
+    spans = [(n, n + ':start', n + ':end') for n, _ in stages] + [
+        ('backward', 'dense_head+loss:end', 'optimizer:start'),
+        ('optimizer', 'optimizer:start', 'optimizer:end')]
+    times = {name: [] for name, _, _ in spans}
+    try:
+        for _ in range(reps):
+            net.train_step(batch)
+            torch.cuda.synchronize()
+            for name, start, end in spans:
+                times[name].append(events[start].elapsed_time(events[end]))
+    finally:
+        for h in handles:
+            h.remove()
+        del opt.step
+    return {name: statistics.median(v) for name, v in times.items()}
+
+
+def _train_bounds(name, calls, plain_outs):
+    """(bound ms, bound_by) of one step's calls of train kernel ``name``,
+    from this run's inputs (and, for the ball query, the plain results,
+    which say where each centre's sweep may stop)."""
+    ops = nbytes = 0.0
+    flops = F32_FLOPS_PER_S
+    for (args, _), out in zip(calls, plain_outs):
+        if name == 'ball_query':
+            # ~9 f32 operations per (centre, point) pair up to the point at
+            # which the centre has its nsample distinct buckets (else all N)
+            _, nsample, xyz, new_xyz, mask = args
+            idx, cnt = out
+            b, n, _ = xyz.shape
+            s = new_xyz.shape[1]
+            stop = idx[..., -1].long() + 1
+            visited = float(((cnt == nsample) * stop + (cnt < nsample) * n).sum())
+            ops += 9.0 * visited
+            nbytes += (xyz.numel() + new_xyz.numel()) * 4 + mask.numel() \
+                + b * s * (nsample + 1) * 4
+        elif name == 'fps_chunks':
+            # ~10 f32 operations per row and step (3 sub, 3 mul, 2 add,
+            # min, compare)
+            pts, valid, nsamp = args
+            r, l, _ = pts.shape
+            ops += 10.0 * r * l * nsamp
+            nbytes += pts.numel() * 4 + valid.numel() + r * nsamp * 4
+        else:
+            # products of R x M x C multiply-adds on bf16 tensor cores: 2 in
+            # the forward (x W^T, n W), 5 in the backward (x W^T, dy W^T,
+            # dl W, dl^T x, n^T dy)
+            x, w = args[0], args[1]
+            r, c = x.shape
+            m = w.shape[0]
+            n_products = 2 if name == 'memory_recon_fwd' else 5
+            ops += n_products * 2.0 * r * m * c
+            flops = BF16_FLOPS_PER_S
+            nbytes += (2 * r * c + m * c) * 4 if name == 'memory_recon_fwd' \
+                else (3 * r * c + 2 * m * c) * 4
+    return bound(ops, flops, nbytes)
+
+
+def train_phase(smi):
+    """Kernels K4-K7 against their plain versions at the train step's
+    shapes, one kernel step against one plain step, and 5 more steps.
+    Returns ({kernel: entry}, the 5 steps' launch counts)."""
+    import numpy as np
+    import torch
+    from hvpr_tpu_torch.models import DatasetMeta, build_network
+    from hvpr_tpu_torch.ops import _kernels, memory_recon, pn2_select, pointnet2
+    from hvpr_tpu_torch.parallel import loss_and_grads
+    from hvpr_tpu_torch.utils.scans import realistic_scans_with_boxes
+
+    cfg = load_cfg(train_attend_mode='gather')
+    meta = DatasetMeta(cfg.DATA_CONFIG, cfg.CLASS_NAMES, mode='train')
+    net = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), meta, device='cuda',
+                        train=True)
+    seed_weights(net.module, seed=0)
+    pts, gt = realistic_scans_with_boxes(np.random.default_rng(0), TRAIN_BATCH,
+                                         N_POINTS, meta.point_cloud_range)
+    points = torch.from_numpy(pts).cuda()
+    mask = torch.ones(TRAIN_BATCH, N_POINTS, dtype=torch.bool, device='cuda')
+    batch = dict(net.voxelize(points, mask), gt_boxes=torch.from_numpy(gt).cuda())
+    print(f'train batch: {TRAIN_BATCH} scans, {int(batch["voxel_mask"].sum())} '
+          f'pillars, {gt.shape[1]} boxes a scan')
+    state0 = {k: v.clone() for k, v in net.module.state_dict().items()}
+    n_params = sum(p.numel() for p in net.module.parameters())
+
+    def fresh():
+        net.module.load_state_dict(state0)
+        net.init_training(cfg.OPTIMIZATION, TOTAL_STEPS)
+
+    # 1-2. one step through the kernels, every K4-K7 wrapper call captured,
+    # and the same step from the same state through the plain versions,
+    # under torch's deterministic algorithms. Without them the backward's
+    # gathers sum by atomics in run order and two plain steps differ by
+    # some percent in a point-stream gradient (its bf16 BN backwards amplify
+    # the noise; printed below); with them two plain steps are bit-identical, and K4-K7 equal
+    # their plain versions, so the kernel step must equal the plain step to
+    # the bit: each gradient leaf (before the optimizer), each loss term,
+    # grad_norm, and each updated weight and BN statistic.
+    runs = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for run in ('kernels', 'plain'):
+            with contextlib.ExitStack() as stack:
+                if run == 'plain':
+                    stack.enter_context(_kernels.plain_versions())
+                fresh()
+                _, grads = loss_and_grads(net.train_state, batch)
+                fresh()
+                if run == 'kernels':
+                    out = []
+                    calls = capture_calls(
+                        [(pointnet2, 'ball_query_bucket', 'ball_query'),
+                         (pointnet2, 'fps_chunks', 'fps_chunks'),
+                         (memory_recon, 'recon_forward', 'memory_recon_fwd'),
+                         (memory_recon, 'recon_backward', 'memory_recon_bwd')],
+                        lambda: out.append(net.train_step(batch)))
+                    metrics = out[0]
+                else:
+                    metrics = net.train_step(batch)
+            runs[run] = (grads, {k: float(v) for k, v in metrics.items()},
+                         {k: v.clone() for k, v in net.module.state_dict().items()})
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (grads_k, metrics_k, params_k), (grads_p, metrics_p, params_p) = \
+        runs['kernels'], runs['plain']
+    print('step 1, kernels/plain: ' + ', '.join(
+        f'{k} {metrics_k[k]:.7g}/{metrics_p[k]:.7g}' for k in sorted(metrics_k)))
+    for k, v in metrics_k.items():
+        if not np.isfinite(v):
+            fail(f'train step {k} is not finite')
+    names = [n for n, _ in net.module.named_parameters()]
+    differ = ([n for n, g, w in zip(names, grads_k, grads_p) if not torch.equal(g, w)]
+              + [k for k in params_p if not torch.equal(params_k[k], params_p[k])]
+              + [k for k in metrics_p if metrics_k[k] != metrics_p[k]])
+    print(f'step 1, kernels vs plain: {len(names)} gradient leaves, {len(params_p)} '
+          f'weight and statistic tensors, {len(metrics_p)} metrics; '
+          f'{len(differ)} differ')
+    if differ:
+        fail(f'the kernel step differs from the plain step in {differ[:5]}')
+    del runs, grads_k, grads_p, params_k, params_p
+    # what deterministic mode removes: two plain steps' gradients without it
+    noisy = []
+    for _ in range(2):
+        fresh()
+        with _kernels.plain_versions():
+            noisy.append(loss_and_grads(net.train_state, batch)[1])
+    rel = {n: float(torch.linalg.vector_norm((a - b).double())
+                    / torch.linalg.vector_norm(b.double()).clamp_min(1e-30))
+           for n, a, b in zip(names, *noisy)}
+    worst = max(rel, key=rel.get)
+    print(f'without deterministic algorithms two plain steps differ in '
+          f'{sum(v > 0 for v in rel.values())} of {len(rel)} gradient leaves, '
+          f'most in {worst}: {rel[worst]:.3g} of its L2 norm')
+    del noisy
+
+    # 3. each kernel against its plain version at this step's shapes
+    wrappers = {'ball_query': pn2_select.ball_query_bucket,
+                'fps_chunks': pn2_select.fps_chunks,
+                'memory_recon_fwd': memory_recon.recon_forward,
+                'memory_recon_bwd': memory_recon.recon_backward}
+    entries = {}
+    for name, fn in wrappers.items():
+        if len(calls.get(name, ())) != STEP_LAUNCHES[name]:
+            fail(f'one train step called {name} {len(calls.get(name, ()))} '
+                 f'times, expected {STEP_LAUNCHES[name]}')
+        err = ms = plain_ms = 0.0
+        plain_outs = []
+        for args, kwargs in calls[name]:
+            got = fn(*args, **kwargs)
+            with _kernels.plain_versions():
+                want = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            plain_outs.append(want if len(want) > 1 else want[0])
+            for g, w in zip(got, want):
+                if g.shape != w.shape or g.dtype != w.dtype:
+                    fail(f'{name}: {g.shape}/{g.dtype} vs plain {w.shape}/{w.dtype}')
+                if not torch.isfinite(g.float()).all():
+                    fail(f'{name}: non-finite output')
+                e = float((g.double() - w.double()).abs().max())
+                err = max(err, e)
+                if w.is_floating_point():
+                    if e > RECON_RTOL * float(w.abs().max()):
+                        fail(f'{name}: kernel differs from plain by {e} '
+                             f'(largest |plain| {float(w.abs().max())})')
+                elif e != 0.0:
+                    fail(f'{name}: kernel indices differ from plain')
+            ms += cuda_ms(lambda: fn(*args, **kwargs), reps=10, warmup=2)
+            with _kernels.plain_versions():
+                plain_ms += cuda_ms(lambda: fn(*args, **kwargs), reps=3, warmup=1)
+        b_ms, b_by = _train_bounds(name, calls[name], plain_outs)
+        entries[name] = {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
+                         'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None}
+        shapes = [tuple(tuple(a.shape) for a in args if isinstance(a, torch.Tensor))
+                  for args, _ in calls[name]]
+        print(f'{name}: {len(calls[name])} call(s) per step at {shapes}, max_abs_err '
+              f'{err}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} '
+              f'ms ({b_by})')
+
+    # 4. the main path: TRAIN_STEPS steps, counts from zero
+    fresh()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    times, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = net.train_step(batch)
+        loss = float(metrics['loss'])           # synchronizes
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+    launches = _kernels.launch_counts()
+    print(f'train path launches in {TRAIN_STEPS} steps: {launches}')
+    for name, per_step in STEP_LAUNCHES.items():
+        if launches[name] != per_step * TRAIN_STEPS:
+            fail(f'{TRAIN_STEPS} train steps launched {name} {launches[name]} '
+                 f'times, expected {per_step * TRAIN_STEPS}')
+    for name in INFER_KERNELS:
+        if launches[name]:
+            fail(f'the train path launched the inference kernel {name}')
+    if not all(np.isfinite(losses)):
+        fail(f'non-finite train loss: {losses}')
+    step_s = statistics.median(times)
+    print(f'train losses over {TRAIN_STEPS} steps: {losses}')
+    print(f'train step: median of {TRAIN_STEPS} {step_s * 1e3:.3f} ms per batch of '
+          f'{TRAIN_BATCH} -> {TRAIN_BATCH / step_s:.3f} scans/s, peak memory '
+          f'{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, {n_params} '
+          f'parameters, on {smi}')
+    stages = train_stage_ms(net, batch)
+    print('train step stage ms (median of 3, CUDA events inside Network.train_step): '
+          + ', '.join(f'{k} {v:.3f}' for k, v in stages.items())
+          + f'; sum {sum(stages.values()):.3f}')
+    return entries, launches
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print('chip_smoke: torch sees no CUDA device', file=sys.stderr)
+        return 2
+    # cuBLAS is deterministic only with a fixed workspace, set before its
+    # first use (the train phase compares steps under deterministic mode)
+    os.environ.setdefault('CUBLAS_WORKSPACE_CONFIG', ':4096:8')
+    sys.path.insert(0, ROOT)
+    os.chdir(ROOT)      # the configs' _BASE_CONFIG_ paths are repo-relative
+    from hvpr_tpu_torch.ops import _kernels
+
+    # fp32 convs and matmuls in full f32 (no TF32), deterministic cuDNN:
+    # the kernel and plain runs below must differ only by the kernels
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+    # build
+    t0 = time.perf_counter()
+    report = _kernels.build_all()
+    print(f'build: {time.perf_counter() - t0:.2f} s for {sorted(report)}')
+    for name, rep in sorted(report.items()):
+        for line in rep['log'].splitlines():
+            if any(w in line for w in ('registers', 'spill', 'smem', 'error', 'warning')):
+                print(f'  {name}: {line.strip()}')
+
+    # the card
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, timeout=60).stdout.strip().splitlines()[0]
+    print(f'card: {smi}')
+
+    t0 = time.perf_counter()
+    entries, launches = inference_phase(smi)
+    print(f'inference phase: {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    train_entries, train_launches = train_phase(smi)
+    print(f'train phase: {time.perf_counter() - t0:.1f} s')
+    entries.update(train_entries)
+    launches.update({k: train_launches[k] for k in STEP_LAUNCHES})
+
     kernels = []
     for name in _kernels.KERNELS:
         e = entries[name]
-        kernels.append({'name': name, 'route': 'cuda', 'source': meta_k[name][0],
-                        'replaces': meta_k[name][1], 'launches': launches[name],
+        kernels.append({'name': name, 'route': 'cuda', 'source': META[name][0],
+                        'replaces': META[name][1], 'launches': launches[name],
                         'max_abs_err': e['max_abs_err'], 'ms': e['ms'],
                         'plain_ms': e['plain_ms'], 'bound_ms': e['bound_ms'],
                         'bound_by': e['bound_by'], 'library_ms': e['library_ms']})

@@ -1,10 +1,13 @@
-"""Network factory and the inference entry points.
+"""Network factory and the inference and training entry points.
 
-Port of ``hvpr_tpu/models/__init__.py`` (``build_network``, ``Network``) for
-the eval path: :meth:`Network.eval_forward` runs the detector and
-post-processing on a voxelized batch, :meth:`Network.pipeline` adds the
-device voxelizer in front (the counterpart of ``bench.py``'s timed
-pipeline). Entry points run on the card unless the caller passes
+Port of ``hvpr_tpu/models/__init__.py`` (``build_network``, ``Network``):
+:meth:`Network.eval_forward` runs the detector and post-processing on a
+voxelized batch, :meth:`Network.pipeline` adds the device voxelizer in front
+(the counterpart of ``bench.py``'s timed pipeline). A network built with
+``train=True`` also has the point stream; :meth:`Network.init_training`
+gives it an optimizer and :meth:`Network.train_step` runs one step (forward
+with the losses, backward, update) on a batch from :meth:`Network.voxelize`
+plus ``gt_boxes``. Entry points run on the card unless the caller passes
 ``device='cpu'``.
 """
 
@@ -13,6 +16,8 @@ import torch
 
 from .. import resolve_device
 from ..ops.voxelizer import voxelize_batch_flat
+from ..optimization import build_optimizer
+from ..parallel import TrainState, train_step
 from .detectors import build_detector
 from .detectors.detector3d_template import post_processing
 
@@ -45,21 +50,32 @@ class Network:
         self.post_cfg = post_cfg
         self.num_class = num_class
         self.device = device
+        self.train_state = None
 
     def load_state_dict(self, state_dict):
-        """Load reference-keyed weights (see ``utils/weights.py``)."""
+        """Load reference-keyed weights (see ``utils/weights.py``); an
+        eval-only network ignores the point stream's keys."""
+        if self.module.backbone_3d is None:
+            state_dict = {k: v for k, v in state_dict.items()
+                          if not k.startswith('backbone_3d.')}
         self.module.load_state_dict(state_dict, strict=True)
 
     @torch.no_grad()
     def eval_forward(self, batch_dict):
-        """Detector forward + post-processing on a voxelized device batch."""
-        out = self.module(batch_dict)
+        """Detector forward (eval mode) + post-processing on a voxelized
+        device batch."""
+        was_training = self.module.training
+        self.module.eval()
+        try:
+            out = self.module(batch_dict)
+        finally:
+            self.module.train(was_training)
         return post_processing(out, self.post_cfg, self.num_class)
 
     @torch.no_grad()
-    def pipeline(self, points, mask):
-        """(B, N, 4) points + (B, N) mask -> detections: voxelize, forward,
-        post-process, all on the network's device."""
+    def voxelize(self, points, mask):
+        """(B, N, 4) points + (B, N) mask -> the batch dict the detector
+        takes: the points and the device voxelizer's flat pillar layout."""
         ds = self.dataset
         vox = voxelize_batch_flat(
             points, mask, tuple(float(v) for v in ds.point_cloud_range),
@@ -67,13 +83,38 @@ class Network:
             max_voxels=ds.max_voxels,
             max_points_per_voxel=ds.max_points_per_voxel,
             grid_size_static=tuple(int(g) for g in ds.grid_size))
-        batch = {'points': points, 'point_valid_mask': mask, **vox}
-        return self.eval_forward(batch)
+        return {'points': points, 'point_valid_mask': mask, **vox}
+
+    @torch.no_grad()
+    def pipeline(self, points, mask):
+        """(B, N, 4) points + (B, N) mask -> detections: voxelize, forward,
+        post-process, all on the network's device."""
+        return self.eval_forward(self.voxelize(points, mask))
+
+    def init_training(self, optim_cfg, total_steps):
+        """Give the network its optimizer (``OPTIMIZATION`` config) and a
+        fresh train state."""
+        if self.module.backbone_3d is None and \
+                self.module.model_cfg.get('BACKBONE_3D') is not None:
+            raise RuntimeError('build the network with train=True to train it')
+        self.train_state = TrainState(
+            self.module, build_optimizer(self.module, optim_cfg, total_steps))
+
+    def train_step(self, batch_dict):
+        """One step on a batch (``voxelize`` output plus ``gt_boxes``
+        (B, M, 8)): returns the metrics (loss terms, ``loss``,
+        ``grad_norm``) as detached tensors."""
+        if self.train_state is None:
+            raise RuntimeError('call init_training first')
+        self.train_state, metrics = train_step(self.train_state, batch_dict)
+        return metrics
 
 
-def build_network(model_cfg, num_class, dataset, device='cuda'):
-    """Build the eval-mode network of ``model_cfg`` on ``device``."""
+def build_network(model_cfg, num_class, dataset, device='cuda', train=False):
+    """Build the network of ``model_cfg`` on ``device``: eval mode, or with
+    ``train=True`` training mode with the point stream."""
     device = resolve_device(device)
-    module = build_detector(model_cfg, num_class, dataset).to(device).eval()
+    module = build_detector(model_cfg, num_class, dataset,
+                            point_stream=train).to(device).train(train)
     return Network(module, dataset, model_cfg.get('POST_PROCESSING'),
                    num_class, device)

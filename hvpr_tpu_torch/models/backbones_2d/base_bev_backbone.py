@@ -1,10 +1,12 @@
-"""Scale-aware BEV conv backbone with CBAM-gated SFM blocks, eval branch.
+"""Scale-aware BEV conv backbone with CBAM-gated SFM blocks.
 
 Port of ``BaseBEVBackboneScale`` in
-``hvpr_tpu/models/backbones_2d/base_bev_backbone.py`` (eval branch): per
-level a strided conv block, the scale stream's strided conv, SFM_LAYER_NUMS
-rounds of conv -> CBAM gate by the scale map -> residual, and a transpose-conv
-upsampling; the levels are concatenated. Takes and returns NHWC tensors
+``hvpr_tpu/models/backbones_2d/base_bev_backbone.py``: per level a strided
+conv block, the scale stream's strided conv, SFM_LAYER_NUMS rounds of conv
+-> CBAM gate by the scale map -> residual, and a transpose-conv upsampling;
+the levels are concatenated. In training (``DUAL_PASS: stacked``, the only
+dual pass ported) one pass runs over [memory map ; point map] stacked on the
+batch axis with per-split BN statistics, the scale stream once and tiled. Takes and returns NHWC tensors
 (the JAX layout); inside, the NHWC maps permuted to NCHW are channels_last
 memory for cuDNN. These convs are XLA convolutions in the JAX package, not
 TPU kernels, so they run on cuDNN here. BACKBONE_2D.COMPUTE_DTYPE bf16 runs
@@ -14,7 +16,7 @@ them in bf16 with f32 params and BN.
 import torch
 from torch import nn
 
-from ..model_utils.layers import ConvBNReLU, DeconvBNReLU
+from ..model_utils.layers import ConvBNReLU, DeconvBNReLU, run_sequence
 from .spatial_attention import SpatialAttention
 
 
@@ -62,11 +64,12 @@ class BaseBEVBackboneScale(nn.Module):
         self.deblocks = nn.ModuleList(deblocks)
         self.attention = SpatialAttention()
         self.num_bev_features = sum(up_filters)
+        self.model_cfg = model_cfg
 
-    def _level(self, i, x, y):
+    def _level(self, i, x, y, splits=1):
         x_att = x
         for _ in range(self.sfm_layer_nums[i]):
-            t = self.attention(self.sfmblocks_down[i](x_att), y)
+            t = self.attention(self.sfmblocks_down[i](x_att, splits), y, splits)
             if self.dt is not None:
                 t = t.to(self.dt)
             x_att = t + x_att
@@ -75,10 +78,29 @@ class BaseBEVBackboneScale(nn.Module):
     def forward(self, batch_dict):
         x = batch_dict['spatial_features'].permute(0, 3, 1, 2)
         y = batch_dict['spatial_scale_features'].permute(0, 3, 1, 2)
+        if self.training:
+            return self._train_forward(batch_dict, x, y)
         ups = []
         for i, block in enumerate(self.blocks):
             x = block(x)
             y = self.scale_layers[i](y)
             ups.append(self.deblocks[i](self._level(i, x, y)))
         batch_dict['spatial_features_2d'] = torch.cat(ups, dim=1).permute(0, 2, 3, 1)
+        return batch_dict
+
+    def _train_forward(self, batch_dict, x, y):
+        mode = str(self.model_cfg.get('DUAL_PASS', 'stacked'))
+        if mode != 'stacked':
+            raise NotImplementedError(f'DUAL_PASS {mode!r} is not ported')
+        b = x.shape[0]
+        xx = torch.cat([x, batch_dict['spatial_features_point'].permute(0, 3, 1, 2)])
+        ups = []
+        for i, block in enumerate(self.blocks):
+            xx = run_sequence(block, xx, splits=2)
+            y = self.scale_layers[i](y)
+            lvl = self._level(i, xx, torch.cat([y, y]), splits=2)
+            ups.append(self.deblocks[i](lvl, 2))
+        cat = torch.cat(ups, dim=1).permute(0, 2, 3, 1)
+        batch_dict['spatial_features_2d'] = cat[:b]
+        batch_dict['spatial_features_point_2d'] = cat[b:]
         return batch_dict

@@ -1,8 +1,13 @@
-"""MemAE-style attentive memory, eval branch.
+"""MemAE-style attentive memory.
 
 Port of ``hvpr_tpu/models/backbones_2d/map_to_bev/memory_module.py``
-``MemoryUnitAgg.eval_forward``: pillars address a learnable (M, C) memory
-and the softmax over its top-k rows reconstructs each pillar.
+``MemoryUnitAgg``. Eval (``eval_forward``): pillars address a learnable
+(M, C) memory and the softmax over its top-k rows reconstructs each pillar.
+Training (``train_forward``, the JAX package's gather mode): every point
+feature is reconstructed from the memory once
+(:func:`ops.memory_recon.memory_recon`, kernels K6/K7 on the card), the
+reconstructions of each pillar's top-k points are gathered and aggregated by
+pillar similarity (stop-gradient weights).
 
 Modes (MAP_TO_BEV.TOPK_MODE): ``'fused'`` runs
 :func:`ops.memory_lookup.memory_lookup_fused` (kernel K2 on the card) over a
@@ -17,6 +22,7 @@ import torch
 from torch import nn
 
 from ....ops.memory_lookup import memory_lookup_fused
+from ....ops.memory_recon import memory_recon
 
 
 class MemoryUnitAgg(nn.Module):
@@ -27,6 +33,33 @@ class MemoryUnitAgg(nn.Module):
         self.weight = nn.Parameter(torch.empty(mem_dim, fea_dim))
         stdv = 1.0 / fea_dim ** 0.5
         nn.init.uniform_(self.weight, -stdv, stdv)
+
+    @staticmethod
+    def _aggregate(candidates, pillars, valid=None):
+        """Similarity-softmax aggregation of (B, V, k, C) candidates per
+        pillar; ``valid`` (B, V, k) masks candidates out, and a pillar with
+        none aggregates to 0. The weights carry no gradient."""
+        agg_logits = (candidates * pillars[..., None, :]).sum(dim=-1)    # (B, V, k)
+        if valid is not None:
+            agg_logits = torch.where(valid, agg_logits, -1e9)
+        agg_w = torch.softmax(agg_logits, dim=-1).detach().to(candidates.dtype)
+        out = (agg_w[..., None] * candidates).sum(dim=-2)
+        if valid is not None:
+            out = torch.where(valid.any(dim=-1)[..., None], out, 0.0)
+        return out
+
+    def train_forward(self, pillars, points, topk_idx, topk_valid=None):
+        """(B, V, C) pillars, (B, N, C) point features, (B, V, k) top-k point
+        indices and validity -> dict(output=(B, V, C)). Each of the B*N
+        points is reconstructed once; the results are gathered by
+        ``topk_idx``."""
+        b, n, c = points.shape
+        recon = memory_recon(points.reshape(-1, c), self.weight,
+                             shrink_thres=self.shrink_thres).reshape(b, n, c)
+        v, k = topk_idx.shape[1:]
+        cand = torch.gather(recon, 1, topk_idx.reshape(b, v * k, 1).expand(-1, -1, c))
+        return {'output': self._aggregate(cand.reshape(b, v, k, c), pillars,
+                                          topk_valid)}
 
     def eval_forward(self, pillars, k, mode='fused', vmask=None):
         """(B, V, C) pillars -> dict(output=(B, V, C)); ``vmask`` (B, V)

@@ -1,18 +1,28 @@
-"""HVPR pillar -> BEV scatter with the memory lookup, eval branch.
+"""HVPR pillar -> BEV scatter with the attentive memory.
 
-Port of the eval branch of ``PointPillarScatterAggMemory1Scale`` in
-``hvpr_tpu/models/backbones_2d/map_to_bev/pointpillar_scatter.py``: the
-memory reconstructs every pillar, and two canvases are written, [pillar |
-memory] (``spatial_features``) and the scale stream
+Port of ``PointPillarScatterAggMemory1Scale`` in
+``hvpr_tpu/models/backbones_2d/map_to_bev/pointpillar_scatter.py``.
+
+Eval: the memory reconstructs every pillar, and two canvases are written,
+[pillar | memory] (``spatial_features``) and the scale stream
 (``spatial_scale_features``), NHWC, through
 :func:`ops.bev_canvas.canvas_from_sorted` (kernel K3 on the card). The
 device voxelizer's cells are unique per sample, which is all K3 needs.
+
+Training (``TRAIN_ATTEND_MODE: gather``; the ``fused`` mode is not ported
+yet): :func:`attentive_point_pooling` picks each pillar's top-k points by
+``pillar . point`` with exact ``torch.topk`` (the JAX package takes
+``approx_max_k`` at recall 0.95, which is exact on its CPU backend), the
+memory reconstructs them, and one differentiable ``scatter_to_bev`` emits
+[stop-grad pillar | memory] (``spatial_features``), [pillar | point]
+(``spatial_features_point``) and the scale stream.
 """
 
 import torch
 from torch import nn
 
 from ....ops.bev_canvas import canvas_from_sorted
+from ....ops.scatter import scatter_to_bev
 from .memory_module import MemoryUnitAgg
 
 
@@ -20,6 +30,42 @@ def _canvas_dtype(model_cfg):
     """MAP_TO_BEV.CANVAS_DTYPE: 'bf16' emits the canvases in bfloat16."""
     name = str(model_cfg.get('CANVAS_DTYPE', 'fp32')).lower()
     return torch.bfloat16 if name in ('bf16', 'bfloat16') else torch.float32
+
+
+def attentive_point_pooling(points, point_mask, pillars, k, chunk=2048):
+    """Per pillar, its top-k points by ``pillar . point`` over all points of
+    the scan, re-weighted by stop-gradient softmax similarity and summed.
+
+    The selection score runs under no_grad, ``chunk`` pillars at a time
+    (nothing differentiable flows through it; one chunk of a batch-4
+    flagship scan is a 537 MB score matrix).
+
+    Args:
+        points: (B, N, C) point features; point_mask: (B, N) bool;
+        pillars: (B, V, C); k: top-k.
+    Returns:
+        output (B, V, C); topk_idx (B, V, k) int64; topk_valid (B, V, k)
+        bool, False where the selection fell back to padded points.
+    """
+    b, v, c = pillars.shape
+    neg = torch.where(point_mask, 0.0, -1e9).to(points.dtype)            # (B, N)
+    outs, idxs, valids = [], [], []
+    for v0 in range(0, v, chunk):
+        pc = pillars[:, v0:v0 + chunk]
+        with torch.no_grad():
+            score = torch.bmm(pc, points.transpose(1, 2)) + neg[:, None, :]
+            idx = torch.topk(score, k, dim=-1).indices                   # (B, vc, k)
+        vc = idx.shape[1]
+        pts = torch.gather(points, 1, idx.reshape(b, vc * k, 1).expand(-1, -1, c))
+        pts = pts.reshape(b, vc, k, c)
+        sel_neg = torch.gather(neg, 1, idx.reshape(b, -1)).reshape(b, vc, k)
+        pts = torch.where(sel_neg[..., None] < -0.5, 0.0, pts)
+        agg_logits = (pc[:, :, None, :] * pts).sum(dim=-1) + sel_neg
+        agg_w = torch.softmax(agg_logits, dim=-1).detach()
+        outs.append((agg_w[..., None] * pts).sum(dim=2))
+        idxs.append(idx)
+        valids.append(sel_neg > -0.5)
+    return torch.cat(outs, 1), torch.cat(idxs, 1), torch.cat(valids, 1)
 
 
 class PointPillarScatterAggMemory1Scale(nn.Module):
@@ -39,11 +85,17 @@ class PointPillarScatterAggMemory1Scale(nn.Module):
             mode = 'exact'
         self.topk_mode = mode
         self.out_dtype = _canvas_dtype(model_cfg)
+        train_mode = str(model_cfg.get('TRAIN_ATTEND_MODE', 'fused')).lower()
+        if train_mode not in ('fused', 'gather'):
+            raise ValueError(f'TRAIN_ATTEND_MODE {train_mode!r}')
+        self.train_attend_mode = train_mode
 
     def forward(self, batch_dict):
         pillars = batch_dict['pillar_features']
         coords = batch_dict['voxel_coords']
         vmask = batch_dict['voxel_mask']
+        if self.training:
+            return self._train_forward(batch_dict, pillars, coords, vmask)
         mem = self.memory.eval_forward(pillars, self.k, mode=self.topk_mode,
                                        vmask=vmask)
         fused = torch.cat([pillars, mem['output']], dim=-1)
@@ -52,4 +104,31 @@ class PointPillarScatterAggMemory1Scale(nn.Module):
         batch_dict['spatial_scale_features'] = canvas_from_sorted(
             batch_dict['pillar_scale_features'], coords, vmask, self.ny,
             self.nx, self.out_dtype)
+        return batch_dict
+
+    def _train_forward(self, batch_dict, pillars, coords, vmask):
+        if self.train_attend_mode != 'gather':
+            raise NotImplementedError(
+                "TRAIN_ATTEND_MODE 'fused' is not ported yet; set 'gather'")
+        points = batch_dict['point_features']
+        pmask = batch_dict.get('point_valid_mask')
+        if pmask is None:
+            pmask = torch.ones(points.shape[:2], dtype=torch.bool,
+                               device=points.device)
+        point_agg, topk_idx, topk_valid = attentive_point_pooling(
+            points, pmask, pillars, self.k)
+        mem_agg = self.memory.train_forward(pillars, points, topk_idx,
+                                            topk_valid)['output']
+        fused_mem = torch.cat([pillars.detach(), mem_agg], dim=-1)
+        fused_point = torch.cat([pillars, point_agg], dim=-1)
+        fused = torch.cat([fused_mem, fused_point,
+                           batch_dict['pillar_scale_features']], dim=-1)
+        canvas = scatter_to_bev(fused, coords, vmask, self.ny, self.nx)
+        c_mem, c_pt = fused_mem.shape[-1], fused_point.shape[-1]
+        batch_dict['spatial_features'] = canvas[..., :c_mem]
+        batch_dict['spatial_features_point'] = canvas[..., c_mem:c_mem + c_pt]
+        batch_dict['spatial_scale_features'] = canvas[..., c_mem + c_pt:]
+        batch_dict['point_positive_features'] = point_agg
+        batch_dict['memory_positive_features'] = mem_agg
+        batch_dict['memory_items'] = self.memory.weight
         return batch_dict

@@ -1,9 +1,10 @@
-"""CBAM spatial attention gate (eval), NCHW.
+"""CBAM spatial attention gate, NCHW.
 
 Port of ``hvpr_tpu/models/backbones_2d/spatial_attention.py``: pool the
 scale map channelwise to [max, mean], 3x3 conv + BN, sigmoid, gate x. The
 conv runs in f32 on the (possibly bf16) pooled map, as flax promotes it.
-Keys follow the reference: ``spatial.conv``, ``spatial.norm``.
+Keys follow the reference: ``spatial.conv``, ``spatial.norm``. In training
+``splits`` gives the BN per-split statistics of the stacked dual pass.
 """
 
 import torch
@@ -25,8 +26,8 @@ class _SpatialGate(nn.Module):
         self.conv = Conv2d(2, 1, 3, padding=1, bias=True)
         self.norm = SplitBatchNorm(1)
 
-    def forward(self, w):
-        return torch.sigmoid(self.norm(self.conv(channel_pool(w))))
+    def forward(self, w, splits=1):
+        return torch.sigmoid(self.norm(self.conv(channel_pool(w)), splits))
 
 
 class SpatialAttention(nn.Module):
@@ -36,5 +37,5 @@ class SpatialAttention(nn.Module):
         super().__init__()
         self.spatial = _SpatialGate()
 
-    def forward(self, x, w):
-        return self.spatial(w) * x
+    def forward(self, x, w, splits=1):
+        return self.spatial(w, splits) * x

@@ -1,26 +1,30 @@
-"""Pillar feature encoder over the flat pillar layout (eval).
+"""Pillar feature encoder over the flat pillar layout.
 
 Port of the flat branches of ``hvpr_tpu/models/backbones_3d/vfe/pillar_vfe.py``
 (``decorate_flat_features``, ``PFNLayer``, ``PillarVFE_Scale``). Rows stay
-channel-major (C, R) with R = B*N sorted points; the three segment
+channel-major (C, R) with R = B*N sorted points. In eval the three segment
 reductions of a forward (an xyz+count sum over 4 channels and the PFN max
 sweeps over 16 and 64 channels at hvpr.yaml widths) go through
-:func:`ops.segment_sweep.segment_sweep`, kernel K1 on the card.
+:func:`ops.segment_sweep.segment_sweep`, kernel K1 on the card. In training
+(``module.train()``) they run the plain sweeps under autograd, as the JAX
+package runs their XLA twins when ``train=True``, and the BatchNorms take
+masked batch statistics (valid points, non-empty pillars).
 """
 
 import torch
 from torch import nn
 
 from ....ops.scatter import segment_last_row
-from ....ops.segment_sweep import segment_sweep
+from ....ops.segment_sweep import segment_sweep, segment_sweep_plain
 from ...model_utils.layers import DenseT, MaskedBatchNorm
 
 
 def decorate_flat_features(batch_dict, voxel_size, point_cloud_range,
                            use_absolute_xyz=True, with_distance=False,
-                           max_seg=32):
+                           max_seg=32, train=False):
     """Decorated (C_dec, R) rows, the sentinel-carrying slots and the per-row
-    xyz segment sums (3, R) of the scale stream."""
+    xyz segment sums (3, R) of the scale stream. ``train`` takes the plain
+    sweep (differentiable) instead of the kernel."""
     pts_t = batch_dict['flat_points']
     slot = batch_dict['flat_slot']
     write = batch_dict['flat_write']
@@ -34,7 +38,8 @@ def decorate_flat_features(batch_dict, voxel_size, point_cloud_range,
     xyz_t = pts_t[:3]
     stacked = torch.cat([torch.where(write[None, :], xyz_t, 0.0),
                          write[None, :].to(dt)], dim=0).contiguous()
-    sums4 = segment_sweep(stacked, safe_slot, max_seg, 'sum')
+    sweep = segment_sweep_plain if train else segment_sweep
+    sums4 = sweep(stacked, safe_slot, max_seg, 'sum')
     sums_t, cnt_row = sums4[:3], sums4[3:4]
     means_t = sums_t / torch.clamp(cnt_row, min=1.0)
     f_cluster = xyz_t - means_t
@@ -64,10 +69,11 @@ class PFNLayer(nn.Module):
     def forward(self, inputs, point_mask, safe_slot):
         x = self.linear(inputs)
         if self.norm is not None:
-            x = self.norm(x)
+            x = self.norm(x, point_mask)
         x = torch.relu(x)
         xm = torch.where(point_mask[None, :], x, -1e9).contiguous()
-        seg = segment_sweep(xm, safe_slot, self.max_seg, 'max')
+        sweep = segment_sweep_plain if self.training else segment_sweep
+        seg = sweep(xm, safe_slot, self.max_seg, 'max')
         seg = torch.where(point_mask[None, :], seg, 0.0)
         if self.last_layer:
             return seg
@@ -119,7 +125,8 @@ class PillarVFE_Scale(nn.Module):
         features_t, safe_slot, sums_t = decorate_flat_features(
             batch_dict, self.voxel_size, self.point_cloud_range,
             use_absolute_xyz=self.use_absolute_xyz,
-            with_distance=self.with_distance, max_seg=self.max_seg)
+            with_distance=self.with_distance, max_seg=self.max_seg,
+            train=self.training)
         counts = batch_dict['voxel_num_points']
         b, v = counts.shape
         write = batch_dict['flat_write']
@@ -138,8 +145,9 @@ class PillarVFE_Scale(nn.Module):
         d_mean = torch.linalg.norm(means_t, dim=0, keepdim=True)
         scale_t = torch.cat([counts.reshape(1, -1).to(features.dtype),
                              d_mean, means_t], dim=0)                   # (5, B*V)
-        for layer in self.pfn_scale_layers:
-            scale_t = layer(scale_t)
+        voxel_mask = counts.reshape(-1) > 0
+        for dense, norm, relu in self.pfn_scale_layers:
+            scale_t = relu(norm(dense(scale_t), voxel_mask))
 
         batch_dict['pillar_features'] = features
         batch_dict['pillar_scale_features'] = scale_t.t().reshape(b, v, -1)

@@ -1,9 +1,12 @@
-"""Single 1x1-conv anchor head, eval branch.
+"""Single 1x1-conv anchor head with the HVPR dual-path losses.
 
 Port of ``hvpr_tpu/models/dense_heads/anchor_head_single.py``: the cls / box /
 direction 1x1 convs run fused as one matmul over the NHWC map (kernels
-concatenated along the output axis, the map read once), then anchors decode
-the residuals and the direction bins fix the heading. Anchors are flattened
+concatenated along the output axis, the map read once). In eval the anchors
+decode the residuals and the direction bins fix the heading. In training the
+heads run on both maps (memory and point) and ``get_loss`` sums focal,
+smooth-L1 and direction losses of both paths with the memory-mimicking MSE
+against the stop-gradient point features. Anchors are flattened
 in (ny, nx, class, size, rot) order. DENSE_HEAD.COMPUTE_DTYPE bf16 rounds the
 map and the kernels to bf16 and accumulates in f32, as the JAX head's
 ``preferred_element_type=f32`` matmul does.
@@ -15,8 +18,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from ...utils import box_coder_utils, common_utils
+from ...utils import box_coder_utils, common_utils, loss_utils
 from .target_assigner.anchor_generator import AnchorGenerator
+from .target_assigner.axis_aligned_target_assigner import AxisAlignedTargetAssigner
 
 
 def build_anchors(model_cfg, grid_size, point_cloud_range):
@@ -52,7 +56,21 @@ class AnchorHeadSingle(nn.Module):
             per_loc.append(a.reshape(nz * ny * nx, ns * nr, c))
         flat = np.concatenate(per_loc, axis=1).reshape(-1, per_loc[0].shape[-1])
         self.register_buffer('anchors', torch.from_numpy(flat), persistent=False)
+        for i, a in enumerate(anchors_list):
+            self.register_buffer(f'class_anchors_{i}', torch.from_numpy(a),
+                                 persistent=False)
+        self.num_anchor_classes = len(anchors_list)
         na = sum(num_per_loc)
+        if target_cfg['NAME'] != 'AxisAlignedTargetAssigner':
+            raise NotImplementedError(target_cfg['NAME'])
+        self.target_assigner = AxisAlignedTargetAssigner(
+            model_cfg, class_names, self.box_coder,
+            match_height=target_cfg.get('MATCH_HEIGHT', False))
+        loss_w = model_cfg['LOSS_CONFIG']['LOSS_WEIGHTS']
+        self.cls_loss_func = loss_utils.SigmoidFocalClassificationLoss(alpha=0.25, gamma=2.0)
+        self.reg_loss_func = loss_utils.WeightedSmoothL1Loss(
+            code_weights=loss_w['code_weights'])
+        self.dir_loss_func = loss_utils.WeightedCrossEntropyLoss()
 
         self.conv_cls = nn.Conv2d(input_channels, na * num_class, 1)
         self.conv_box = nn.Conv2d(input_channels, na * self.box_coder.code_size, 1)
@@ -103,9 +121,87 @@ class AnchorHeadSingle(nn.Module):
     def forward(self, batch_dict):
         cls_preds, box_preds, dir_preds = self._heads(
             batch_dict['spatial_features_2d'])
+        if self.training:
+            feat_pt = batch_dict.get('spatial_features_point_2d')
+            pt = self._heads(feat_pt) if feat_pt is not None else (None,) * 3
+            targets = self.target_assigner.assign_targets(
+                [getattr(self, f'class_anchors_{i}')
+                 for i in range(self.num_anchor_classes)], batch_dict['gt_boxes'])
+            batch_dict['loss'], batch_dict['tb_dict'] = self.get_loss(
+                (cls_preds, box_preds, dir_preds), pt, targets, batch_dict)
+            return batch_dict
         batch_cls, batch_box = self.generate_predicted_boxes(
             cls_preds, box_preds, dir_preds)
         batch_dict['batch_cls_preds'] = batch_cls
         batch_dict['batch_box_preds'] = batch_box
         batch_dict['cls_preds_normalized'] = False
         return batch_dict
+
+    # ------------------------------------------------------------------ losses
+
+    def _cls_loss(self, cls_preds, labels):
+        b = cls_preds.shape[0]
+        cls_preds = cls_preds.reshape(b, -1, self.num_class)
+        positives = labels > 0
+        cls_weights = ((labels == 0) | positives).float()
+        pos_normalizer = torch.clamp(positives.sum(dim=1, keepdim=True).float(), min=1.0)
+        cls_weights = cls_weights / pos_normalizer
+        cls_targets = torch.where(labels >= 0, labels, 0)
+        if self.num_class == 1:
+            cls_targets = torch.where(positives, 1, cls_targets)
+        one_hot = torch.nn.functional.one_hot(cls_targets, self.num_class + 1)[..., 1:]
+        loss = self.cls_loss_func(cls_preds, one_hot.to(cls_preds.dtype), cls_weights)
+        return loss.sum() / b
+
+    def _box_loss(self, box_preds, dir_preds, targets):
+        b = box_preds.shape[0]
+        labels = targets['box_cls_labels']
+        reg_targets = targets['box_reg_targets']
+        positives = labels > 0
+        reg_weights = positives.float()
+        reg_weights = reg_weights / torch.clamp(
+            positives.sum(dim=1, keepdim=True).float(), min=1.0)
+        box_preds = box_preds.reshape(b, -1, self.box_coder.code_size)
+        preds_sin, targets_sin = loss_utils.add_sin_difference(box_preds, reg_targets)
+        loc_loss = self.reg_loss_func(preds_sin, targets_sin, reg_weights).sum() / b
+        dir_loss = box_preds.new_zeros(())
+        if dir_preds is not None:
+            num_bins = int(self.model_cfg['NUM_DIR_BINS'])
+            dir_targets = loss_utils.get_direction_target(
+                self.anchors, reg_targets, self.model_cfg['DIR_OFFSET'], num_bins)
+            w = positives.float()
+            w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1.0)
+            dir_loss = self.dir_loss_func(dir_preds.reshape(b, -1, num_bins),
+                                          dir_targets, w).sum() / b
+        return loc_loss, dir_loss
+
+    def get_loss(self, preds, preds_pt, targets, batch_dict):
+        """Total loss and its terms: both paths' cls / loc / dir losses and
+        the memory-mimicking MSE, mean over valid pillars' elements divided
+        again by the pillar count, as the reference does."""
+        lw = self.model_cfg['LOSS_CONFIG']['LOSS_WEIGHTS']
+        labels = targets['box_cls_labels']
+        terms = {}
+        for sfx, (cls_p, box_p, dir_p) in (('', preds), ('_pt', preds_pt)):
+            if cls_p is None:
+                zero = preds[0].new_zeros(())
+                terms.update({f'rpn_loss_cls{sfx}': zero, f'rpn_loss_loc{sfx}': zero,
+                              f'rpn_loss_dir{sfx}': zero})
+                continue
+            loc, dir_ = self._box_loss(box_p, dir_p, targets)
+            terms[f'rpn_loss_cls{sfx}'] = self._cls_loss(cls_p, labels) * lw['cls_weight']
+            terms[f'rpn_loss_loc{sfx}'] = loc * lw['loc_weight']
+            terms[f'rpn_loss_dir{sfx}'] = dir_ * lw['dir_weight']
+        mem_loss = preds[0].new_zeros(())
+        if 'memory_positive_features' in batch_dict:
+            target = batch_dict['point_positive_features'].detach()
+            memory = batch_dict['memory_positive_features']
+            vmask = batch_dict['voxel_mask'][..., None].to(memory.dtype)
+            nv = torch.clamp(batch_dict['voxel_mask'].sum().to(memory.dtype), min=1.0)
+            mse = (((memory - target) ** 2) * vmask).sum() / (nv * memory.shape[-1])
+            mem_loss = mse / nv * lw['mem_weight']
+        rpn = terms['rpn_loss_cls'] + terms['rpn_loss_loc'] + terms['rpn_loss_dir']
+        rpn_pt = (terms['rpn_loss_cls_pt'] + terms['rpn_loss_loc_pt']
+                  + terms['rpn_loss_dir_pt'])
+        tb = dict(terms, mem_loss=mem_loss, rpn_loss=rpn, rpn_loss_point=rpn_pt)
+        return rpn + rpn_pt + mem_loss, tb

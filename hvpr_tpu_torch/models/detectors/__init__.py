@@ -6,8 +6,9 @@ __all__ = {
 }
 
 
-def build_detector(model_cfg, num_class, dataset):
-    """Instantiate a detector module from its config NAME."""
+def build_detector(model_cfg, num_class, dataset, point_stream=True):
+    """Instantiate a detector module from its config NAME; ``point_stream``
+    builds the training-only ``backbone_3d``."""
     name = model_cfg['NAME']
     if name not in __all__:
         raise NotImplementedError(f'detector {name!r} is not ported yet')
@@ -20,4 +21,5 @@ def build_detector(model_cfg, num_class, dataset):
         voxel_size=tuple(float(v) for v in dataset.voxel_size),
         num_point_features=getattr(dataset, 'num_point_features', 4),
         max_points_per_voxel=int(getattr(dataset, 'max_points_per_voxel', 32)),
+        point_stream=point_stream,
     )

@@ -1,11 +1,11 @@
-"""Detector assembly and post-processing (eval).
+"""Detector assembly and post-processing.
 
 Port of ``hvpr_tpu/models/detectors/detector3d_template.py``: the module
-topology vfe -> map_to_bev -> backbone_2d -> dense_head built from the
-config, and ``post_processing`` (sigmoid -> class-agnostic rotated NMS ->
-fixed-shape detections, plus recall records when ``gt_boxes`` are given).
-Only the modules of the HVPR inference path are ported; ``BACKBONE_3D`` is
-read and skipped, as the JAX package skips it in eval.
+topology backbone_3d -> vfe -> map_to_bev -> backbone_2d -> dense_head built
+from the config, and ``post_processing`` (sigmoid -> class-agnostic rotated
+NMS -> fixed-shape detections, plus recall records when ``gt_boxes`` are
+given). The modules of the HVPR inference and train paths are ported; the
+point-stream ``backbone_3d`` runs only in training.
 """
 
 import torch
@@ -15,10 +15,12 @@ from ...ops.rotated_iou import boxes_iou3d
 from ..backbones_2d.base_bev_backbone import BaseBEVBackboneScale
 from ..backbones_2d.map_to_bev.pointpillar_scatter import (
     PointPillarScatterAggMemory1Scale)
+from ..backbones_3d.pointnet2_backbone import PointNet2MSG
 from ..backbones_3d.vfe.pillar_vfe import PillarVFE_Scale
 from ..dense_heads.anchor_head_single import AnchorHeadSingle
 from ..model_utils.model_nms_utils import class_agnostic_nms
 
+_BACKBONES_3D = {'PointNet2MSG': PointNet2MSG}
 _VFES = {'PillarVFE_Scale': PillarVFE_Scale}
 _MAP_TO_BEV = {'PointPillarScatter_Agg_Memory_1_scale':
                PointPillarScatterAggMemory1Scale}
@@ -34,15 +36,20 @@ def _pick(registry, name, kind):
 
 
 class Detector3DTemplate(nn.Module):
-    """Builds ``vfe``, ``map_to_bev_module``, ``backbone_2d`` and
-    ``dense_head`` (the reference's state_dict prefixes) from the config."""
+    """Builds ``backbone_3d``, ``vfe``, ``map_to_bev_module``, ``backbone_2d``
+    and ``dense_head`` (the reference's state_dict prefixes) from the
+    config. ``point_stream=False`` (an eval-only network) leaves
+    ``backbone_3d`` out, as the JAX package's eval variables do."""
 
     def __init__(self, model_cfg, num_class, class_names, grid_size,
                  point_cloud_range, voxel_size, num_point_features=4,
-                 max_points_per_voxel=32):
+                 max_points_per_voxel=32, point_stream=True):
         super().__init__()
         self.model_cfg = model_cfg
         self.num_class = num_class
+        b3d_cfg = model_cfg.get('BACKBONE_3D') if point_stream else None
+        self.backbone_3d = None if b3d_cfg is None else _pick(
+            _BACKBONES_3D, b3d_cfg['NAME'], 'BACKBONE_3D')(b3d_cfg, num_point_features)
         vfe_cfg = model_cfg['VFE']
         self.vfe = _pick(_VFES, vfe_cfg['NAME'], 'VFE')(
             vfe_cfg, num_point_features, voxel_size, point_cloud_range,

@@ -26,7 +26,11 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG.parent / 'build'
-KERNELS = ('segment_sweep', 'memory_lookup', 'bev_canvas')
+SOURCES = ('segment_sweep', 'memory_lookup', 'bev_canvas', 'ball_query',
+           'fps_chunks', 'memory_recon')
+# one launch count per kernel; memory_recon.cu holds the last two
+KERNELS = ('segment_sweep', 'memory_lookup', 'bev_canvas', 'ball_query',
+           'fps_chunks', 'memory_recon_fwd', 'memory_recon_bwd')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -56,7 +60,7 @@ def build_all():
     libraries it built (empty when all were already there).
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    todo = [n for n in KERNELS if not _lib_path(n).exists()]
+    todo = [n for n in SOURCES if not _lib_path(n).exists()]
     if not todo:
         return {}
     nvcc = _nvcc()
@@ -82,7 +86,7 @@ def build_all():
 
 
 def library(name):
-    """The loaded ctypes library of kernel ``name`` (built on first use)."""
+    """The loaded ctypes library of source ``name`` (built on first use)."""
     lib = _libs.get(name)
     if lib is None:
         if not _lib_path(name).exists():
@@ -136,6 +140,17 @@ def plain_versions():
         yield
     finally:
         _plain[0] = False
+
+
+def refuse_grad(name, *tensors):
+    """Raise if autograd would need a gradient through a kernel that has no
+    backward: the output of such a kernel carries no history, so a training
+    forward through it would drop every gradient upstream silently."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f'{name}: the CUDA kernel has no backward, but an input requires '
+            f'grad; run it under torch.no_grad() or call its plain version')
 
 
 def check_cuda_input(name, tensor, dtype, ndim):

@@ -6,7 +6,9 @@ tensor :func:`canvas_from_sorted` zeroes the canvas and launches
 on a CPU tensor it runs :func:`canvas_plain` (``scatter_to_bev``). Cells are
 unique per sample, so there are no write conflicts and the result is exact,
 in bf16 too: the features are cast to the canvas dtype first, as the JAX
-package pre-casts them.
+package pre-casts them. The kernel has no backward: with grad enabled and
+features that require grad it raises (training scatters with the
+differentiable ``scatter_to_bev``).
 """
 
 import ctypes
@@ -34,6 +36,7 @@ def canvas_from_sorted(features, coords, mask, ny, nx, out_dtype=torch.float32):
     """
     if not _kernels.use_kernel(features):
         return canvas_plain(features, coords, mask, ny, nx, out_dtype)
+    _kernels.refuse_grad('bev_canvas', features)
     b, v, c = features.shape
     feat = features.to(out_dtype).contiguous()
     _kernels.check_cuda_input('canvas coords', coords, torch.int32, 3)

@@ -23,7 +23,8 @@ up: their output, threshold and count are 0.
 
 On a CUDA tensor :func:`memory_lookup_fused` launches
 ``csrc/memory_lookup.cu``; on a CPU tensor it runs
-:func:`memory_lookup_plain`.
+:func:`memory_lookup_plain`. The kernel has no backward: with grad enabled
+and an input that requires grad it raises (eval runs under no_grad).
 """
 
 import ctypes
@@ -94,6 +95,7 @@ def memory_lookup_fused(pillars, memory, k, row_mask=None, return_stats=False):
         raise ValueError(f'memory_lookup: k={k} outside [1, {NUM_BUCKETS}]')
     if not _kernels.use_kernel(pillars):
         return memory_lookup_plain(pillars, memory, k, row_mask, return_stats)
+    _kernels.refuse_grad('memory_lookup', pillars, memory)
 
     _kernels.check_cuda_input('memory_lookup pillars', pillars, torch.float32, 2)
     _kernels.check_cuda_input('memory_lookup memory', memory, torch.float32, 2)

@@ -1,0 +1,168 @@
+"""Bucketed ball query (kernel K4) and chunk-parallel FPS (kernel K5).
+
+Port of ``hvpr_tpu/ops/pn2_select.py`` ``ball_query_bucket`` and
+``fps_chunks_pallas``. On a CUDA tensor :func:`ball_query_bucket` launches
+``csrc/ball_query.cu`` and :func:`fps_chunks` launches
+``csrc/fps_chunks.cu``; on a CPU tensor each runs its plain version.
+
+Ball query semantics (the TPU's lane buckets, bucket = point index mod 128):
+for each centre, the first in-radius valid point of each of the ``nsample``
+lowest-indexed non-empty buckets, in ascending index order; empty slots are
+back-filled with the first hit (0 when there is none), and ``cnt`` counts the
+genuine hits. Squared distances are ``(dx*dx + dy*dy) + dz*dz`` in f32 with
+every product and sum rounded (no FMA), compared ``< float32(r*r)``.
+
+FPS rules (``_fps_kernel``): each chunk starts at its first valid row, or at
+its last row if none is valid; invalid rows score -BIG; each step takes the
+row of largest running minimum distance, ties to the lowest row.
+
+Both are selection machinery: their outputs are integer indices and carry no
+gradient.
+"""
+
+import ctypes
+
+import torch
+
+from . import _kernels
+
+NUM_BUCKETS = 128
+_BIG = 1e30
+_FPS_MAX_ROWS = 8192     # rows of one chunk the FPS kernel holds in shared memory
+
+
+def _round_up(x, m):
+    return (x + m - 1) // m * m
+
+
+def _sq_dist(a, b):
+    """(dx*dx + dy*dy) + dz*dz over the last axis (3), every op rounded."""
+    d = a - b
+    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
+    return (dx * dx + dy * dy) + dz * dz
+
+
+def ball_query_bucket_plain(radius, nsample, xyz, new_xyz, mask, chunk=512):
+    """Plain version: per-centre bucket minima of the in-radius indices, then
+    the ``nsample`` smallest (the math of ``ball_query_bucket_xla``)."""
+    b, n, _ = xyz.shape
+    r2 = torch.tensor(float(radius) * float(radius), dtype=torch.float32)
+    np_ = _round_up(n, NUM_BUCKETS)
+    gidx = torch.arange(n, device=xyz.device, dtype=torch.float32)
+    keys = []
+    for s0 in range(0, new_xyz.shape[1], chunk):
+        cent = new_xyz[:, s0:s0 + chunk].float()
+        d2 = _sq_dist(cent[:, :, None, :], xyz.float()[:, None, :, :])   # (B, Sc, N)
+        hit = (d2 < r2.to(d2.device)) & mask[:, None, :]
+        key = torch.where(hit, gidx, _BIG)
+        if np_ != n:
+            key = torch.nn.functional.pad(key, (0, np_ - n), value=_BIG)
+        keys.append(key.reshape(b, -1, np_ // NUM_BUCKETS, NUM_BUCKETS)
+                    .amin(dim=2))                                      # (B, Sc, 128)
+    key = torch.cat(keys, dim=1)
+    k_sel = torch.sort(key, dim=-1).values[..., :nsample]
+    found = k_sel < _BIG * 0.5
+    idx = torch.where(found, k_sel, 0.0).to(torch.int32)
+    idx = torch.where(found, idx, idx[..., 0:1])
+    cnt = found.sum(dim=-1).to(torch.int32)
+    return idx, cnt
+
+
+def ball_query_bucket(radius, nsample, xyz, new_xyz, mask):
+    """Bucketed ball query.
+
+    Args:
+        radius: float; nsample: int, <= 128.
+        xyz: (B, N, 3) f32 support points; new_xyz: (B, S, 3) f32 centres;
+        mask: (B, N) bool support validity.
+    Returns:
+        idx (B, S, nsample) int32, cnt (B, S) int32.
+    """
+    if not 1 <= nsample <= NUM_BUCKETS:
+        raise ValueError(f'ball_query: nsample {nsample} outside [1, 128]')
+    xyz = xyz.detach()
+    new_xyz = new_xyz.detach()
+    if not _kernels.use_kernel(xyz):
+        return ball_query_bucket_plain(radius, nsample, xyz, new_xyz, mask)
+    xyz = xyz.float().contiguous()
+    new_xyz = new_xyz.float().contiguous()
+    mask = mask.contiguous()
+    _kernels.check_cuda_input('ball_query xyz', xyz, torch.float32, 3)
+    _kernels.check_cuda_input('ball_query new_xyz', new_xyz, torch.float32, 3)
+    _kernels.check_cuda_input('ball_query mask', mask, torch.bool, 2)
+    b, n, _ = xyz.shape
+    s = new_xyz.shape[1]
+    if (xyz.shape[2] != 3 or new_xyz.shape[0] != b or new_xyz.shape[2] != 3
+            or mask.shape != (b, n) or len({xyz.device, new_xyz.device,
+                                            mask.device}) != 1):
+        raise ValueError(f'ball_query: xyz {tuple(xyz.shape)}, new_xyz '
+                         f'{tuple(new_xyz.shape)}, mask {tuple(mask.shape)}')
+    idx = torch.empty(b, s, nsample, dtype=torch.int32, device=xyz.device)
+    cnt = torch.empty(b, s, dtype=torch.int32, device=xyz.device)
+    if b * s == 0:
+        return idx, cnt
+    r2 = ctypes.c_float(float(radius) * float(radius))
+    fn = _kernels.library('ball_query').hvpr_ball_query
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_float]
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    err = fn(_kernels.ptr(xyz), _kernels.ptr(new_xyz), _kernels.ptr(mask),
+             _kernels.ptr(idx), _kernels.ptr(cnt), r2, b, n, s, nsample,
+             _kernels.stream_handle(xyz))
+    _kernels.launched('ball_query', err)
+    return idx, cnt
+
+
+def fps_chunks_plain(pts, valid, nsamp):
+    """Plain version of :func:`fps_chunks`: the same loop over all chunks at
+    once, (R, L) vectors per step."""
+    r, l, _ = pts.shape
+    p = pts.float()
+    rows = torch.arange(l, device=pts.device)
+    mind = torch.where(valid, _BIG, -_BIG).to(torch.float32)
+    last = torch.where(valid, rows, l - 1).amin(dim=1)                  # (R,)
+    out = torch.empty(r, nsamp, dtype=torch.int32, device=pts.device)
+    ar = torch.arange(r, device=pts.device)
+    for i in range(nsamp):
+        out[:, i] = last.to(torch.int32)
+        d = _sq_dist(p, p[ar, last][:, None, :])                       # (R, L)
+        mind = torch.minimum(mind, d)
+        mx = mind.amax(dim=1, keepdim=True)
+        last = torch.where(mind == mx, rows, l - 1).amin(dim=1)
+    return out
+
+
+def fps_chunks(pts, valid, nsamp):
+    """Exact FPS inside each of R independent point sets.
+
+    Args:
+        pts: (R, L, 3) f32 point sets (Morton-sorted chunks, by the caller).
+        valid: (R, L) bool.
+        nsamp: samples per set.
+    Returns:
+        (R, nsamp) int32 local row indices.
+    """
+    pts = pts.detach()
+    if not _kernels.use_kernel(pts):
+        return fps_chunks_plain(pts, valid, nsamp)
+    pts = pts.float().contiguous()
+    valid = valid.contiguous()
+    _kernels.check_cuda_input('fps_chunks pts', pts, torch.float32, 3)
+    _kernels.check_cuda_input('fps_chunks valid', valid, torch.bool, 2)
+    r, l, _ = pts.shape
+    if pts.shape[2] != 3 or valid.shape != (r, l) or valid.device != pts.device:
+        raise ValueError(f'fps_chunks: pts {tuple(pts.shape)}, valid '
+                         f'{tuple(valid.shape)}')
+    if not 1 <= l <= _FPS_MAX_ROWS:
+        raise ValueError(f'fps_chunks: {l} rows per set, the kernel holds '
+                         f'at most {_FPS_MAX_ROWS}')
+    out = torch.empty(r, nsamp, dtype=torch.int32, device=pts.device)
+    if r * nsamp == 0:
+        return out
+    fn = _kernels.library('fps_chunks').hvpr_fps_chunks
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(_kernels.ptr(pts), _kernels.ptr(valid), _kernels.ptr(out),
+             r, l, nsamp, _kernels.stream_handle(pts))
+    _kernels.launched('fps_chunks', err)
+    return out

@@ -10,6 +10,10 @@ Both give every row the reduction over the rows of equal slot within
 segments of <= ``max_seg`` rows is the whole segment. The kernel runs the
 plain version's masked doubling sweeps in the same order, so the two agree
 bit for bit, for ``sum`` as for ``max``.
+
+The kernel has no backward: on a CUDA tensor that requires grad (with grad
+enabled) :func:`segment_sweep` raises. The training forward calls the plain
+sweeps directly, as the JAX package runs their XLA twins when training.
 """
 
 import ctypes
@@ -44,6 +48,7 @@ def segment_sweep(x_t, safe_slot, max_seg=32, op='max'):
         raise ValueError(op)
     if not _kernels.use_kernel(x_t):
         return segment_sweep_plain(x_t, safe_slot, max_seg, op)
+    _kernels.refuse_grad('segment_sweep', x_t)
     _kernels.check_cuda_input('segment_sweep x_t', x_t, torch.float32, 2)
     _kernels.check_cuda_input('segment_sweep safe_slot', safe_slot,
                               torch.int32, 1)

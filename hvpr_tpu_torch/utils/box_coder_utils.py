@@ -1,16 +1,29 @@
-"""SECOND-style residual box decoding (port of ``ResidualCoder.decode`` in
+"""SECOND-style residual box codec (port of ``ResidualCoder`` in
 ``hvpr_tpu/utils/box_coder_utils.py``)."""
 
 import torch
 
 
 class ResidualCoder:
-    """7-dof residual box codec, diagonal-normalized (decode only)."""
+    """7-dof residual box codec, diagonal-normalized."""
 
     def __init__(self, code_size=7, encode_angle_by_sincos=False, **kwargs):
         if encode_angle_by_sincos:
             raise NotImplementedError('encode_angle_by_sincos is not ported')
         self.code_size = code_size
+
+    def encode(self, boxes, anchors):
+        """Encode (..., 7+C) boxes against (..., 7+C) anchors."""
+        xa, ya, za = anchors[..., 0], anchors[..., 1], anchors[..., 2]
+        dxa, dya, dza = torch.clamp(anchors[..., 3:6], min=1e-5).unbind(-1)
+        xg, yg, zg = boxes[..., 0], boxes[..., 1], boxes[..., 2]
+        dxg, dyg, dzg = torch.clamp(boxes[..., 3:6], min=1e-5).unbind(-1)
+        diagonal = torch.sqrt(dxa ** 2 + dya ** 2)
+        cts = [boxes[..., i] - anchors[..., i] for i in range(7, boxes.shape[-1])]
+        return torch.stack([(xg - xa) / diagonal, (yg - ya) / diagonal,
+                            (zg - za) / dza, torch.log(dxg / dxa),
+                            torch.log(dyg / dya), torch.log(dzg / dza),
+                            boxes[..., 6] - anchors[..., 6], *cts], dim=-1)
 
     def decode(self, box_encodings, anchors):
         """Decode (..., code_size) encodings against (..., 7+C) anchors."""

@@ -1,5 +1,5 @@
 """Small tensor helpers (port of the parts of ``hvpr_tpu/utils/common_utils.py``
-on the inference path)."""
+the port uses)."""
 
 import torch
 

@@ -38,10 +38,20 @@ def realistic_scans(rng, batch, n, pcr):
     """(batch, n, 4) KITTI-like scans: 49 cars of 200 points each plus
     ground points whose density falls off as 1/r over a +-24 degree cone,
     so near pillars fill their 32-point cap and far ones hold 1-2 points."""
+    return realistic_scans_with_boxes(rng, batch, n, pcr)[0]
+
+
+def realistic_scans_with_boxes(rng, batch, n, pcr):
+    """:func:`realistic_scans` (the same draws in the same order) and each
+    scan's car boxes as ``gt_boxes`` (batch, 49, 8) float32: x, y, z, dx,
+    dy, dz, heading, class 1."""
     pts = np.zeros((batch, n, 4), dtype=np.float32)
+    gt = np.zeros((batch, 49, 8), dtype=np.float32)
     n_obj_pts = 200
     for b in range(batch):
         boxes = make_scene(rng)
+        gt[b, :, :7] = boxes
+        gt[b, :, 7] = 1.0
         clusters = []
         for box in boxes:
             local = rng.uniform(-0.4, 0.4, (n_obj_pts, 3)) * box[3:6]
@@ -66,4 +76,4 @@ def realistic_scans(rng, batch, n, pcr):
         xyz[:, 2] = np.clip(xyz[:, 2], pcr[2] + 0.1, pcr[5] - 0.1)
         pts[b, :, :3] = xyz
         pts[b, :, 3] = rng.uniform(0, 1, n)
-    return pts
+    return pts, gt

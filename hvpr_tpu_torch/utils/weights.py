@@ -13,9 +13,13 @@ transforms are its inverses:
   ConvTranspose  HWIO, applied unflipped   -> IOHW, H and W flipped (torch's
                  by flax                      transposed conv is the adjoint)
   BatchNorm      scale/bias/mean/var       -> weight/bias/running_mean/running_var
+  point-stream   Dense (in, out)           -> 1x1 conv (out, in, 1, 1)
 
-Point-stream leaves (``backbone_3d``) have no counterpart on the eval path
-and are skipped.
+Point-stream leaves map to ``backbone_3d.SA_modules.{i}.mlps.{j}.{3k}`` and
+``backbone_3d.FP_modules.{i}.mlp.{3k}`` (BN at ``3k + 1``). Flax names the
+FP modules in the order they are applied, last level first, so
+``FPModule_{j}`` is the reference's ``FP_modules[len - 1 - j]``; the length
+is the number of distinct ``FPModule_*`` names among the variables.
 """
 
 import numpy as np
@@ -38,6 +42,10 @@ def _identity(w):
     return np.asarray(w)
 
 
+def _dense_as_conv1x1(w):
+    return np.transpose(w)[:, :, None, None]
+
+
 _BN = {'scale': 'weight', 'bias': 'bias', 'mean': 'running_mean',
        'var': 'running_var'}
 
@@ -46,9 +54,20 @@ def _idx(name):
     return int(name.rsplit('_', 1)[1])
 
 
-def _translate(p):
+def _translate(p, num_fp_modules):
     """flax path (collection dropped) -> (torch key, transform), or None."""
     leaf = p[-1]
+    if p[0] == 'backbone_3d':
+        if p[1].startswith('SAModuleMSG_'):
+            base = f'backbone_3d.SA_modules.{_idx(p[1])}.mlps.{_idx(p[2])}'
+        elif p[1].startswith('FPModule_'):
+            base = f'backbone_3d.FP_modules.{num_fp_modules - 1 - _idx(p[1])}.mlp'
+        else:
+            return None
+        k = _idx(p[3])
+        if p[3].startswith('Dense'):
+            return f'{base}.{3 * k}.weight', _dense_as_conv1x1
+        return f'{base}.{3 * k + 1}.{_BN[leaf]}', _identity
     if p[0] == 'vfe':
         if p[1].startswith('PFNLayer_'):
             i = _idx(p[1])
@@ -97,14 +116,15 @@ def _translate(p):
 def from_flax_variables(flat_numpy):
     """{'params/a/b/leaf': array, 'batch_stats/...': array} -> state_dict.
 
-    Raises KeyError on a leaf of the eval path that has no reference key.
+    Raises KeyError on a leaf that has no reference key.
     """
+    num_fp_modules = len({path.split('/')[2] for path in flat_numpy
+                          if path.split('/')[1:2] == ['backbone_3d']
+                          and path.split('/')[2].startswith('FPModule_')})
     state = {}
     for path, value in flat_numpy.items():
         parts = path.split('/')[1:]
-        if parts[0] == 'backbone_3d':
-            continue
-        mapped = _translate(parts)
+        mapped = _translate(parts, num_fp_modules)
         if mapped is None:
             raise KeyError(f'no reference key for flax leaf {path}')
         key, transform = mapped

@@ -3,8 +3,12 @@
 Marked ``cuda``: each test skips where torch sees no CUDA device (the
 kernels have no CPU form). On a machine with a card run them with
 ``python -m pytest tests/test_torch_port_cuda.py -q``. The kernels repeat
-their plain versions' arithmetic in the same order (K1) or with exact f64
-accumulation (K2), or copy bytes (K3), so every comparison is exact.
+their plain versions' arithmetic in the same order (K1, K4, K5: products and
+sums rounded one by one, no FMA contraction) or with exact f64 accumulation
+(K2), or copy bytes (K3), so those comparisons are exact. K6/K7 (the memory
+reconstruction) also accumulate exact bf16 products in f64, but a row sum of
+f32 terms in f64 may round its last bit by order: they are held to 1e-5 of
+the output's largest magnitude.
 """
 
 import numpy as np
@@ -14,6 +18,8 @@ import torch
 from hvpr_tpu_torch.ops import _kernels
 from hvpr_tpu_torch.ops.bev_canvas import canvas_from_sorted
 from hvpr_tpu_torch.ops.memory_lookup import memory_lookup_fused
+from hvpr_tpu_torch.ops.memory_recon import memory_recon, recon_backward, recon_forward
+from hvpr_tpu_torch.ops.pn2_select import ball_query_bucket, fps_chunks
 from hvpr_tpu_torch.ops.segment_sweep import segment_sweep
 
 pytestmark = pytest.mark.cuda
@@ -83,3 +89,98 @@ def test_bev_canvas_kernel(cuda, dtype):
     got, want = _both(canvas_from_sorted, feat, coords.to(cuda), mask.to(cuda),
                       ny, nx, dtype)
     assert got.dtype == dtype and torch.equal(got, want)
+
+
+def test_kernels_without_backward_refuse_grad(cuda):
+    """K1-K3 have no backward: an input that requires grad raises (with grad
+    enabled) instead of returning an output with no history."""
+    x = torch.randn(16, 64, device=cuda, requires_grad=True)
+    slot = torch.arange(64, dtype=torch.int32, device=cuda)
+    mem = torch.randn(32, 16, device=cuda)
+    feat = torch.randn(1, 8, 4, device=cuda, requires_grad=True)
+    coords = torch.zeros(1, 8, 3, dtype=torch.int32, device=cuda)
+    coords[0, :, 2] = torch.arange(8, dtype=torch.int32)
+    vmask = torch.ones(1, 8, dtype=torch.bool, device=cuda)
+    calls = [lambda: segment_sweep(x, slot, 32, 'max'),
+             lambda: memory_lookup_fused(x.t().contiguous(), mem, 4),
+             lambda: canvas_from_sorted(feat, coords, vmask, 1, 8)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match='no backward'):
+            call()
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()
+
+
+def _scan(rng, b, n):
+    """(b, n, 3) points of KITTI-like 16384-point scans, n of them at random."""
+    from hvpr_tpu_torch.utils.scans import realistic_scans
+    pcr = [0, -39.68, -3, 69.12, 39.68, 1]
+    pts = realistic_scans(rng, b, 16384, pcr)[..., :3]
+    return torch.from_numpy(pts[:, rng.permutation(16384)[:n]].copy())
+
+
+@pytest.mark.parametrize('b,n,s,radius,nsample', [
+    (2, 1000, 50, 0.3, 32),           # mod-128 bucket collisions
+    (4, 16384, 4096, 0.1, 16),        # hvpr.yaml SA1, both radii
+    (4, 16384, 4096, 0.5, 32),
+    (4, 4096, 1024, 1.0, 32)])        # SA2
+def test_ball_query_kernel(cuda, b, n, s, radius, nsample):
+    rng = np.random.default_rng(n + s)
+    if n == 1000:
+        xyz = torch.from_numpy(rng.uniform(0, 1, (b, n, 3)).astype(np.float32))
+    else:
+        xyz = _scan(rng, b, n)
+    centres = xyz[:, rng.choice(n, s, replace=False)].clone()
+    centres[0, 0] = 1e3                                      # no point in reach
+    mask = torch.from_numpy(rng.uniform(size=(b, n)) > 0.05)
+    before = _kernels.launch_counts()['ball_query']
+    (gi, gc), (wi, wc) = _both(ball_query_bucket, radius, nsample, xyz.to(cuda),
+                               centres.to(cuda), mask.to(cuda))
+    assert torch.equal(gi, wi) and torch.equal(gc, wc)
+    assert int(gc[0, 0]) == 0 and int(gc.max()) > 1
+    assert _kernels.launch_counts()['ball_query'] == before + 1
+
+
+@pytest.mark.parametrize('r,l,nsamp', [(3, 100, 20), (64, 1024, 256), (64, 256, 64)])
+def test_fps_chunks_kernel(cuda, r, l, nsamp):
+    rng = np.random.default_rng(l)
+    pts = torch.from_numpy(rng.normal(size=(r, l, 3)).astype(np.float32))
+    pts[0, 10:20] = pts[0, 5]                                # exact ties
+    valid = torch.from_numpy(rng.uniform(size=(r, l)) > 0.2)
+    valid[1] = False                                         # a set with no valid row
+    valid[2, :7] = False                                     # starts past row 0
+    before = _kernels.launch_counts()['fps_chunks']
+    got, want = _both(fps_chunks, pts.to(cuda), valid.to(cuda), nsamp)
+    assert torch.equal(got, want)
+    assert int(got[1, 0]) == l - 1 and int(got[2, 0]) == int(valid[2].int().argmax())
+    assert _kernels.launch_counts()['fps_chunks'] == before + 1
+
+
+def _close(got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize('r,m,c,lam', [(1000, 64, 32, 0.0), (1003, 300, 64, 0.0025),
+                                       (65536, 2000, 64, 0.0025)])
+def test_memory_recon_kernels(cuda, r, m, c, lam):
+    rng = np.random.default_rng(r)
+    x = torch.from_numpy(rng.normal(0, 1, (r, c)).astype(np.float32)).to(cuda)
+    w = torch.from_numpy(rng.uniform(-1, 1, (m, c)).astype(np.float32) / c ** 0.5).to(cuda)
+    dy = torch.from_numpy(rng.normal(0, 1, (r, c)).astype(np.float32)).to(cuda)
+    got, want = _both(recon_forward, x, w, lam)
+    _close(got, want)
+    (gdx, gdw), (wdx, wdw) = _both(recon_backward, x, w, dy, lam)
+    _close(gdx, wdx)
+    _close(gdw, wdw)
+    # the autograd function launches K6 forward and K7 backward
+    before = _kernels.launch_counts()
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    (memory_recon(xr, wr, lam) * dy).sum().backward()
+    after = _kernels.launch_counts()
+    assert after['memory_recon_fwd'] == before['memory_recon_fwd'] + 1
+    assert after['memory_recon_bwd'] == before['memory_recon_bwd'] + 1
+    _close(xr.grad, wdx)
+    _close(wr.grad, wdw)
