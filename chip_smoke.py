@@ -15,16 +15,20 @@ scans with seeded random weights:
   is held against its plain PyTorch version at the shapes the path gives
   it, the path must launch each of them, and its detections must equal
   those of the same pipeline through the plain versions.
-- training, batch 4, ``TRAIN_ATTEND_MODE: gather``: the point stream, the
-  VFE, the attentive scatter with the memory reconstruction, the dual-pass
+- training, batch 4, as shipped (``TRAIN_ATTEND_MODE: fused``): the point
+  stream, the VFE, the attentive scatter (bucket threshold, masked attention
+  of the points and of their memory reconstructions), the dual-pass
   backbone, the dual heads with their losses, backward and the
   adam_onecycle update. Each train kernel (K4 ball query, K5 FPS, K6/K7 the
-  memory reconstruction forward/backward) is held against its plain
-  version at the shapes of one step, one step through the kernels must
-  equal one step through the plain versions from the same state bit for bit
-  under torch's deterministic algorithms (each gradient, loss term and
-  updated weight), and 5 more steps must launch each kernel its expected
-  number of times.
+  memory reconstruction forward/backward, K8 the bucket threshold, K9/K10
+  the masked attention forward/backward) is held against its plain version
+  at the shapes of one step, one step through the kernels must equal one
+  step through the plain versions from the same state bit for bit under
+  torch's deterministic algorithms (each gradient, loss term and updated
+  weight), and 5 more steps must launch each kernel its expected number of
+  times.
+- training in ``TRAIN_ATTEND_MODE: gather``: the kernel step must equal the
+  plain step as above, and 2 timed steps must launch K4-K7 and never K8-K10.
 
 It prints a ``{"kernels": [...]}`` JSON line (times, bounds, launches,
 errors), the card's name and power limit as nvidia-smi reports them, and
@@ -45,19 +49,24 @@ CFG = 'tools/cfgs/kitti_models/hvpr.yaml'
 BATCH = 8
 TRAIN_BATCH = 4
 N_POINTS = 16384
-TRAIN_STEPS = 5                    # timed steps after the two comparison steps
+TRAIN_STEPS = 5                    # timed fused steps after the two comparison steps
+GATHER_STEPS = 2                   # timed steps of the gather mode
 TOTAL_STEPS = 100                  # the OneCycle schedule's length
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
 F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
 INFER_KERNELS = ('segment_sweep', 'memory_lookup', 'bev_canvas')
 # launches of each train kernel in one step of hvpr.yaml: 2 SA levels x 2
-# radii ball queries, one FPS per level, one reconstruction each way
+# radii ball queries, one FPS per level, one reconstruction each way, one
+# threshold, and the masked attention of the points and of their
+# reconstructions, each way (the last three in fused mode only)
 STEP_LAUNCHES = {'ball_query': 4, 'fps_chunks': 2, 'memory_recon_fwd': 1,
-                 'memory_recon_bwd': 1}
-# K6/K7 against their plain versions: both accumulate exact bf16 products
-# in f64 and round once, so they agree but for an order-dependent last f64
-# bit of a row sum; allowed: 1e-5 of the output's largest magnitude
+                 'memory_recon_bwd': 1, 'bucket_threshold': 1,
+                 'masked_attend_fwd': 2, 'masked_attend_bwd': 2}
+ATTEND_KERNELS = ('bucket_threshold', 'masked_attend_fwd', 'masked_attend_bwd')
+# K6/K7 and K9/K10 against their plain versions: both accumulate exact
+# products in f64 and round once, so they agree but for an order-dependent
+# last f64 bit of a sum; allowed: 1e-5 of the output's largest magnitude
 RECON_RTOL = 1e-5
 META = {
     'segment_sweep': ('hvpr_tpu_torch/csrc/segment_sweep.cu',
@@ -74,6 +83,12 @@ META = {
                          'hvpr_tpu/ops/memory_recon.py:141'),
     'memory_recon_bwd': ('hvpr_tpu_torch/csrc/memory_recon.cu',
                          'hvpr_tpu/ops/memory_recon.py:169'),
+    'bucket_threshold': ('hvpr_tpu_torch/csrc/topk_attend.cu',
+                         'hvpr_tpu/ops/topk_attend.py:179'),
+    'masked_attend_fwd': ('hvpr_tpu_torch/csrc/topk_attend.cu',
+                          'hvpr_tpu/ops/topk_attend.py:376'),
+    'masked_attend_bwd': ('hvpr_tpu_torch/csrc/topk_attend.cu',
+                          'hvpr_tpu/ops/topk_attend.py:427'),
 }
 
 
@@ -430,10 +445,11 @@ def train_stage_ms(net, batch, reps=3):
     return {name: statistics.median(v) for name, v in times.items()}
 
 
-def _train_bounds(name, calls, plain_outs):
+def _train_bounds(name, calls, plain_outs, selected):
     """(bound ms, bound_by) of one step's calls of train kernel ``name``,
     from this run's inputs (and, for the ball query, the plain results,
-    which say where each centre's sweep may stop)."""
+    which say where each centre's sweep may stop; for the masked attention,
+    ``selected``: {shared: selected points summed over the valid rows})."""
     ops = nbytes = 0.0
     flops = F32_FLOPS_PER_S
     for (args, _), out in zip(calls, plain_outs):
@@ -456,7 +472,7 @@ def _train_bounds(name, calls, plain_outs):
             r, l, _ = pts.shape
             ops += 10.0 * r * l * nsamp
             nbytes += pts.numel() * 4 + valid.numel() + r * nsamp * 4
-        else:
+        elif name.startswith('memory_recon'):
             # products of R x M x C multiply-adds on bf16 tensor cores: 2 in
             # the forward (x W^T, n W), 5 in the backward (x W^T, dy W^T,
             # dl W, dl^T x, n^T dy)
@@ -468,48 +484,125 @@ def _train_bounds(name, calls, plain_outs):
             flops = BF16_FLOPS_PER_S
             nbytes += (2 * r * c + m * c) * 4 if name == 'memory_recon_fwd' \
                 else (3 * r * c + 2 * m * c) * 4
+        else:
+            # the dense (R, N) score product s of the R valid rows on bf16
+            # tensor cores; K9 and K10 add 2 C flops a selected point for
+            # the value product (out, or dval), and where the tables are
+            # split 2 C more for its logit l, which only the selected
+            # points need
+            pill, table = args[0], args[1]
+            b, v, c = pill.shape
+            n = table.shape[1]
+            row_mask = args[4] if name == 'bucket_threshold' else args[-1]
+            r = float(row_mask.sum())
+            io = pill.numel() + table.numel() + b * n + b * v       # in, f32
+            ops += 2.0 * r * n * c
+            if name == 'bucket_threshold':
+                nbytes += io * 4 + b * v + b * v * 4
+            else:
+                shared = args[5] if name == 'masked_attend_fwd' else args[8]
+                ops += (1 if shared else 2) * 2.0 * c * selected[shared]
+                io += 0 if shared else table.numel()
+                if name == 'masked_attend_fwd':       # + out, mx, den, count
+                    nbytes += io * 4 + b * v + b * v * c * 4 + 3 * b * v * 4
+                else:                                  # + mx, den, dout; dval
+                    nbytes += io * 4 + b * v + 2 * b * v * 4 + b * v * c * 4 \
+                        + b * n * c * 4
+            flops = BF16_FLOPS_PER_S
     return bound(ops, flops, nbytes)
 
 
-def train_phase(smi):
-    """Kernels K4-K7 against their plain versions at the train step's
-    shapes, one kernel step against one plain step, and 5 more steps.
-    Returns ({kernel: entry}, the 5 steps' launch counts)."""
+def _attend_library_ms(calls):
+    """CUDA-event ms of scaled_dot_product_attention (bf16, scale 1) over the
+    same work as each masked-attention forward call: per scan, the pillar
+    rows inside the row mask as queries and the boolean mask of the points
+    they select (``topk_attend.selection``), gathered outside the timed
+    window; summed over the scans and calls. Timed only; the port never
+    calls it."""
+    import torch
+    import torch.nn.functional as F
+    from hvpr_tpu_torch.ops import topk_attend
+    total = 0.0
+    for args, _ in calls:
+        pill, sel, val, neg, th, shared, row_mask = args
+        kv_all = (sel if shared else val).to(torch.bfloat16)
+        for bi, rows, sel_mask in topk_attend.selection(pill, sel, neg, th, row_mask):
+            q = pill[bi, rows].to(torch.bfloat16)[None]
+            kv, mask = kv_all[bi][None], sel_mask[None]
+            total += cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, kv, kv, attn_mask=mask, scale=1.0), reps=5, warmup=1)
+            del q, kv, mask, sel_mask
+    return total
+
+
+# float outputs that must equal the plain version's exactly: K8's thresholds,
+# K9's row maxima (and every integer output); the rest within RECON_RTOL
+EXACT_OUTPUTS = {'bucket_threshold': (0,), 'masked_attend_fwd': (1,)}
+
+
+def train_phase(smi, mode):
+    """One train step of hvpr.yaml at batch 4 in TRAIN_ATTEND_MODE ``mode``
+    through the kernels against one through the plain versions, and the
+    timed steps. In the shipped mode, fused, also each train kernel (K4-K10)
+    against its plain version at the step's shapes and the part times.
+    Returns ({kernel: entry}, the timed steps' launch counts, the kernel
+    step's metrics)."""
     import numpy as np
     import torch
     from hvpr_tpu_torch.models import DatasetMeta, build_network
-    from hvpr_tpu_torch.ops import _kernels, memory_recon, pn2_select, pointnet2
+    from hvpr_tpu_torch.models.backbones_2d.map_to_bev import pointpillar_scatter
+    from hvpr_tpu_torch.ops import (_kernels, memory_recon, pn2_select, pointnet2,
+                                    topk_attend)
     from hvpr_tpu_torch.parallel import loss_and_grads
     from hvpr_tpu_torch.utils.scans import realistic_scans_with_boxes
 
-    cfg = load_cfg(train_attend_mode='gather')
+    fused = mode == 'fused'
+    # hvpr.yaml sets no TRAIN_ATTEND_MODE: as shipped it trains fused
+    cfg = load_cfg(None if fused else mode)
     meta = DatasetMeta(cfg.DATA_CONFIG, cfg.CLASS_NAMES, mode='train')
     net = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), meta, device='cuda',
                         train=True)
+    if net.module.map_to_bev_module.train_attend_mode != mode:
+        fail(f'the train network runs {net.module.map_to_bev_module.train_attend_mode}, '
+             f'expected {mode}')
     seed_weights(net.module, seed=0)
     pts, gt = realistic_scans_with_boxes(np.random.default_rng(0), TRAIN_BATCH,
                                          N_POINTS, meta.point_cloud_range)
     points = torch.from_numpy(pts).cuda()
     mask = torch.ones(TRAIN_BATCH, N_POINTS, dtype=torch.bool, device='cuda')
     batch = dict(net.voxelize(points, mask), gt_boxes=torch.from_numpy(gt).cuda())
-    print(f'train batch: {TRAIN_BATCH} scans, {int(batch["voxel_mask"].sum())} '
-          f'pillars, {gt.shape[1]} boxes a scan')
+    print(f'train batch ({mode}): {TRAIN_BATCH} scans, '
+          f'{int(batch["voxel_mask"].sum())} pillars, {gt.shape[1]} boxes a scan')
     state0 = {k: v.clone() for k, v in net.module.state_dict().items()}
     n_params = sum(p.numel() for p in net.module.parameters())
+    step_launches = {k: n for k, n in STEP_LAUNCHES.items() if fused or k not in ATTEND_KERNELS}
+    wrappers = {'ball_query': (pointnet2, 'ball_query_bucket', pn2_select.ball_query_bucket),
+                'fps_chunks': (pointnet2, 'fps_chunks', pn2_select.fps_chunks),
+                'memory_recon_fwd': (memory_recon, 'recon_forward', memory_recon.recon_forward),
+                'memory_recon_bwd': (memory_recon, 'recon_backward',
+                                     memory_recon.recon_backward),
+                'bucket_threshold': (pointpillar_scatter, 'bucket_threshold',
+                                     topk_attend.bucket_threshold),
+                'masked_attend_fwd': (topk_attend, 'masked_attend_fwd',
+                                      topk_attend.masked_attend_fwd),
+                'masked_attend_bwd': (topk_attend, 'masked_attend_bwd',
+                                      topk_attend.masked_attend_bwd)}
+    wrappers = {k: w for k, w in wrappers.items() if k in step_launches}
 
     def fresh():
         net.module.load_state_dict(state0)
         net.init_training(cfg.OPTIMIZATION, TOTAL_STEPS)
 
-    # 1-2. one step through the kernels, every K4-K7 wrapper call captured,
-    # and the same step from the same state through the plain versions,
-    # under torch's deterministic algorithms. Without them the backward's
-    # gathers sum by atomics in run order and two plain steps differ by
-    # some percent in a point-stream gradient (its bf16 BN backwards amplify
-    # the noise; printed below); with them two plain steps are bit-identical, and K4-K7 equal
-    # their plain versions, so the kernel step must equal the plain step to
-    # the bit: each gradient leaf (before the optimizer), each loss term,
-    # grad_norm, and each updated weight and BN statistic.
+    # 1-2. one step through the kernels, every train kernel's wrapper call
+    # captured, and the same step from the same state through the plain
+    # versions, under torch's deterministic algorithms. Without them the
+    # backward's gathers sum by atomics in run order and two plain steps
+    # differ by some percent in a point-stream gradient (its bf16 BN
+    # backwards amplify the noise; printed below); with them two plain steps
+    # are bit-identical, and the kernels equal their plain versions, so the
+    # kernel step must equal the plain step to the bit: each gradient leaf
+    # (before the optimizer), each loss term, grad_norm, and each updated
+    # weight and BN statistic.
     runs = {}
     torch.use_deterministic_algorithms(True)
     try:
@@ -523,10 +616,7 @@ def train_phase(smi):
                 if run == 'kernels':
                     out = []
                     calls = capture_calls(
-                        [(pointnet2, 'ball_query_bucket', 'ball_query'),
-                         (pointnet2, 'fps_chunks', 'fps_chunks'),
-                         (memory_recon, 'recon_forward', 'memory_recon_fwd'),
-                         (memory_recon, 'recon_backward', 'memory_recon_bwd')],
+                        [(mod, attr, name) for name, (mod, attr, _) in wrappers.items()],
                         lambda: out.append(net.train_step(batch)))
                     metrics = out[0]
                 else:
@@ -538,7 +628,7 @@ def train_phase(smi):
         torch.use_deterministic_algorithms(False)
     (grads_k, metrics_k, params_k), (grads_p, metrics_p, params_p) = \
         runs['kernels'], runs['plain']
-    print('step 1, kernels/plain: ' + ', '.join(
+    print(f'step 1 ({mode}), kernels/plain: ' + ', '.join(
         f'{k} {metrics_k[k]:.7g}/{metrics_p[k]:.7g}' for k in sorted(metrics_k)))
     for k, v in metrics_k.items():
         if not np.isfinite(v):
@@ -547,79 +637,101 @@ def train_phase(smi):
     differ = ([n for n, g, w in zip(names, grads_k, grads_p) if not torch.equal(g, w)]
               + [k for k in params_p if not torch.equal(params_k[k], params_p[k])]
               + [k for k in metrics_p if metrics_k[k] != metrics_p[k]])
-    print(f'step 1, kernels vs plain: {len(names)} gradient leaves, {len(params_p)} '
-          f'weight and statistic tensors, {len(metrics_p)} metrics; '
+    print(f'step 1 ({mode}), kernels vs plain: {len(names)} gradient leaves, '
+          f'{len(params_p)} weight and statistic tensors, {len(metrics_p)} metrics; '
           f'{len(differ)} differ')
     if differ:
-        fail(f'the kernel step differs from the plain step in {differ[:5]}')
+        fail(f'the {mode} kernel step differs from the plain step in {differ[:5]}')
+    for name, per_step in step_launches.items():
+        if len(calls.get(name, ())) != per_step:
+            fail(f'one {mode} train step called {name} {len(calls.get(name, ()))} '
+                 f'times, expected {per_step}')
     del runs, grads_k, grads_p, params_k, params_p
-    # what deterministic mode removes: two plain steps' gradients without it
-    noisy = []
-    for _ in range(2):
-        fresh()
-        with _kernels.plain_versions():
-            noisy.append(loss_and_grads(net.train_state, batch)[1])
-    rel = {n: float(torch.linalg.vector_norm((a - b).double())
-                    / torch.linalg.vector_norm(b.double()).clamp_min(1e-30))
-           for n, a, b in zip(names, *noisy)}
-    worst = max(rel, key=rel.get)
-    print(f'without deterministic algorithms two plain steps differ in '
-          f'{sum(v > 0 for v in rel.values())} of {len(rel)} gradient leaves, '
-          f'most in {worst}: {rel[worst]:.3g} of its L2 norm')
-    del noisy
 
-    # 3. each kernel against its plain version at this step's shapes
-    wrappers = {'ball_query': pn2_select.ball_query_bucket,
-                'fps_chunks': pn2_select.fps_chunks,
-                'memory_recon_fwd': memory_recon.recon_forward,
-                'memory_recon_bwd': memory_recon.recon_backward}
     entries = {}
-    for name, fn in wrappers.items():
-        if len(calls.get(name, ())) != STEP_LAUNCHES[name]:
-            fail(f'one train step called {name} {len(calls.get(name, ()))} '
-                 f'times, expected {STEP_LAUNCHES[name]}')
-        err = ms = plain_ms = 0.0
-        plain_outs = []
-        for args, kwargs in calls[name]:
-            got = fn(*args, **kwargs)
+    if fused:
+        # what deterministic mode removes: two plain steps' gradients without it
+        noisy = []
+        for _ in range(2):
+            fresh()
             with _kernels.plain_versions():
-                want = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
-            plain_outs.append(want if len(want) > 1 else want[0])
-            for g, w in zip(got, want):
-                if g.shape != w.shape or g.dtype != w.dtype:
-                    fail(f'{name}: {g.shape}/{g.dtype} vs plain {w.shape}/{w.dtype}')
-                if not torch.isfinite(g.float()).all():
-                    fail(f'{name}: non-finite output')
-                e = float((g.double() - w.double()).abs().max())
-                err = max(err, e)
-                if w.is_floating_point():
-                    if e > RECON_RTOL * float(w.abs().max()):
-                        fail(f'{name}: kernel differs from plain by {e} '
-                             f'(largest |plain| {float(w.abs().max())})')
-                elif e != 0.0:
-                    fail(f'{name}: kernel indices differ from plain')
-            ms += cuda_ms(lambda: fn(*args, **kwargs), reps=10, warmup=2)
-            with _kernels.plain_versions():
-                plain_ms += cuda_ms(lambda: fn(*args, **kwargs), reps=3, warmup=1)
-        b_ms, b_by = _train_bounds(name, calls[name], plain_outs)
-        entries[name] = {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
-                         'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None}
-        shapes = [tuple(tuple(a.shape) for a in args if isinstance(a, torch.Tensor))
-                  for args, _ in calls[name]]
-        print(f'{name}: {len(calls[name])} call(s) per step at {shapes}, max_abs_err '
-              f'{err}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} '
-              f'ms ({b_by})')
+                noisy.append(loss_and_grads(net.train_state, batch)[1])
+        rel = {n: float(torch.linalg.vector_norm((a - b).double())
+                        / torch.linalg.vector_norm(b.double()).clamp_min(1e-30))
+               for n, a, b in zip(names, *noisy)}
+        worst = max(rel, key=rel.get)
+        print(f'without deterministic algorithms two plain steps differ in '
+              f'{sum(v > 0 for v in rel.values())} of {len(rel)} gradient leaves, '
+              f'most in {worst}: {rel[worst]:.3g} of its L2 norm')
+        del noisy
 
-    # 4. the main path: TRAIN_STEPS steps, counts from zero
+        # 3. each kernel against its plain version at this step's shapes
+        outs = {}
+        for name, (_, _, fn) in wrappers.items():
+            err = ms = plain_ms = 0.0
+            plain_outs = []
+            for args, kwargs in calls[name]:
+                got = fn(*args, **kwargs)
+                with _kernels.plain_versions():
+                    want = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                plain_outs.append(want if len(want) > 1 else want[0])
+                for i, (g, w) in enumerate(zip(got, want)):
+                    if g.shape != w.shape or g.dtype != w.dtype:
+                        fail(f'{name}: {g.shape}/{g.dtype} vs plain {w.shape}/{w.dtype}')
+                    if not torch.isfinite(g.float()).all():
+                        fail(f'{name}: non-finite output')
+                    e = float((g.double() - w.double()).abs().max())
+                    err = max(err, e)
+                    if w.is_floating_point() and i not in EXACT_OUTPUTS.get(name, ()):
+                        if e > RECON_RTOL * float(w.abs().max()):
+                            fail(f'{name}: kernel differs from plain by {e} '
+                                 f'(largest |plain| {float(w.abs().max())})')
+                    elif e != 0.0:
+                        fail(f'{name}: kernel output {i} differs from plain by {e}')
+                ms += cuda_ms(lambda: fn(*args, **kwargs), reps=10, warmup=2)
+                with _kernels.plain_versions():
+                    plain_ms += cuda_ms(lambda: fn(*args, **kwargs), reps=3, warmup=1)
+            outs[name] = plain_outs
+            entries[name] = {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
+                             'library_ms': None}
+            shapes = [tuple(tuple(a.shape) for a in args if isinstance(a, torch.Tensor))
+                      for args, _ in calls[name]]
+            print(f'{name}: {len(calls[name])} call(s) per step at {shapes}, max_abs_err '
+                  f'{err}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms')
+
+        # the selected sets: points per valid pillar row, per K9 call
+        selected = {}
+        for (args, _), (_, _, _, cnt) in zip(calls['masked_attend_fwd'],
+                                             outs['masked_attend_fwd']):
+            shared, row_mask = args[5], args[6]
+            c = cnt[row_mask].float()
+            selected[shared] = float(c.sum())
+            print(f'masked_attend ({"shared" if shared else "split"}): selected points per '
+                  f'valid pillar mean {c.mean().item():.3f} (k={cfg.MODEL.MAP_TO_BEV.NUM_K}), '
+                  f'min {int(c.min())}, max {int(c.max())}, over {c.numel()} rows; '
+                  f'rows above the 128-point list: {int((c > 128).sum())}')
+        for name in wrappers:
+            b_ms, b_by = _train_bounds(name, calls[name], outs[name], selected)
+            entries[name].update(bound_ms=b_ms, bound_by=b_by)
+            print(f'{name}: bound {b_ms:.4f} ms ({b_by})')
+        entries['masked_attend_fwd']['library_ms'] = _attend_library_ms(
+            calls['masked_attend_fwd'])
+        print(f'masked_attend_fwd: scaled_dot_product_attention over the same valid rows '
+              f'and selected sets {entries["masked_attend_fwd"]["library_ms"]:.4f} ms for '
+              'both calls')
+        del outs
+
+    # 4. the main path: the timed steps, counts from zero
+    n_steps = TRAIN_STEPS if fused else GATHER_STEPS
     fresh()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _kernels.reset_launch_counts()
     times, losses = [], []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(n_steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         metrics = net.train_step(batch)
@@ -628,27 +740,27 @@ def train_phase(smi):
         times.append(time.perf_counter() - t0)
         losses.append(loss)
     launches = _kernels.launch_counts()
-    print(f'train path launches in {TRAIN_STEPS} steps: {launches}')
-    for name, per_step in STEP_LAUNCHES.items():
-        if launches[name] != per_step * TRAIN_STEPS:
-            fail(f'{TRAIN_STEPS} train steps launched {name} {launches[name]} '
-                 f'times, expected {per_step * TRAIN_STEPS}')
-    for name in INFER_KERNELS:
-        if launches[name]:
-            fail(f'the train path launched the inference kernel {name}')
+    print(f'train path ({mode}) launches in {n_steps} steps: {launches}')
+    for name in _kernels.KERNELS:
+        want = step_launches.get(name, 0) * n_steps
+        if launches[name] != want:
+            fail(f'{n_steps} {mode} train steps launched {name} {launches[name]} '
+                 f'times, expected {want}')
     if not all(np.isfinite(losses)):
         fail(f'non-finite train loss: {losses}')
     step_s = statistics.median(times)
-    print(f'train losses over {TRAIN_STEPS} steps: {losses}')
-    print(f'train step: median of {TRAIN_STEPS} {step_s * 1e3:.3f} ms per batch of '
+    print(f'train losses ({mode}) over {n_steps} steps: {losses}')
+    print(f'train step ({mode}): median of {n_steps} {step_s * 1e3:.3f} ms per batch of '
           f'{TRAIN_BATCH} -> {TRAIN_BATCH / step_s:.3f} scans/s, peak memory '
           f'{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, {n_params} '
           f'parameters, on {smi}')
-    stages = train_stage_ms(net, batch)
-    print('train step stage ms (median of 3, CUDA events inside Network.train_step): '
-          + ', '.join(f'{k} {v:.3f}' for k, v in stages.items())
-          + f'; sum {sum(stages.values()):.3f}')
-    return entries, launches
+    if fused:
+        stages = train_stage_ms(net, batch)
+        print(f'train step ({mode}) stage ms (median of 3, CUDA events inside '
+              'Network.train_step): '
+              + ', '.join(f'{k} {v:.3f}' for k, v in stages.items())
+              + f'; sum {sum(stages.values()):.3f}')
+    return entries, launches, metrics_k
 
 
 def main():
@@ -690,8 +802,15 @@ def main():
     entries, launches = inference_phase(smi)
     print(f'inference phase: {time.perf_counter() - t0:.1f} s')
     t0 = time.perf_counter()
-    train_entries, train_launches = train_phase(smi)
-    print(f'train phase: {time.perf_counter() - t0:.1f} s')
+    train_entries, train_launches, fused_metrics = train_phase(smi, 'fused')
+    print(f'train phase (fused, as shipped): {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    _, _, gather_metrics = train_phase(smi, 'gather')
+    print(f'train phase (gather): {time.perf_counter() - t0:.1f} s')
+    # for information: the fused selection is a superset of the exact top-k,
+    # so the two modes' losses differ from the same state
+    print('step 1 from the same state, fused - gather: ' + ', '.join(
+        f'{k} {fused_metrics[k] - gather_metrics[k]:.6g}' for k in sorted(fused_metrics)))
     entries.update(train_entries)
     launches.update({k: train_launches[k] for k in STEP_LAUNCHES})
 

@@ -3,11 +3,14 @@
 Port of ``hvpr_tpu/models/backbones_2d/map_to_bev/memory_module.py``
 ``MemoryUnitAgg``. Eval (``eval_forward``): pillars address a learnable
 (M, C) memory and the softmax over its top-k rows reconstructs each pillar.
-Training (``train_forward``, the JAX package's gather mode): every point
-feature is reconstructed from the memory once
-(:func:`ops.memory_recon.memory_recon`, kernels K6/K7 on the card), the
-reconstructions of each pillar's top-k points are gathered and aggregated by
-pillar similarity (stop-gradient weights).
+Training: every point feature is reconstructed from the memory once
+(:func:`ops.memory_recon.memory_recon`, kernels K6/K7 on the card), and each
+pillar aggregates the reconstructions of its selected points by pillar
+similarity (stop-gradient weights). ``train_forward_fused`` (the shipped
+``TRAIN_ATTEND_MODE: fused``) selects by the bucket threshold and
+aggregates with :func:`ops.topk_attend.masked_attend` (kernels K9/K10);
+``train_forward`` (``gather``) gathers the reconstructions of each pillar's
+exact top-k points.
 
 Modes (MAP_TO_BEV.TOPK_MODE): ``'fused'`` runs
 :func:`ops.memory_lookup.memory_lookup_fused` (kernel K2 on the card) over a
@@ -23,6 +26,7 @@ from torch import nn
 
 from ....ops.memory_lookup import memory_lookup_fused
 from ....ops.memory_recon import memory_recon
+from ....ops.topk_attend import masked_attend
 
 
 class MemoryUnitAgg(nn.Module):
@@ -60,6 +64,19 @@ class MemoryUnitAgg(nn.Module):
         cand = torch.gather(recon, 1, topk_idx.reshape(b, v * k, 1).expand(-1, -1, c))
         return {'output': self._aggregate(cand.reshape(b, v, k, c), pillars,
                                           topk_valid)}
+
+    def train_forward_fused(self, pillars, points, neg, thresh, vmask):
+        """(B, V, C) pillars, (B, N, C) point features, (B, N) f32 ``neg``
+        (0 valid, -1e30 padded), (B, V) thresholds from
+        :func:`ops.topk_attend.bucket_threshold` over (pillars, points) ->
+        dict(output=(B, V, C)). Each point is reconstructed once; a pillar
+        aggregates the reconstructions of the points its threshold selects,
+        with logits ``pillar . reconstruction``. Rows outside ``vmask`` output
+        0."""
+        b, n, c = points.shape
+        recon = memory_recon(points.reshape(-1, c), self.weight,
+                             shrink_thres=self.shrink_thres).reshape(b, n, c)
+        return {'output': masked_attend(pillars, points, recon, neg, thresh, vmask)}
 
     def eval_forward(self, pillars, k, mode='fused', vmask=None):
         """(B, V, C) pillars -> dict(output=(B, V, C)); ``vmask`` (B, V)

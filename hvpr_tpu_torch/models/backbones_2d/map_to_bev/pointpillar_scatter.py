@@ -9,13 +9,23 @@ Eval: the memory reconstructs every pillar, and two canvases are written,
 :func:`ops.bev_canvas.canvas_from_sorted` (kernel K3 on the card). The
 device voxelizer's cells are unique per sample, which is all K3 needs.
 
-Training (``TRAIN_ATTEND_MODE: gather``; the ``fused`` mode is not ported
-yet): :func:`attentive_point_pooling` picks each pillar's top-k points by
-``pillar . point`` with exact ``torch.topk`` (the JAX package takes
-``approx_max_k`` at recall 0.95, which is exact on its CPU backend), the
-memory reconstructs them, and one differentiable ``scatter_to_bev`` emits
+Training selects for each pillar a set of points by ``pillar . point``,
+aggregates the points (``point_positive_features``) and their memory
+reconstructions (``memory_positive_features``) over it with stop-gradient
+softmax weights, and one differentiable ``scatter_to_bev`` emits
 [stop-grad pillar | memory] (``spatial_features``), [pillar | point]
-(``spatial_features_point``) and the scale stream.
+(``spatial_features_point``) and the scale stream. Two modes
+(MAP_TO_BEV.TRAIN_ATTEND_MODE):
+
+- ``fused`` (the default, which ``hvpr.yaml`` runs): one
+  :func:`ops.topk_attend.bucket_threshold` (kernel K8) selects a superset of
+  each pillar's top-k, and :func:`ops.topk_attend.masked_attend` (K9/K10)
+  aggregates the points (shared logits) and the reconstructions. Empty
+  pillar slots are skipped through ``voxel_mask`` and aggregate to 0.
+- ``gather``: :func:`attentive_point_pooling` picks each pillar's exact
+  top-k points with ``torch.topk`` (the JAX package takes ``approx_max_k``
+  at recall 0.95, which is exact on its CPU backend) and the memory path
+  gathers their reconstructions.
 """
 
 import torch
@@ -23,6 +33,7 @@ from torch import nn
 
 from ....ops.bev_canvas import canvas_from_sorted
 from ....ops.scatter import scatter_to_bev
+from ....ops.topk_attend import bucket_threshold, masked_attend
 from .memory_module import MemoryUnitAgg
 
 
@@ -107,18 +118,25 @@ class PointPillarScatterAggMemory1Scale(nn.Module):
         return batch_dict
 
     def _train_forward(self, batch_dict, pillars, coords, vmask):
-        if self.train_attend_mode != 'gather':
-            raise NotImplementedError(
-                "TRAIN_ATTEND_MODE 'fused' is not ported yet; set 'gather'")
         points = batch_dict['point_features']
         pmask = batch_dict.get('point_valid_mask')
         if pmask is None:
             pmask = torch.ones(points.shape[:2], dtype=torch.bool,
                                device=points.device)
-        point_agg, topk_idx, topk_valid = attentive_point_pooling(
-            points, pmask, pillars, self.k)
-        mem_agg = self.memory.train_forward(pillars, points, topk_idx,
-                                            topk_valid)['output']
+        if self.train_attend_mode == 'fused':
+            # one threshold feeds both aggregations
+            neg = torch.where(pmask, 0.0, -1e30).float()
+            row_mask = vmask.contiguous()
+            thresh = bucket_threshold(pillars, points, neg, self.k, row_mask)
+            # shared: one tensor as both tables, the scores are the logits
+            point_agg = masked_attend(pillars, points, points, neg, thresh, row_mask)
+            mem_agg = self.memory.train_forward_fused(
+                pillars, points, neg, thresh, row_mask)['output']
+        else:
+            point_agg, topk_idx, topk_valid = attentive_point_pooling(
+                points, pmask, pillars, self.k)
+            mem_agg = self.memory.train_forward(pillars, points, topk_idx,
+                                                topk_valid)['output']
         fused_mem = torch.cat([pillars.detach(), mem_agg], dim=-1)
         fused_point = torch.cat([pillars, point_agg], dim=-1)
         fused = torch.cat([fused_mem, fused_point,

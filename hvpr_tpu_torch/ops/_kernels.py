@@ -27,10 +27,12 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG.parent / 'build'
 SOURCES = ('segment_sweep', 'memory_lookup', 'bev_canvas', 'ball_query',
-           'fps_chunks', 'memory_recon')
-# one launch count per kernel; memory_recon.cu holds the last two
+           'fps_chunks', 'memory_recon', 'topk_attend')
+# one launch count per kernel; memory_recon.cu holds K6 and K7, topk_attend.cu
+# the last three
 KERNELS = ('segment_sweep', 'memory_lookup', 'bev_canvas', 'ball_query',
-           'fps_chunks', 'memory_recon_fwd', 'memory_recon_bwd')
+           'fps_chunks', 'memory_recon_fwd', 'memory_recon_bwd',
+           'bucket_threshold', 'masked_attend_fwd', 'masked_attend_bwd')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 

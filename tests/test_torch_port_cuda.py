@@ -6,9 +6,11 @@ kernels have no CPU form). On a machine with a card run them with
 their plain versions' arithmetic in the same order (K1, K4, K5: products and
 sums rounded one by one, no FMA contraction) or with exact f64 accumulation
 (K2), or copy bytes (K3), so those comparisons are exact. K6/K7 (the memory
-reconstruction) also accumulate exact bf16 products in f64, but a row sum of
-f32 terms in f64 may round its last bit by order: they are held to 1e-5 of
-the output's largest magnitude.
+reconstruction) and K9/K10 (the masked attention) also accumulate exact
+products in f64, but a sum of f32 terms in f64 may round its last bit by
+order: their float outputs are held to 1e-5 of the output's largest
+magnitude; K8's thresholds and K9's selected counts and row maxima are
+exact.
 """
 
 import numpy as np
@@ -21,6 +23,8 @@ from hvpr_tpu_torch.ops.memory_lookup import memory_lookup_fused
 from hvpr_tpu_torch.ops.memory_recon import memory_recon, recon_backward, recon_forward
 from hvpr_tpu_torch.ops.pn2_select import ball_query_bucket, fps_chunks
 from hvpr_tpu_torch.ops.segment_sweep import segment_sweep
+from hvpr_tpu_torch.ops.topk_attend import (bucket_threshold, masked_attend,
+                                            masked_attend_bwd, masked_attend_fwd)
 
 pytestmark = pytest.mark.cuda
 
@@ -184,3 +188,72 @@ def test_memory_recon_kernels(cuda, r, m, c, lam):
     assert after['memory_recon_bwd'] == before['memory_recon_bwd'] + 1
     _close(xr.grad, wdx)
     _close(wr.grad, wdw)
+
+
+def _attend_inputs(rng, b, v, n, c, cuda):
+    """Pillars, a selection table, a value table, neg, a row mask and dout,
+    with a zero pillar row (it ties with every point: all valid points are
+    selected, past the kernel's list), padded points, and, for b > 2, a scan
+    with no valid point (every row selects nothing)."""
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(cuda)
+    pillars = rng.normal(size=(b, v, c))
+    pillars[0, 1] = 0.0
+    neg = np.zeros((b, n))
+    neg[0, -37:] = -1e30
+    if b > 2:
+        neg[2] = -1e30
+    row_mask = rng.uniform(size=(b, v)) > 0.3
+    row_mask[0, 1] = True
+    row_mask[:, 32:64] = False                              # a whole tile out
+    return (t(pillars), t(rng.normal(size=(b, n, c))), t(rng.normal(size=(b, n, c))),
+            t(neg), torch.from_numpy(row_mask).to(cuda), t(rng.normal(size=(b, v, c))))
+
+
+@pytest.mark.parametrize('b,v,n,c,k', [(3, 300, 1000, 64, 20), (2, 100, 300, 16, 4),
+                                       (4, 16000, 16384, 64, 20)])   # hvpr.yaml batch 4
+def test_topk_attend_kernels(cuda, b, v, n, c, k):
+    rng = np.random.default_rng(n)
+    pillars, points, vals, neg, row_mask, dout = _attend_inputs(rng, b, v, n, c, cuda)
+    for mask in (torch.ones_like(row_mask), row_mask):
+        th, th_p = _both(bucket_threshold, pillars, points, neg, k, mask)
+        assert torch.equal(th, th_p)
+        for shared in (True, False):
+            val = points if shared else vals
+            (out, mx, den, cnt), (out_p, mx_p, den_p, cnt_p) = _both(
+                masked_attend_fwd, pillars, points, val, neg, th, shared, mask)
+            assert torch.equal(cnt, cnt_p) and torch.equal(mx, mx_p)
+            _close(out, out_p)
+            _close(den, den_p)
+            assert int(cnt[0, 1]) == n - 37                  # the zero row
+            assert int(cnt.max()) > 128 >= int(cnt[1].max())
+            if b > 2:
+                assert int(cnt[2].max()) == 0 and float(out[2].abs().max()) == 0.0
+            assert int(cnt[~mask].sum()) == 0 and float(out[~mask].abs().sum()) == 0.0
+            dval, dval_p = _both(masked_attend_bwd, pillars, points, val, neg, th, mx,
+                                 den, dout, shared, mask)
+            _close(dval, dval_p)
+            assert torch.equal(dval, dval.to(torch.bfloat16).float())
+
+
+@pytest.mark.parametrize('shared', [True, False])
+def test_masked_attend_autograd_launches_k9_and_k10(cuda, shared):
+    rng = np.random.default_rng(5)
+    pillars, points, vals, neg, row_mask, dout = _attend_inputs(rng, 2, 200, 700, 32, cuda)
+    th = bucket_threshold(pillars, points, neg, 8, row_mask)
+    pts = points.clone().requires_grad_()
+    val = pts if shared else vals.clone().requires_grad_()
+    before = _kernels.launch_counts()
+    out = masked_attend(pillars, pts, val, neg, th, row_mask)
+    (out * dout).sum().backward()
+    after = _kernels.launch_counts()
+    assert after['masked_attend_fwd'] == before['masked_attend_fwd'] + 1
+    assert after['masked_attend_bwd'] == before['masked_attend_bwd'] + 1
+    _, mx, den, _ = masked_attend_fwd(pillars, points, val.detach(), neg, th, shared,
+                                      row_mask)
+    with _kernels.plain_versions():
+        want = masked_attend_bwd(pillars, points, val.detach(), neg, th, mx, den, dout,
+                                 shared, row_mask)
+    _close(val.grad, want)                                  # once, not twice when shared
+    if not shared:
+        assert pts.grad is None

@@ -1,6 +1,7 @@
 """The port's train path against the JAX package on hvpr_mini.yaml, on the CPU.
 
-Both sides run TRAIN_ATTEND_MODE gather, BALL_QUERY bucket (the port's
+Both sides run TRAIN_ATTEND_MODE gather (tests/test_torch_port_train_fused.py
+runs the shipped mode, fused, through the same checks), BALL_QUERY bucket (the port's
 'auto'; the JAX package's CPU 'auto' is the first-by-index rule) and
 FPS_CHUNKS 4, from the same flax-initialized weights (BN statistics and
 affine terms perturbed from a seed) and the same seeded batch. The points
@@ -320,7 +321,9 @@ def grad_tol(name):
     return 1e-3 if name.startswith('backbone_3d.') else 1e-4
 
 
-def test_gradients_match_jax_leaf_by_leaf(pair):
+def check_gradients(pair, grad_tol=grad_tol):
+    """Each gradient leaf of one port step against ``jax.grad``, within
+    ``grad_tol(name)`` of the leaf (module docstring)."""
     def loss_fn(params):
         out, _ = pair.jnet.module.apply(
             {'params': params, 'batch_stats': pair.variables['batch_stats']},
@@ -344,6 +347,10 @@ def test_gradients_match_jax_leaf_by_leaf(pair):
             (name, np.linalg.norm(diff), np.linalg.norm(w))
         assert np.abs(diff).max() <= tol * np.abs(w).max() + atol, \
             (name, np.abs(diff).max(), np.abs(w).max())
+
+
+def test_gradients_match_jax_leaf_by_leaf(pair):
+    check_gradients(pair)
 
 
 @pytest.mark.parametrize('n_steps', [1, 3])
