@@ -27,8 +27,17 @@ scans with seeded random weights:
   torch's deterministic algorithms (each gradient, loss term and updated
   weight), and 5 more steps must launch each kernel its expected number of
   times.
+- the bucketed 3-NN (K11), which no path of the model calls (the FP modules
+  keep the exact 3-NN, as in the JAX package): on the inputs of the two
+  ``pointnet2.three_nn`` calls of one fused step it must equal its plain
+  version (indices and distances) and launch once a call; the share of
+  points whose bucket set is the exact set is printed.
 - training in ``TRAIN_ATTEND_MODE: gather``: the kernel step must equal the
   plain step as above, and 2 timed steps must launch K4-K7 and never K8-K10.
+
+Yardsticks (timed, never called by the port): K2 beside
+``scaled_dot_product_attention`` over the selected sets, K3 beside
+``torch.zeros`` + ``index_put_``, K9 beside ``scaled_dot_product_attention``.
 
 It prints a ``{"kernels": [...]}`` JSON line (times, bounds, launches,
 errors), the card's name and power limit as nvidia-smi reports them, and
@@ -89,6 +98,8 @@ META = {
                           'hvpr_tpu/ops/topk_attend.py:376'),
     'masked_attend_bwd': ('hvpr_tpu_torch/csrc/topk_attend.cu',
                           'hvpr_tpu/ops/topk_attend.py:427'),
+    'three_nn_bucket': ('hvpr_tpu_torch/csrc/three_nn.cu',
+                        'hvpr_tpu/ops/pn2_select.py:135'),
 }
 
 
@@ -112,6 +123,28 @@ def cuda_ms(fn, reps=20, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_breakdown(fn, reps=3):
+    """'name ms, ...': device milliseconds per call of each CUDA kernel (and
+    memset) that ``fn()`` launches, from torch.profiler; 'not measured' when
+    the profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, 'self_device_time_total', 0.0)
+        if us > 0:
+            name = e.key.replace('(anonymous namespace)::', '')
+            name = name.split('(')[0].split('<')[0].split()[-1].split('::')[-1]
+            out[name] = out.get(name, 0.0) + us / 1e3 / reps
+    return ', '.join(f'{k} {v:.4f}' for k, v in out.items()) or 'not measured'
 
 
 def seed_weights(module, seed):
@@ -281,6 +314,9 @@ def inference_phase(smi):
         entries[name] = {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms}
         print(f'{name}: {len(calls[name])} call(s) per forward, max_abs_err {err}, '
               f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms')
+        if name == 'bev_canvas':
+            print(f'{name}: device ms per forward by kernel (torch.profiler): '
+                  + device_breakdown(lambda: [fn(*a, **kw) for a, kw in calls[name]]))
         # the kernels repeat the plain versions' arithmetic: bit-identical
         if err != 0.0:
             fail(f'{name}: kernel differs from its plain version by {err}')
@@ -312,9 +348,15 @@ def inference_phase(smi):
     ops = 2.0 * r_valid * m * c + 2.0 * c * float(cnt_k.sum())  # logits + selected output
     nbytes = 2 * r * c * 4 + m * c * 4 + r
     b_ms, b_by = bound(ops, BF16_FLOPS_PER_S, nbytes)
-    entries['memory_lookup'].update(bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    lib_ms = _lookup_library_ms(pill, memw, row_mask, th_k)
+    entries['memory_lookup'].update(bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    print(f'memory_lookup: scaled_dot_product_attention over the valid rows with the '
+          f'selected sets as its mask (the function of _apply_kernel only) {lib_ms:.4f} ms')
 
-    canvas_bytes, lib_ms = 0, 0.0
+    # K3's yardstick: zeroing the canvas and index_put_ in one window, as the
+    # kernel writes the whole canvas; beside it the earlier yardstick,
+    # index_put_ into a canvas zeroed outside the window
+    canvas_bytes, lib_ms, put_ms, yardsticks = 0, 0.0, 0.0, []
     for a, kw in calls['bev_canvas']:
         feat, coords, vmask, ny, nx = a[:5]
         out_dtype = a[5] if len(a) > 5 else kw.get('out_dtype', torch.float32)
@@ -325,10 +367,23 @@ def inference_phase(smi):
         bi, vi = torch.nonzero(vmask, as_tuple=True)
         cell = coords[bi, vi, 1].long() * nx + coords[bi, vi, 2].long()
         rows = feat[bi, vi].to(out_dtype)
+
+        def zeros_put(b=b, ny=ny, nx=nx, cc=cc, out_dtype=out_dtype, bi=bi, cell=cell,
+                      rows=rows):
+            torch.zeros(b, ny * nx, cc, dtype=out_dtype, device='cuda').index_put_(
+                (bi, cell), rows)
+        lib_ms += cuda_ms(zeros_put)
+        yardsticks.append(zeros_put)
         canvas = torch.zeros(b, ny * nx, cc, dtype=out_dtype, device='cuda')
-        lib_ms += cuda_ms(lambda: canvas.index_put_((bi, cell), rows))
+        put_ms += cuda_ms(lambda: canvas.index_put_((bi, cell), rows))
+        del canvas
     entries['bev_canvas'].update(bound_ms=canvas_bytes / HBM_BYTES_PER_S * 1e3,
                                  bound_by='bytes', library_ms=lib_ms)
+    print(f'bev_canvas: torch.zeros + index_put_ {lib_ms:.4f} ms; index_put_ into a '
+          f'canvas zeroed outside the window {put_ms:.4f} ms')
+    print('bev_canvas: torch.zeros + index_put_, device ms per forward by kernel '
+          '(torch.profiler): ' + device_breakdown(lambda: [f() for f in yardsticks]))
+    del yardsticks
 
     # the main path, counts from zero
     _kernels.reset_launch_counts()
@@ -535,6 +590,31 @@ def _attend_library_ms(calls):
     return total
 
 
+def _lookup_library_ms(pill, memw, row_mask, thresh):
+    """CUDA-event ms of scaled_dot_product_attention (bf16, scale 1) over the
+    function of K2's ``_apply_kernel``: per scan, the valid pillar rows as
+    queries, the memory as keys and values, and as mask the columns whose
+    logit (exact bf16 products, as K2 computes them) is at or above the row's
+    threshold, built outside the timed window; summed over the scans. Timed
+    only; the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+    mem_bf = memw.to(torch.bfloat16)
+    v = pill.shape[0] // BATCH
+    total = 0.0
+    for bi in range(BATCH):
+        rows = bi * v + torch.nonzero(row_mask[bi * v:(bi + 1) * v]).squeeze(1)
+        q = pill[rows].to(torch.bfloat16)
+        logits = (q.double() @ mem_bf.double().t()).float()
+        mask = (logits >= thresh[rows, None])[None]
+        del logits
+        q, kv = q[None], mem_bf[None]
+        total += cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, kv, kv, attn_mask=mask, scale=1.0), reps=5, warmup=1)
+        del q, mask
+    return total
+
+
 # float outputs that must equal the plain version's exactly: K8's thresholds,
 # K9's row maxima (and every integer output); the rest within RECON_RTOL
 EXACT_OUTPUTS = {'bucket_threshold': (0,), 'masked_attend_fwd': (1,)}
@@ -546,7 +626,7 @@ def train_phase(smi, mode):
     timed steps. In the shipped mode, fused, also each train kernel (K4-K10)
     against its plain version at the step's shapes and the part times.
     Returns ({kernel: entry}, the timed steps' launch counts, the kernel
-    step's metrics)."""
+    step's metrics, the step's ``pointnet2.three_nn`` calls)."""
     import numpy as np
     import torch
     from hvpr_tpu_torch.models import DatasetMeta, build_network
@@ -615,8 +695,10 @@ def train_phase(smi, mode):
                 fresh()
                 if run == 'kernels':
                     out = []
+                    # and the FP modules' exact 3-NN, whose inputs K11 takes
                     calls = capture_calls(
-                        [(mod, attr, name) for name, (mod, attr, _) in wrappers.items()],
+                        [(mod, attr, name) for name, (mod, attr, _) in wrappers.items()]
+                        + [(pointnet2, 'three_nn', 'three_nn')],
                         lambda: out.append(net.train_step(batch)))
                     metrics = out[0]
                 else:
@@ -701,6 +783,9 @@ def train_phase(smi, mode):
                       for args, _ in calls[name]]
             print(f'{name}: {len(calls[name])} call(s) per step at {shapes}, max_abs_err '
                   f'{err}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms')
+            if name == 'memory_recon_bwd':
+                print(f'{name}: device ms per step by kernel (torch.profiler): '
+                      + device_breakdown(lambda: [fn(*a, **kw) for a, kw in calls[name]]))
 
         # the selected sets: points per valid pillar row, per K9 call
         selected = {}
@@ -760,7 +845,65 @@ def train_phase(smi, mode):
               'Network.train_step): '
               + ', '.join(f'{k} {v:.3f}' for k, v in stages.items())
               + f'; sum {sum(stages.values()):.3f}')
-    return entries, launches, metrics_k
+    return entries, launches, metrics_k, calls['three_nn']
+
+
+def three_nn_phase(calls):
+    """K11, the bucketed 3-NN, on the inputs of the FP modules' exact 3-NN in
+    one fused train step (no path of the model calls it, as no path of the
+    JAX package does): held against its plain version (indices and distances
+    equal), timed, and driven as its own path with the counts from zero.
+    Returns ({'three_nn_bucket': entry}, that path's launch counts)."""
+    import torch
+    from hvpr_tpu_torch.ops import _kernels, pn2_select, pointnet2
+
+    if len(calls) != 2:
+        fail(f'one fused train step called three_nn {len(calls)} times, expected 2')
+    fn = pn2_select.three_nn_bucket
+    err = ms = plain_ms = 0.0
+    ops = nbytes = 0.0
+    for (unknown, known, known_mask), _ in calls:
+        (dist, idx) = fn(unknown, known, known_mask)
+        with _kernels.plain_versions():
+            (dist_p, idx_p) = fn(unknown, known, known_mask)
+        torch.cuda.synchronize()
+        if not (torch.equal(idx, idx_p) and torch.equal(dist, dist_p)):
+            fail(f'three_nn_bucket differs from its plain version at {tuple(unknown.shape)} '
+                 f'x {tuple(known.shape)}: {int((idx != idx_p).sum())} indices, max '
+                 f'distance diff {float((dist - dist_p).abs().max())}')
+        if not torch.isfinite(dist).all():
+            fail('three_nn_bucket: non-finite distances')
+        err = max(err, float((dist - dist_p).abs().max()))
+        ms += cuda_ms(lambda: fn(unknown, known, known_mask))
+        with _kernels.plain_versions():
+            plain_ms += cuda_ms(lambda: fn(unknown, known, known_mask), reps=3, warmup=1)
+        # for information: unknown points whose bucket 3-NN set is the exact set
+        _, idx_x = pointnet2.three_nn(unknown, known, known_mask)
+        same = (torch.sort(idx.long(), dim=-1).values
+                == torch.sort(idx_x, dim=-1).values).all(dim=-1)
+        b, n, _ = unknown.shape
+        s = known.shape[1]
+        print(f'three_nn_bucket: {tuple(unknown.shape)} x {tuple(known.shape)}, indices and '
+              f'distances equal to plain; bucket set = exact three_nn set for '
+              f'{float(same.float().mean()):.4f} of the unknown points')
+        # ~10 f32 operations per (unknown, known) pair; inputs and outputs once
+        ops += 10.0 * b * n * s
+        nbytes += (unknown.numel() + known.numel()) * 4 + known_mask.numel() + b * n * 3 * 8
+    b_ms, b_by = bound(ops, F32_FLOPS_PER_S, nbytes)
+    print(f'three_nn_bucket: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms for both calls, '
+          f'bound {b_ms:.4f} ms ({b_by})')
+
+    # its path: both calls, counts from zero
+    _kernels.reset_launch_counts()
+    for (unknown, known, known_mask), _ in calls:
+        fn(unknown, known, known_mask)
+    torch.cuda.synchronize()
+    launches = _kernels.launch_counts()
+    if launches['three_nn_bucket'] != len(calls):
+        fail(f'the three_nn_bucket path launched K11 {launches["three_nn_bucket"]} times')
+    return {'three_nn_bucket': {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
+                                'bound_ms': b_ms, 'bound_by': b_by,
+                                'library_ms': None}}, launches
 
 
 def main():
@@ -802,17 +945,23 @@ def main():
     entries, launches = inference_phase(smi)
     print(f'inference phase: {time.perf_counter() - t0:.1f} s')
     t0 = time.perf_counter()
-    train_entries, train_launches, fused_metrics = train_phase(smi, 'fused')
+    train_entries, train_launches, fused_metrics, nn_calls = train_phase(smi, 'fused')
     print(f'train phase (fused, as shipped): {time.perf_counter() - t0:.1f} s')
     t0 = time.perf_counter()
-    _, _, gather_metrics = train_phase(smi, 'gather')
+    nn_entries, nn_launches = three_nn_phase(nn_calls)
+    del nn_calls
+    print(f'three_nn phase: {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    _, _, gather_metrics, _ = train_phase(smi, 'gather')
     print(f'train phase (gather): {time.perf_counter() - t0:.1f} s')
     # for information: the fused selection is a superset of the exact top-k,
     # so the two modes' losses differ from the same state
     print('step 1 from the same state, fused - gather: ' + ', '.join(
         f'{k} {fused_metrics[k] - gather_metrics[k]:.6g}' for k in sorted(fused_metrics)))
     entries.update(train_entries)
+    entries.update(nn_entries)
     launches.update({k: train_launches[k] for k in STEP_LAUNCHES})
+    launches['three_nn_bucket'] = nn_launches['three_nn_bucket']
 
     kernels = []
     for name in _kernels.KERNELS:

@@ -4,9 +4,11 @@ Mirrors the JAX package's layout (``config``, ``ops``, ``models``, ``utils``)
 and its batch-dict keys and tensor layouts, so the two can be held against
 each other on the same inputs. The port imports ``torch`` and numpy/yaml
 only. It runs HVPR inference and the train step (``TRAIN_ATTEND_MODE``
-fused, the shipped default, and gather); every TPU kernel on those paths is
-hand-written CUDA (``csrc/``: K1-K3 for inference, K4-K10 for training),
-built with nvcc at first use and loaded with ctypes (``ops/_kernels.py``).
+fused, the shipped default, and gather); every TPU kernel of the JAX
+package is hand-written CUDA (``csrc/``: K1-K3 for inference, K4-K10 for
+training, and K11, the bucketed 3-NN, which no path calls, as in the JAX
+package), built with nvcc at first use and loaded with ctypes
+(``ops/_kernels.py``).
 """
 
 import torch

@@ -27,12 +27,13 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG.parent / 'build'
 SOURCES = ('segment_sweep', 'memory_lookup', 'bev_canvas', 'ball_query',
-           'fps_chunks', 'memory_recon', 'topk_attend')
+           'fps_chunks', 'memory_recon', 'topk_attend', 'three_nn')
 # one launch count per kernel; memory_recon.cu holds K6 and K7, topk_attend.cu
-# the last three
+# K8-K10
 KERNELS = ('segment_sweep', 'memory_lookup', 'bev_canvas', 'ball_query',
            'fps_chunks', 'memory_recon_fwd', 'memory_recon_bwd',
-           'bucket_threshold', 'masked_attend_fwd', 'masked_attend_bwd')
+           'bucket_threshold', 'masked_attend_fwd', 'masked_attend_bwd',
+           'three_nn_bucket')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 

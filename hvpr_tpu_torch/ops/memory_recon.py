@@ -30,7 +30,8 @@ flips.
 
 On a CUDA tensor :func:`recon_forward` launches ``csrc/memory_recon.cu``'s
 forward kernel (K6) and :func:`recon_backward` its backward kernels (K7:
-a row pass, then dW); on a CPU tensor each runs its plain version.
+the logits and dn, the row chain, dx and dW, the products on the FP64
+tensor cores); on a CPU tensor each runs its plain version.
 """
 
 import ctypes
@@ -143,18 +144,23 @@ def recon_backward(x, w, dy, lam):
     dw = torch.empty(m, c, dtype=torch.float32, device=dev)
     if r == 0:
         return dx, dw.zero_()
-    # bf16 dl and n between the row pass and the dW pass; per-split f64
-    # partial dW summed in a fixed order by a last pass
+    if r > 64 * 65535:
+        raise ValueError(f'memory_recon backward: R={r} rows exceed the grid of '
+                         f'its logits pass')
+    # f32 l and dn between the logits pass and the row chain, bf16 dl and n
+    # between the chain and the dx and dW passes; per-split f64 partial dW
+    # summed in a fixed order by a last pass
+    ld = torch.empty(2, r, m, dtype=torch.float32, device=dev)
     dl = torch.empty(r, m, dtype=torch.bfloat16, device=dev)
     n = torch.empty(r, m, dtype=torch.bfloat16, device=dev)
     splits = max(1, min(16, r // 2048))
     partial = torch.empty(splits, m, c, dtype=torch.float64, device=dev)
     fn = _kernels.library('memory_recon').hvpr_memory_recon_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     err = fn(_kernels.ptr(xb), _kernels.ptr(wb), _kernels.ptr(dyb),
-             _kernels.ptr(dx), _kernels.ptr(dl), _kernels.ptr(n),
+             _kernels.ptr(dx), _kernels.ptr(ld), _kernels.ptr(dl), _kernels.ptr(n),
              _kernels.ptr(partial), _kernels.ptr(dw), r, m, c, float(lam),
              splits, _kernels.stream_handle(x))
     _kernels.launched('memory_recon_bwd', err)

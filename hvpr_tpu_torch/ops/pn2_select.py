@@ -1,8 +1,10 @@
-"""Bucketed ball query (kernel K4) and chunk-parallel FPS (kernel K5).
+"""Bucketed ball query (kernel K4), bucketed 3-NN (kernel K11) and
+chunk-parallel FPS (kernel K5).
 
-Port of ``hvpr_tpu/ops/pn2_select.py`` ``ball_query_bucket`` and
-``fps_chunks_pallas``. On a CUDA tensor :func:`ball_query_bucket` launches
-``csrc/ball_query.cu`` and :func:`fps_chunks` launches
+Port of ``hvpr_tpu/ops/pn2_select.py`` ``ball_query_bucket``,
+``three_nn_bucket`` and ``fps_chunks_pallas``. On a CUDA tensor
+:func:`ball_query_bucket` launches ``csrc/ball_query.cu``,
+:func:`three_nn_bucket` ``csrc/three_nn.cu`` and :func:`fps_chunks`
 ``csrc/fps_chunks.cu``; on a CPU tensor each runs its plain version.
 
 Ball query semantics (the TPU's lane buckets, bucket = point index mod 128):
@@ -11,6 +13,14 @@ lowest-indexed non-empty buckets, in ascending index order; empty slots are
 back-filled with the first hit (0 when there is none), and ``cnt`` counts the
 genuine hits. Squared distances are ``(dx*dx + dy*dy) + dz*dz`` in f32 with
 every product and sum rounded (no FMA), compared ``< float32(r*r)``.
+
+3-NN semantics (``_sweep_kernel`` mode 'nn'): the key of a known point is
+its squared distance, 1e30 when it is masked; each bucket keeps its least
+key and the lowest index reaching it, and a bucket whose key stays 1e30
+(all masked, or empty when S < 128) reports index 0. The 3 buckets of least
+key win, ties to the lower bucket; distances are ``sqrt(min(key, 1e10))``.
+The model's feature propagation keeps the exact ``pointnet2.three_nn``, as
+the JAX package does.
 
 FPS rules (``_fps_kernel``): each chunk starts at its first valid row, or at
 its last row if none is valid; invalid rows score -BIG; each step takes the
@@ -28,6 +38,7 @@ from . import _kernels
 
 NUM_BUCKETS = 128
 _BIG = 1e30
+_INF = 1e10              # ops/pointnet2.INF, the masked 3-NN distance cap
 _FPS_MAX_ROWS = 8192     # rows of one chunk the FPS kernel holds in shared memory
 
 
@@ -111,6 +122,73 @@ def ball_query_bucket(radius, nsample, xyz, new_xyz, mask):
              _kernels.stream_handle(xyz))
     _kernels.launched('ball_query', err)
     return idx, cnt
+
+
+def three_nn_bucket_plain(unknown, known, known_mask, chunk=512):
+    """Plain version: per-unknown bucket minima of the keys over the whole
+    known axis, the lowest index reaching each, then the 3 least buckets."""
+    b, s, _ = known.shape
+    sp = _round_up(s, NUM_BUCKETS)
+    neg = torch.where(known_mask, 0.0, -_BIG).to(torch.float32)
+    gidx = torch.arange(sp, device=known.device, dtype=torch.float32)
+    keys, idxs = [], []
+    for q0 in range(0, unknown.shape[1], chunk):
+        u = unknown[:, q0:q0 + chunk].float()
+        key = _sq_dist(u[:, :, None, :], known.float()[:, None, :, :]) - neg[:, None, :]
+        if sp != s:
+            key = torch.nn.functional.pad(key, (0, sp - s), value=_BIG)
+        kr = key.reshape(b, -1, sp // NUM_BUCKETS, NUM_BUCKETS)
+        kmin = kr.amin(dim=2)                                          # (B, Qc, 128)
+        pr = gidx.reshape(sp // NUM_BUCKETS, NUM_BUCKETS)
+        pmin = torch.where(kr <= kmin[:, :, None, :], pr, _BIG).amin(dim=2)
+        keys.append(kmin)
+        # a bucket that never drops below 1e30 keeps the sweep's initial index
+        idxs.append(torch.where(kmin < _BIG, pmin, 0.0))
+    key, pidx = torch.cat(keys, dim=1), torch.cat(idxs, dim=1)
+    key3, pos = torch.sort(key, dim=-1, stable=True)
+    d2 = torch.clamp(key3[..., :3], max=_INF)
+    idx = torch.gather(pidx, -1, pos[..., :3]).to(torch.int32).clamp(0, s - 1)
+    return torch.sqrt(torch.clamp(d2, min=0.0)), idx
+
+
+def three_nn_bucket(unknown, known, known_mask):
+    """Bucketed 3-NN, with the interface of ``pointnet2.three_nn``.
+
+    Args:
+        unknown: (B, N, 3) f32 query points; known: (B, S, 3) f32;
+        known_mask: (B, S) bool.
+    Returns:
+        dist (B, N, 3) f32 and idx (B, N, 3) int32, neither with a gradient.
+    """
+    unknown = unknown.detach()
+    known = known.detach()
+    if not _kernels.use_kernel(known):
+        return three_nn_bucket_plain(unknown, known, known_mask)
+    unknown = unknown.float().contiguous()
+    known = known.float().contiguous()
+    known_mask = known_mask.contiguous()
+    _kernels.check_cuda_input('three_nn unknown', unknown, torch.float32, 3)
+    _kernels.check_cuda_input('three_nn known', known, torch.float32, 3)
+    _kernels.check_cuda_input('three_nn known_mask', known_mask, torch.bool, 2)
+    b, s, _ = known.shape
+    n = unknown.shape[1]
+    if (known.shape[2] != 3 or unknown.shape[0] != b or unknown.shape[2] != 3
+            or known_mask.shape != (b, s) or len({unknown.device, known.device,
+                                                  known_mask.device}) != 1):
+        raise ValueError(f'three_nn: unknown {tuple(unknown.shape)}, known '
+                         f'{tuple(known.shape)}, known_mask {tuple(known_mask.shape)}')
+    dist = torch.empty(b, n, 3, dtype=torch.float32, device=known.device)
+    idx = torch.empty(b, n, 3, dtype=torch.int32, device=known.device)
+    if b * n == 0:
+        return dist, idx
+    fn = _kernels.library('three_nn').hvpr_three_nn
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(_kernels.ptr(unknown), _kernels.ptr(known), _kernels.ptr(known_mask),
+             _kernels.ptr(dist), _kernels.ptr(idx), b, n, s,
+             _kernels.stream_handle(known))
+    _kernels.launched('three_nn_bucket', err)
+    return dist, idx
 
 
 def fps_chunks_plain(pts, valid, nsamp):

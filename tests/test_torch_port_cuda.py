@@ -5,7 +5,9 @@ kernels have no CPU form). On a machine with a card run them with
 ``python -m pytest tests/test_torch_port_cuda.py -q``. The kernels repeat
 their plain versions' arithmetic in the same order (K1, K4, K5: products and
 sums rounded one by one, no FMA contraction) or with exact f64 accumulation
-(K2), or copy bytes (K3), so those comparisons are exact. K6/K7 (the memory
+(K2), or copy bytes (K3; cast to bf16 by the same rounding), so those
+comparisons are exact; so is K11's (the bucketed 3-NN), indices and
+distances. K6/K7 (the memory
 reconstruction) and K9/K10 (the masked attention) also accumulate exact
 products in f64, but a sum of f32 terms in f64 may round its last bit by
 order: their float outputs are held to 1e-5 of the output's largest
@@ -21,7 +23,7 @@ from hvpr_tpu_torch.ops import _kernels
 from hvpr_tpu_torch.ops.bev_canvas import canvas_from_sorted
 from hvpr_tpu_torch.ops.memory_lookup import memory_lookup_fused
 from hvpr_tpu_torch.ops.memory_recon import memory_recon, recon_backward, recon_forward
-from hvpr_tpu_torch.ops.pn2_select import ball_query_bucket, fps_chunks
+from hvpr_tpu_torch.ops.pn2_select import ball_query_bucket, fps_chunks, three_nn_bucket
 from hvpr_tpu_torch.ops.segment_sweep import segment_sweep
 from hvpr_tpu_torch.ops.topk_attend import (bucket_threshold, masked_attend,
                                             masked_attend_bwd, masked_attend_fwd)
@@ -79,9 +81,10 @@ def test_memory_lookup_kernel(cuda, m, c, k):
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-def test_bev_canvas_kernel(cuda, dtype):
+@pytest.mark.parametrize('c,ny,nx', [(32, 60, 70), (8, 61, 71)])    # odd grid, 16-byte rows
+def test_bev_canvas_kernel(cuda, dtype, c, ny, nx):
     rng = np.random.default_rng(0)
-    b, v, c, ny, nx = 2, 3000, 32, 60, 70
+    b, v = 2, 3000
     feat = torch.from_numpy(rng.normal(size=(b, v, c)).astype(np.float32)).to(cuda)
     coords = torch.zeros(b, v, 3, dtype=torch.int32)
     mask = torch.zeros(b, v, dtype=torch.bool)
@@ -93,6 +96,7 @@ def test_bev_canvas_kernel(cuda, dtype):
     got, want = _both(canvas_from_sorted, feat, coords.to(cuda), mask.to(cuda),
                       ny, nx, dtype)
     assert got.dtype == dtype and torch.equal(got, want)
+    assert int((got[1].abs().sum(-1) > 0).sum()) == 10      # every other cell zero
 
 
 def test_kernels_without_backward_refuse_grad(cuda):
@@ -161,6 +165,32 @@ def test_fps_chunks_kernel(cuda, r, l, nsamp):
     assert _kernels.launch_counts()['fps_chunks'] == before + 1
 
 
+@pytest.mark.parametrize('b,n,s', [(4, 4096, 1024), (4, 16384, 4096),   # hvpr.yaml FP
+                                   (2, 300, 700), (2, 100, 50)])
+def test_three_nn_kernel(cuda, b, n, s):
+    rng = np.random.default_rng(n + s)
+    if s >= 1024:
+        known = _scan(rng, b, s)
+        unknown = _scan(rng, b, n)
+    else:
+        known = torch.from_numpy(rng.uniform(-2, 2, (b, s, 3)).astype(np.float32))
+        unknown = torch.from_numpy(rng.uniform(-2, 2, (b, n, 3)).astype(np.float32))
+        if s >= 256:
+            known[0, 128:256] = known[0, 0:128]              # ties within a bucket
+        unknown[0, :4] = known[0, :4]                        # distance 0
+    mask = torch.from_numpy(rng.uniform(size=(b, s)) > 0.1)
+    if n == 100:
+        mask[1] = False                                      # S < 128, all masked
+    before = _kernels.launch_counts()['three_nn_bucket']
+    (gd, gi), (wd, wi) = _both(three_nn_bucket, unknown.to(cuda), known.to(cuda),
+                               mask.to(cuda))
+    assert torch.equal(gi, wi) and torch.equal(gd, wd)
+    assert gi.dtype == torch.int32 and gd.shape == (b, n, 3)
+    assert _kernels.launch_counts()['three_nn_bucket'] == before + 1
+    if n == 100:
+        assert int(gi[1].abs().sum()) == 0 and bool((gd[1] == 1e5).all())
+
+
 def _close(got, want):
     assert got.shape == want.shape and got.dtype == want.dtype
     err = float((got - want).abs().max())
@@ -168,6 +198,7 @@ def _close(got, want):
 
 
 @pytest.mark.parametrize('r,m,c,lam', [(1000, 64, 32, 0.0), (1003, 300, 64, 0.0025),
+                                       (517, 2000, 30, 0.0025),   # ragged tiles, C < 64
                                        (65536, 2000, 64, 0.0025)])
 def test_memory_recon_kernels(cuda, r, m, c, lam):
     rng = np.random.default_rng(r)
