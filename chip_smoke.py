@@ -22,11 +22,14 @@ scans with seeded random weights:
   adam_onecycle update. Each train kernel (K4 ball query, K5 FPS, K6/K7 the
   memory reconstruction forward/backward, K8 the bucket threshold, K9/K10
   the masked attention forward/backward) is held against its plain version
-  at the shapes of one step, one step through the kernels must equal one
-  step through the plain versions from the same state bit for bit under
-  torch's deterministic algorithms (each gradient, loss term and updated
-  weight), and 5 more steps must launch each kernel its expected number of
-  times.
+  at the shapes of one step (K9's pairs, the selected points and bf16
+  weights K10 reduces, exactly; K10 also against the dense plain backward,
+  which recomputes every row's weights), one step through the kernels
+  must equal one step through the plain versions from the same state bit
+  for bit under torch's deterministic algorithms (each gradient, loss term
+  and updated weight), and 5 more steps must launch each kernel its
+  expected number of times; the step's peak memory is read with the
+  captured inputs freed.
 - the bucketed 3-NN (K11), which no path of the model calls (the FP modules
   keep the exact 3-NN, as in the JAX package): on the inputs of the two
   ``pointnet2.three_nn`` calls of one fused step it must equal its plain
@@ -35,7 +38,8 @@ scans with seeded random weights:
 - training in ``TRAIN_ATTEND_MODE: gather``: the kernel step must equal the
   plain step as above, and 2 timed steps must launch K4-K7 and never K8-K10.
 
-Yardsticks (timed, never called by the port): K2 beside
+Device times by kernel (torch.profiler) are printed for K2, K3, K7 and
+K10's parts. Yardsticks (timed, never called by the port): K2 beside
 ``scaled_dot_product_attention`` over the selected sets, K3 beside
 ``torch.zeros`` + ``index_put_``, K9 beside ``scaled_dot_product_attention``.
 
@@ -64,6 +68,7 @@ TOTAL_STEPS = 100                  # the OneCycle schedule's length
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
 F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
+F64_TC_FLOPS_PER_S = 67e12         # H100 SXM f64 on the tensor cores (DMMA)
 INFER_KERNELS = ('segment_sweep', 'memory_lookup', 'bev_canvas')
 # launches of each train kernel in one step of hvpr.yaml: 2 SA levels x 2
 # radii ball queries, one FPS per level, one reconstruction each way, one
@@ -314,7 +319,7 @@ def inference_phase(smi):
         entries[name] = {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms}
         print(f'{name}: {len(calls[name])} call(s) per forward, max_abs_err {err}, '
               f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms')
-        if name == 'bev_canvas':
+        if name in ('memory_lookup', 'bev_canvas'):
             print(f'{name}: device ms per forward by kernel (torch.profiler): '
                   + device_breakdown(lambda: [fn(*a, **kw) for a, kw in calls[name]]))
         # the kernels repeat the plain versions' arithmetic: bit-identical
@@ -352,6 +357,11 @@ def inference_phase(smi):
     entries['memory_lookup'].update(bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
     print(f'memory_lookup: scaled_dot_product_attention over the valid rows with the '
           f'selected sets as its mask (the function of _apply_kernel only) {lib_ms:.4f} ms')
+    k2_ms = entries['memory_lookup']['ms']
+    print(f'memory_lookup: K2 {k2_ms:.4f} ms against the SDPA yardstick {lib_ms:.4f} ms: '
+          f'{"below" if k2_ms < lib_ms else "NOT below"} it ({k2_ms / lib_ms:.3f}x); bound '
+          f'{b_ms:.4f} ms ({b_by}, bf16 tensor cores), on the FP64 tensor cores '
+          f'{2.0 * r_valid * m * c / F64_TC_FLOPS_PER_S * 1e3:.4f} ms for the logits')
 
     # K3's yardstick: zeroing the canvas and index_put_ in one window, as the
     # kernel writes the whole canvas; beside it the earlier yardstick,
@@ -505,6 +515,8 @@ def _train_bounds(name, calls, plain_outs, selected):
     from this run's inputs (and, for the ball query, the plain results,
     which say where each centre's sweep may stop; for the masked attention,
     ``selected``: {shared: selected points summed over the valid rows})."""
+    import torch
+    from hvpr_tpu_torch.ops.topk_attend import PAIR_CAP
     ops = nbytes = 0.0
     flops = F32_FLOPS_PER_S
     for (args, _), out in zip(calls, plain_outs):
@@ -548,22 +560,31 @@ def _train_bounds(name, calls, plain_outs, selected):
             pill, table = args[0], args[1]
             b, v, c = pill.shape
             n = table.shape[1]
-            row_mask = args[4] if name == 'bucket_threshold' else args[-1]
+            row_mask = args[{'bucket_threshold': 4, 'masked_attend_fwd': 6,
+                             'masked_attend_bwd': 9}[name]]
             r = float(row_mask.sum())
             io = pill.numel() + table.numel() + b * n + b * v       # in, f32
-            ops += 2.0 * r * n * c
             if name == 'bucket_threshold':
+                ops += 2.0 * r * n * c
                 nbytes += io * 4 + b * v + b * v * 4
-            else:
-                shared = args[5] if name == 'masked_attend_fwd' else args[8]
-                ops += (1 if shared else 2) * 2.0 * c * selected[shared]
+                flops = BF16_FLOPS_PER_S
+            elif name == 'masked_attend_fwd':         # + out, mx, den, count, pairs
+                shared = args[5]
+                ops += 2.0 * r * n * c + (1 if shared else 2) * 2.0 * c * selected[shared]
                 io += 0 if shared else table.numel()
-                if name == 'masked_attend_fwd':       # + out, mx, den, count
-                    nbytes += io * 4 + b * v + b * v * c * 4 + 3 * b * v * 4
-                else:                                  # + mx, den, dout; dval
-                    nbytes += io * 4 + b * v + 2 * b * v * 4 + b * v * c * 4 \
-                        + b * n * c * 4
-            flops = BF16_FLOPS_PER_S
+                nbytes += io * 4 + b * v + b * v * c * 4 + 3 * b * v * 4 \
+                    + b * v * PAIR_CAP * 6
+                flops = BF16_FLOPS_PER_S
+            else:
+                # the reduce over the listed pairs: reads the valid rows of
+                # dout and the pairs, writes dval; 2 C flops a pair; the
+                # overflow rows' scores (and split logits) at every point
+                shared, cnt = args[8], args[12]
+                n_ovf = float(((cnt > PAIR_CAP) & row_mask).sum())
+                listed = float(torch.where((cnt <= PAIR_CAP) & row_mask, cnt, 0).sum())
+                ops += 2.0 * c * selected[shared] + (1 if shared else 2) * 2.0 * c * n * n_ovf
+                nbytes += r * c * 4 + listed * 6 + b * n * c * 4
+                flops = F32_FLOPS_PER_S
     return bound(ops, flops, nbytes)
 
 
@@ -616,8 +637,9 @@ def _lookup_library_ms(pill, memw, row_mask, thresh):
 
 
 # float outputs that must equal the plain version's exactly: K8's thresholds,
-# K9's row maxima (and every integer output); the rest within RECON_RTOL
-EXACT_OUTPUTS = {'bucket_threshold': (0,), 'masked_attend_fwd': (1,)}
+# K9's row maxima and pair weights (and every integer output: counts, pair
+# indices); the rest within RECON_RTOL
+EXACT_OUTPUTS = {'bucket_threshold': (0,), 'masked_attend_fwd': (1, 5)}
 
 
 def train_phase(smi, mode):
@@ -783,21 +805,44 @@ def train_phase(smi, mode):
                       for args, _ in calls[name]]
             print(f'{name}: {len(calls[name])} call(s) per step at {shapes}, max_abs_err '
                   f'{err}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms')
-            if name == 'memory_recon_bwd':
+            if name in ('memory_recon_bwd', 'masked_attend_bwd'):
                 print(f'{name}: device ms per step by kernel (torch.profiler): '
                       + device_breakdown(lambda: [fn(*a, **kw) for a, kw in calls[name]]))
+            if name == 'masked_attend_bwd':
+                # K10 reduces K9's pairs; the dense plain version recomputes
+                # every row's scores and weights: the oracle of both
+                for (args, kwargs), want in zip(calls[name], plain_outs):
+                    got = fn(*args, **kwargs)
+                    oracle = topk_attend.masked_attend_bwd_plain(*args[:10])
+                    torch.cuda.synchronize()
+                    scale = float(oracle.abs().max())
+                    e_k, e_p = (float((x - oracle).abs().max()) for x in (got, want))
+                    print(f'{name}: against the dense oracle, kernel {e_k}, plain (pairs) '
+                          f'{e_p}, largest |dval| {scale}')
+                    if max(e_k, e_p) > RECON_RTOL * scale:
+                        fail(f'{name}: differs from the dense oracle by {max(e_k, e_p)}')
+                    del got, oracle
 
         # the selected sets: points per valid pillar row, per K9 call
         selected = {}
-        for (args, _), (_, _, _, cnt) in zip(calls['masked_attend_fwd'],
-                                             outs['masked_attend_fwd']):
+        for (args, _), fwd_out in zip(calls['masked_attend_fwd'], outs['masked_attend_fwd']):
             shared, row_mask = args[5], args[6]
+            cnt, pidx = fwd_out[3], fwd_out[4]
             c = cnt[row_mask].float()
             selected[shared] = float(c.sum())
+            # the pairs K10 reduces: per point, the rows that list it
+            b_, v_, _ = pidx.shape
+            n_ = args[1].shape[1]
+            keys = (pidx.long() + n_ * torch.arange(b_, device=pidx.device)[:, None, None])
+            per_point = torch.bincount(keys[pidx >= 0], minlength=b_ * n_)
             print(f'masked_attend ({"shared" if shared else "split"}): selected points per '
                   f'valid pillar mean {c.mean().item():.3f} (k={cfg.MODEL.MAP_TO_BEV.NUM_K}), '
                   f'min {int(c.min())}, max {int(c.max())}, over {c.numel()} rows; '
-                  f'rows above the 128-point list: {int((c > 128).sum())}')
+                  f'rows above the 128-point list (overflow rows): {int((c > 128).sum())}; '
+                  f'{int(per_point.sum())} listed pairs, rows per point mean '
+                  f'{float(per_point.float().mean()):.3f}, max {int(per_point.max())}; '
+                  f'pair buffers {b_ * v_ * topk_attend.PAIR_CAP * 6 / 2**20:.1f} MiB a call')
+            del keys, per_point
         for name in wrappers:
             b_ms, b_by = _train_bounds(name, calls[name], outs[name], selected)
             entries[name].update(bound_ms=b_ms, bound_by=b_by)
@@ -809,7 +854,18 @@ def train_phase(smi, mode):
               'both calls')
         del outs
 
-    # 4. the main path: the timed steps, counts from zero
+    # 4. the main path: the timed steps, counts from zero. The captured
+    # inputs are the check's, not the step's: they are freed first, so that
+    # the peak below is the step's own (this script used to hold them through
+    # the timed steps: the figure counted that way is printed beside it)
+    def nbytes(tensors):
+        return sum(t.numel() * t.element_size() for t in tensors
+                   if isinstance(t, torch.Tensor))
+    held = nbytes(a for key, cs in calls.items() if key != 'three_nn'
+                  for args, _ in cs for a in args)
+    held_pairs = nbytes(a for args, _ in calls.get('masked_attend_bwd', ())
+                        for a in args[10:])
+    calls = {'three_nn': calls.get('three_nn', [])}
     n_steps = TRAIN_STEPS if fused else GATHER_STEPS
     fresh()
     torch.cuda.synchronize()
@@ -835,10 +891,12 @@ def train_phase(smi, mode):
         fail(f'non-finite train loss: {losses}')
     step_s = statistics.median(times)
     print(f'train losses ({mode}) over {n_steps} steps: {losses}')
+    peak = torch.cuda.max_memory_allocated()
     print(f'train step ({mode}): median of {n_steps} {step_s * 1e3:.3f} ms per batch of '
           f'{TRAIN_BATCH} -> {TRAIN_BATCH / step_s:.3f} scans/s, peak memory '
-          f'{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, {n_params} '
-          f'parameters, on {smi}')
+          f'{peak / 2**30:.3f} GiB ({(peak + held - held_pairs) / 2**30:.3f} GiB with the '
+          f'captured inputs held, as counted before; those held {held / 2**30:.3f} GiB, '
+          f'{held_pairs / 2**30:.3f} of it K10\'s pairs), {n_params} parameters, on {smi}')
     if fused:
         stages = train_stage_ms(net, batch)
         print(f'train step ({mode}) stage ms (median of 3, CUDA events inside '

@@ -19,30 +19,46 @@
 // through either yields the same detections.
 //
 // What bounds it on the H100: operations. Per pillar row the dense work is
-// M*C multiply-adds for the logits and M*C for the output (4*R*M*C flops)
-// against ~8*C bytes of input and output, far above the card's ~295 flops per
-// byte at the bf16 tensor rate. This kernel runs its multiply-adds on the f64
-// CUDA cores (for the order-free sums above), so it runs far from that
-// bound; tensor-core tiles with an exact split are later work.
+// M*C multiply-adds for the logits (2*R*M*C flops, 1.95e10 at hvpr.yaml's
+// batch 8: ~76,000 valid rows, M = 2000, C = 64) against ~8*C bytes of input
+// and output, far above the card's ~295 flops per byte at the bf16 tensor
+// rate (0.020 ms). The exact f64 sums above need f64 products: this kernel
+// runs the logits on the FP64 tensor cores (mma.sync.aligned.m8n8k4 .f64,
+// DMMA, as K7 in memory_recon.cu), whose 67 TFLOP/s bound the logits at
+// ~0.29 ms. The output touches only the ~23 selected columns of a row.
 //
-// Design: one block owns 16 pillar rows and keeps all their logits in shared
-// memory (16 x Mp f32, 128 KB at M = 2000), so nothing is recomputed and
-// sum(e) is known before the weights are rounded. The bf16 memory padded to
-// 2048 x 64 is 262 KB, more than the 227 KB a block can hold, so it is
-// streamed in 128-row chunks, held as f64 (64 KB; f64 operands spare a
-// conversion per multiply-add): every chunk gives each bucket exactly one
-// column, and 8 warps split a chunk's 128 columns x 16 rows. The
-// threshold needs no sort: a warp owns a row, each lane holds 4 of the 128
-// bucket maxima and counts how many are greater and greater-or-equal; the
-// value with greater < k <= greater-or-equal is the k-th largest. The warp
-// then overwrites the row's logits with its bf16-rounded weights, and the
-// output streams the memory chunks again: 16 threads share a row, each
-// owning C/16 channels, and a warp skips the columns where its 2 rows have zero
-// weight (a pillar row selects ~k of 2000 columns). Rows outside the caller's
-// row mask (empty pillar slots, ~40% at hvpr.yaml's batch 8) output zeros,
-// and a block without a valid row returns at once: the counterpart of the
-// JAX package's eighth-prefix switch. An all-zero row inside the mask ties
-// everywhere, selects every column and runs the whole dense product.
+// Design: one block owns 16 pillar rows and 16 warps, one sweep over the
+// memory. The bf16 memory (262 KB padded to 2048 x 64: more than a block's
+// 227 KB) streams through shared memory in 128-row chunks as bf16 (18 KB
+// each, rows padded to 144 bytes so a fragment load hits 16 distinct
+// banks), double-buffered with cp.async, so the next chunk's copy overlaps
+// this chunk's products. Every chunk gives each bucket exactly one column.
+// A warp owns the block's 16 rows x 8 columns of a chunk: its pillar
+// fragments (bf16-rounded, widened to f64) stay in registers for the whole
+// sweep, and each memory fragment is widened to f64 as it is loaded (exact)
+// and feeds two DMMAs. The logits, rounded to f32, go to a shared tile (16 x
+// (Mp + 8) f32, 129 KB; the pad keeps the 8-byte stores conflict-free) and
+// each lane keeps the maxima of its 4 (row, bucket) pairs in registers over
+// the chunks. Then a warp owns a row: the threshold by counting (each lane
+// holds 4 of the 128 bucket maxima and counts how many are greater and
+// greater-or-equal; the value with greater < k <= greater-or-equal is the
+// k-th largest), one pass over the row's logits for sum(e) that also lists
+// the selected columns in index order (ballots) with their e in shared
+// memory (in the chunk buffers, free after the sweep), and the output from
+// that list: lanes over channels, the selected memory rows read from global
+// memory (L2), 8 rows' loads in flight. A row that selects more than kCap =
+// 128 columns (a tie: an all-zero row ties with every column) overwrites
+// its logits with its weights and sums every column with a nonzero weight
+// instead, so any count from 0 to M is right. Rows outside the caller's row
+// mask (empty pillar slots, ~40% at hvpr.yaml's batch 8) output zeros, and a
+// block without a valid row returns at once: the counterpart of the JAX
+// package's eighth-prefix switch.
+//
+// The tile keeps all its logits, so the sweep runs once, but the tile's 176
+// KB of shared memory leave one block an SM. The other layout, two sweeps
+// over 32-row tiles with no logit tile (86 KB, two blocks an SM: bucket
+// maxima first, then each row's selected columns appended to a list), made
+// twice the DMMA work and was slower on the card (PERF.md, K2).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,256 +66,317 @@
 
 namespace {
 
-constexpr int kRows = 16;     // pillar rows per block
-constexpr int kChunk = 128;   // memory rows per streamed chunk == buckets
-constexpr int kWarps = 8;
+constexpr int kRows = 16;                       // pillar rows per block
+constexpr int kWarps = 16;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kRowThreads = kThreads / kRows;   // threads sharing a row: 16
-constexpr int kColRows = kRows * kChunk / kThreads;  // logit rows a thread owns: 8
-constexpr int kStride = kChunk + 1;   // transposed chunk row: no bank conflicts
+constexpr int kChunk = 128;                     // memory rows per chunk == buckets
+constexpr int kWCols = kChunk / kWarps;         // a warp's columns of a chunk: 8
 constexpr int kMaxC = 64;
+constexpr int kKSteps = kMaxC / 4;              // mma k-steps at most
+constexpr int kCS = kMaxC + 8;                  // bf16 row stride of a chunk (144 B)
+constexpr int kChunkElems = kChunk * kCS;
+constexpr int kLPad = 8;                        // f32 pad of a logit row
+constexpr int kCap = 128;                       // list length a row
+constexpr int kAhead = 8;                       // list rows whose loads are in flight
 constexpr float kNeg = -1e30f;
+constexpr unsigned kFull = 0xffffffffu;
 
-// Chunk `ch` (memory rows ch * 128 ...) of the (M, C) bf16 memory as f64 in
-// shared memory, transposed (C rows of kStride) or row-major (128 x C), zero
-// past M. 16-byte loads, all in flight before the first store: a chunk load
-// is otherwise a chain of dependent L2 round trips.
-template <bool kTransposed>
-__device__ void load_chunk(const __nv_bfloat16* mem, double* chunk, int ch,
-                           int M, int C) {
-  constexpr int kMaxVec = kChunk * kMaxC / 8 / kThreads;
-  const int vpr = C / 8;                    // 16-byte vectors per memory row
-  const int nvec = kChunk * vpr;
-  const uint4* src = reinterpret_cast<const uint4*>(mem) +
-                     static_cast<long long>(ch) * kChunk * vpr;
-  uint4 v[kMaxVec];
-  for (int u = 0; u < kMaxVec; ++u) {
-    const int i = threadIdx.x + u * kThreads;
-    const bool ok = i < nvec && ch * kChunk + i / vpr < M;
-    v[u] = ok ? src[i] : make_uint4(0, 0, 0, 0);
+static_assert(kRows == 16 && kWCols == 8, "a warp's tile: two 8 x 8 mma tiles");
+static_assert(kRows * kCap * 8 <= 2 * kChunkElems * 2, "the lists fit the chunk buffers");
+
+__device__ __forceinline__ double widen(__nv_bfloat16 v) { return (double)__bfloat162float(v); }
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// D (8 x 8) += A (8 x 4) B (4 x 8) on the FP64 tensor cores. Per lane:
+// a = A[lane / 4][lane % 4], b = B[lane % 4][lane / 4], and
+// d0, d1 = D[lane / 4][2 (lane % 4) + {0, 1}].
+__device__ __forceinline__ void dmma(double& d0, double& d1, double a, double b) {
+  asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};"
+               : "+d"(d0), "+d"(d1)
+               : "d"(a), "d"(b));
+}
+
+// Start copying chunk `ch` (memory rows ch * 128 ...) of the (M, C) bf16
+// memory into dst (rows of kCS), 16 bytes a copy; rows past M are zeros.
+__device__ __forceinline__ void stage_chunk(const __nv_bfloat16* __restrict__ mem,
+                                            __nv_bfloat16* dst, int ch, int M, int C) {
+  const int vpr = C / 8;
+  for (int i = threadIdx.x; i < kChunk * vpr; i += kThreads) {
+    const int n = i / vpr, v = i - n * vpr;
+    const int row = ch * kChunk + n;
+    const __nv_bfloat16* src = mem + (size_t)min(row, M - 1) * C + v * 8;
+    const unsigned saddr = (unsigned)__cvta_generic_to_shared(dst + n * kCS + v * 8);
+    const int bytes = row < M ? 16 : 0;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(saddr), "l"(src), "r"(bytes));
   }
-  for (int u = 0; u < kMaxVec; ++u) {
-    const int i = threadIdx.x + u * kThreads;
-    if (i < nvec) {
-      const int n = i / vpr;
-      const int c0 = (i - n * vpr) * 8;
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v[u]);
-      for (int j = 0; j < 8; ++j) {
-        const double d = __bfloat162float(e[j]);
-        if (kTransposed) {
-          chunk[(c0 + j) * kStride + n] = d;
-        } else {
-          chunk[n * C + c0 + j] = d;
-        }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
+  return v;
+}
+
+// k-th largest of a row's 128 bucket maxima, ties counted (one warp)
+__device__ float kth_largest(const float* bm, int k, int lane) {
+  float v[4];
+  int gt[4], ge[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    v[q] = bm[lane * 4 + q];
+    gt[q] = 0;
+    ge[q] = 0;
+  }
+  for (int j = 0; j < kChunk; ++j) {
+    const float u = bm[j];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      gt[q] += u > v[q];
+      ge[q] += u >= v[q];
+    }
+  }
+  float th = -CUDART_INF_F;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (gt[q] < k && k <= ge[q]) th = fmaxf(th, v[q]);
+  return warp_max(th);
+}
+
+__device__ __forceinline__ void add_column(const __nv_bfloat16* __restrict__ mem, int j,
+                                           double w, int C, int lane, double& a0, double& a1) {
+  const __nv_bfloat16* mr = mem + (size_t)j * C;
+  if (lane < C) a0 = fma(w, widen(mr[lane]), a0);
+  if (lane + 32 < C) a1 = fma(w, widen(mr[lane + 32]), a1);
+}
+
+// out += sum over a row's list of its bf16 weights lv times the memory rows
+// li, in list order (columns past M, which weigh 0, add 0); lanes over
+// channels, kAhead rows' loads in flight before their multiply-adds
+__device__ __forceinline__ void output_from_list(const __nv_bfloat16* __restrict__ mem,
+                                                 const int* li, const float* lv, int cnt,
+                                                 int M, int C, int lane, double& a0,
+                                                 double& a1) {
+  for (int e0 = 0; e0 < cnt; e0 += kAhead) {
+    float w[kAhead];
+    __nv_bfloat16 m0[kAhead], m1[kAhead];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const int e = min(e0 + u, cnt - 1);
+      const int j = li[e];
+      const bool use = e0 + u < cnt && j < M;
+      w[u] = use ? lv[e] : 0.0f;
+      const __nv_bfloat16* mr = mem + (size_t)(use ? j : 0) * C;
+      m0[u] = mr[lane < C ? lane : 0];
+      m1[u] = mr[lane + 32 < C ? lane + 32 : 0];
+    }
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      if (e0 + u < cnt) {
+        if (lane < C) a0 = fma((double)w[u], widen(m0[u]), a0);
+        if (lane + 32 < C) a1 = fma((double)w[u], widen(m1[u]), a1);
       }
     }
+  }
+}
+
+__device__ __forceinline__ void finish_row(float* __restrict__ out, float* __restrict__ thresh_out,
+                                           int* __restrict__ count_out, int row, int C,
+                                           int lane, double a0, double a1, float th, int cnt) {
+  float* orow = out + (size_t)row * C;
+  if (lane < C) orow[lane] = __double2float_rn(a0);
+  if (lane + 32 < C) orow[lane + 32] = __double2float_rn(a1);
+  if (lane == 0) {
+    if (thresh_out != nullptr) thresh_out[row] = th;
+    if (count_out != nullptr) count_out[row] = cnt;
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
 memory_lookup_kernel(const float* __restrict__ pillars,
                      const __nv_bfloat16* __restrict__ mem,
-                     const bool* __restrict__ row_mask,
-                     float* __restrict__ out, float* __restrict__ thresh_out,
-                     int* __restrict__ count_out, int R, int M, int C, int k) {
+                     const bool* __restrict__ row_mask, float* __restrict__ out,
+                     float* __restrict__ thresh_out, int* __restrict__ count_out, int R,
+                     int M, int C, int k) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int Mp = (M + kChunk - 1) / kChunk * kChunk;
   const int n_chunks = Mp / kChunk;
-  double* chunk = reinterpret_cast<double*>(smem);          // C x kStride | 128 x C
-  double* pill = chunk + C * kStride;                               // kRows x C
-  float* logits = reinterpret_cast<float*>(pill + kRows * C);       // kRows x Mp
-  float* bmax = logits + kRows * Mp;                                // kRows x 128
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+  const int LS = Mp + kLPad;
+  __nv_bfloat16* chunks = reinterpret_cast<__nv_bfloat16*>(smem);    // 2 x kChunkElems
+  float* logits = reinterpret_cast<float*>(chunks + 2 * kChunkElems); // kRows x LS
+  float* bmax = logits + kRows * LS;                                   // kRows x 128
+  int* lidx = reinterpret_cast<int*>(smem);                  // kRows x kCap, after the sweep
+  float* lval = reinterpret_cast<float*>(lidx + kRows * kCap);         // kRows x kCap
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
   const int row0 = blockIdx.x * kRows;
 
   // 0. rows outside row_mask output zeros; a block with none inside exits
-  __shared__ int any_valid;
-  if (threadIdx.x == 0) any_valid = 0;
-  __syncthreads();
-  if (threadIdx.x < kRows) {
-    const int row = row0 + threadIdx.x;
-    if (row < R && (row_mask == nullptr || row_mask[row])) any_valid = 1;
-  }
-  __syncthreads();
-  if (!any_valid) {
-    for (int i = threadIdx.x; i < kRows * C; i += kThreads) {
-      const int row = row0 + i / C;
-      if (row < R) out[static_cast<long long>(row0) * C + i] = 0.0f;
-    }
-    if (threadIdx.x < kRows && row0 + threadIdx.x < R) {
-      if (thresh_out != nullptr) thresh_out[row0 + threadIdx.x] = 0.0f;
-      if (count_out != nullptr) count_out[row0 + threadIdx.x] = 0;
+  const int t = threadIdx.x;
+  if (!__syncthreads_or(t < kRows && row0 + t < R &&
+                        (row_mask == nullptr || row_mask[row0 + t]))) {
+    for (int i = t; i < kRows * C; i += kThreads)
+      if (row0 + i / C < R) out[(size_t)row0 * C + i] = 0.0f;
+    if (t < kRows && row0 + t < R) {
+      if (thresh_out != nullptr) thresh_out[row0 + t] = 0.0f;
+      if (count_out != nullptr) count_out[row0 + t] = 0;
     }
     return;
   }
 
-  // 1. the pillar tile, rounded to bf16 (rows past R are zero)
-  for (int i = threadIdx.x; i < kRows * C; i += kThreads) {
-    const int r = i / C;
-    const int row = row0 + r;
-    const float v =
-        row < R ? pillars[static_cast<long long>(row) * C + (i - r * C)] : 0.0f;
-    pill[i] = __bfloat162float(__float2bfloat16_rn(v));
+  stage_chunk(mem, chunks, 0, M, C);
+
+  // 1. the warp's pillar fragments, bf16-rounded and widened: a[i][ks] =
+  //    pillar[row0 + 8 i + g][4 ks + q] (zero past R)
+  const int ksteps = C / 4;
+  double a[2][kKSteps];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + i * 8 + g;
+#pragma unroll
+    for (int ks = 0; ks < kKSteps; ++ks) {
+      const float v = row < R && ks < ksteps ? pillars[(size_t)row * C + ks * 4 + q] : 0.0f;
+      a[i][ks] = (double)bf16_round(v);
+    }
   }
 
-  // 2. all logits of the tile; memory chunks stored transposed (C rows of
-  //    kStride) so a warp reads 32 consecutive columns; thread t owns
-  //    column t % 128 of rows kColRows * (t / 128) ...
+  // 2. the sweep: the logits of the warp's 16 rows x 8 columns of each
+  //    chunk on DMMA, rounded to f32 into the logit tile; bucket maxima in
+  //    registers (bm[i][h]: row 8 i + g, bucket wc + 2 q + h)
+  const int wc = warp * kWCols;
+  float bm[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) bm[i][0] = bm[i][1] = -CUDART_INF_F;
   for (int ch = 0; ch < n_chunks; ++ch) {
+    if (ch + 1 < n_chunks) {
+      stage_chunk(mem, chunks + ((ch + 1) & 1) * kChunkElems, ch + 1, M, C);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
     __syncthreads();
-    load_chunk<true>(mem, chunk, ch, M, C);
-    __syncthreads();
-    const int t = threadIdx.x % kChunk;
-    const int rb = threadIdx.x / kChunk * kColRows;
-    double acc[kColRows];
-    for (int r = 0; r < kColRows; ++r) acc[r] = 0.0;
-    for (int c = 0; c < C; c += 2) {
-      const double m0 = chunk[c * kStride + t];
-      const double m1 = chunk[(c + 1) * kStride + t];
-      for (int r = 0; r < kColRows; ++r) {
-        const double2 p = *reinterpret_cast<const double2*>(pill + (rb + r) * C + c);
-        acc[r] = fma(p.y, m1, fma(p.x, m0, acc[r]));
+    const __nv_bfloat16* cb = chunks + (ch & 1) * kChunkElems;
+    double acc[2][2] = {{0.0, 0.0}, {0.0, 0.0}};
+#pragma unroll
+    for (int ks = 0; ks < kKSteps; ++ks) {
+      if (ks < ksteps) {
+        const double b = widen(cb[(wc + g) * kCS + ks * 4 + q]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) dmma(acc[i][0], acc[i][1], a[i][ks], b);
       }
     }
-    const int col = ch * kChunk + t;
-    for (int r = 0; r < kColRows; ++r) {
-      logits[(rb + r) * Mp + col] = col < M ? __double2float_rn(acc[r]) : kNeg;
+    const int col = ch * kChunk + wc + 2 * q;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float l0 = col < M ? __double2float_rn(acc[i][0]) : kNeg;
+      const float l1 = col + 1 < M ? __double2float_rn(acc[i][1]) : kNeg;
+      *reinterpret_cast<float2*>(logits + (i * 8 + g) * LS + col) = make_float2(l0, l1);
+      bm[i][0] = fmaxf(bm[i][0], l0);
+      bm[i][1] = fmaxf(bm[i][1], l1);
     }
+    __syncthreads();                    // the buffer is refilled next round
   }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    *reinterpret_cast<float2*>(bmax + (i * 8 + g) * kChunk + wc + 2 * q) =
+        make_float2(bm[i][0], bm[i][1]);
   __syncthreads();
 
-  // 3. bucket maxima
-  for (int i = threadIdx.x; i < kRows * kChunk; i += kThreads) {
-    const int r = i / kChunk;
-    const int b = i - r * kChunk;
-    float v = logits[r * Mp + b];
-    for (int ch = 1; ch < n_chunks; ++ch) {
-      v = fmaxf(v, logits[r * Mp + ch * kChunk + b]);
-    }
-    bmax[i] = v;
-  }
-  __syncthreads();
-
-  // 4. per row (one warp): threshold, row max, sum(e); the row's logits are
-  //    then overwritten with its bf16-rounded weights
+  // 3. a warp a row: threshold, row max, sum(e) and the list of selected
+  //    columns, then the output
+  const unsigned below = (1u << lane) - 1u;
   for (int r = warp; r < kRows; r += kWarps) {
-    const float* bm = bmax + r * kChunk;
-    float v[4];
-    int gt[4], ge[4];
-    for (int q = 0; q < 4; ++q) {
-      v[q] = bm[lane * 4 + q];
-      gt[q] = 0;
-      ge[q] = 0;
+    const int row = row0 + r;
+    if (row >= R) continue;
+    if (row_mask != nullptr && !row_mask[row]) {
+      finish_row(out, thresh_out, count_out, row, C, lane, 0.0, 0.0, 0.0f, 0);
+      continue;
     }
-    for (int j = 0; j < kChunk; ++j) {
-      const float u = bm[j];
-      for (int q = 0; q < 4; ++q) {
-        gt[q] += u > v[q];
-        ge[q] += u >= v[q];
-      }
-    }
-    float th = -CUDART_INF_F;
-    float mx = fmaxf(fmaxf(v[0], v[1]), fmaxf(v[2], v[3]));
-    for (int q = 0; q < 4; ++q) {
-      if (gt[q] < k && k <= ge[q]) th = fmaxf(th, v[q]);
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      th = fmaxf(th, __shfl_xor_sync(0xffffffffu, th, off));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    }
-    float* lr = logits + r * Mp;
+    const float* bmr = bmax + r * kChunk;
+    const float th = kth_largest(bmr, k, lane);
+    const float mx = warp_max(fmaxf(fmaxf(bmr[lane * 4], bmr[lane * 4 + 1]),
+                                    fmaxf(bmr[lane * 4 + 2], bmr[lane * 4 + 3])));
+    float* lr = logits + r * LS;
+    int* li = lidx + r * kCap;
+    float* lv = lval + r * kCap;
     double s = 0.0;
     int cnt = 0;
-    for (int j = lane; j < Mp; j += 32) {
+    for (int j0 = 0; j0 < Mp; j0 += 32) {
+      const int j = j0 + lane;
       const float l = lr[j];
-      if (l >= th) {
-        s += expf(l - mx);
-        ++cnt;
+      const bool pick = l >= th;
+      float e = 0.0f;
+      if (pick) {
+        e = expf(__fsub_rn(l, mx));
+        s += (double)e;
       }
+      const unsigned ball = __ballot_sync(kFull, pick);
+      if (pick) {
+        const int pos = cnt + __popc(ball & below);
+        if (pos < kCap) {
+          li[pos] = j;
+          lv[pos] = e;
+        }
+      }
+      cnt += __popc(ball);
     }
-    for (int off = 16; off > 0; off >>= 1) {
-      s += __shfl_xor_sync(0xffffffffu, s, off);
-      cnt += __shfl_xor_sync(0xffffffffu, cnt, off);
-    }
+    __syncwarp();                       // the list, written by the picking lanes
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(kFull, s, off);
     const float s32 = __double2float_rn(s);
-    for (int j = lane; j < Mp; j += 32) {
-      const float l = lr[j];
-      lr[j] = l >= th ? __bfloat162float(__float2bfloat16_rn(expf(l - mx) / s32))
-                      : 0.0f;
-    }
-    const int row = row0 + r;
-    const bool valid = row < R && (row_mask == nullptr || row_mask[row]);
-    if (lane == 0 && row < R) {
-      if (thresh_out != nullptr) thresh_out[row] = valid ? th : 0.0f;
-      if (count_out != nullptr) count_out[row] = valid ? cnt : 0;
-    }
-  }
-
-  // 5. out = w @ memory over the chunks again; thread (r, q) owns row r and
-  //    channels q, q + 16, ...
-  const int r = threadIdx.x / kRowThreads;
-  const int q = threadIdx.x % kRowThreads;
-  const int cpt = C / kRowThreads;
-  double acc[kMaxC / kRowThreads];
-  for (int i = 0; i < kMaxC / kRowThreads; ++i) acc[i] = 0.0;
-  const float* wr = logits + r * Mp;
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    __syncthreads();
-    load_chunk<false>(mem, chunk, ch, M, C);
-    __syncthreads();
-    // a lane of each half-warp checks one of 16 columns; the warp visits
-    // the columns where either of its two rows has a nonzero weight
-    for (int n0 = 0; n0 < kChunk; n0 += kRowThreads) {
-      const unsigned bal = __ballot_sync(
-          0xffffffffu, wr[ch * kChunk + n0 + q] != 0.0f);
-      unsigned cols = (bal | (bal >> kRowThreads)) & 0xffffu;
-      while (cols) {
-        const int n = n0 + __ffs(cols) - 1;
-        cols &= cols - 1;
-        const double wd = wr[ch * kChunk + n];
-        const double* mrow = chunk + n * C + q;
-        for (int i = 0; i < kMaxC / kRowThreads; ++i) {
-          if (i < cpt) acc[i] = fma(wd, mrow[i * kRowThreads], acc[i]);
+    double a0 = 0.0, a1 = 0.0;
+    if (cnt <= kCap) {
+      for (int e = lane; e < cnt; e += 32) lv[e] = bf16_round(__fdiv_rn(lv[e], s32));
+      __syncwarp();
+      output_from_list(mem, li, lv, cnt, M, C, lane, a0, a1);
+    } else {
+      // an overflow row: its weights over the logits, then every column with
+      // a nonzero weight
+      for (int j = lane; j < Mp; j += 32) {
+        const float l = lr[j];
+        lr[j] = l >= th ? bf16_round(__fdiv_rn(expf(__fsub_rn(l, mx)), s32)) : 0.0f;
+      }
+      __syncwarp();
+      for (int j0 = 0; j0 < Mp; j0 += 32) {
+        const float wl = lr[j0 + lane];
+        unsigned nz = __ballot_sync(kFull, wl != 0.0f);
+        while (nz) {
+          const int b = __ffs(nz) - 1;
+          nz &= nz - 1;
+          add_column(mem, j0 + b, (double)__shfl_sync(kFull, wl, b), C, lane, a0, a1);
         }
       }
     }
-  }
-  const int row = row0 + r;
-  if (row < R) {
-    const bool valid = row_mask == nullptr || row_mask[row];
-    for (int i = 0; i < kMaxC / kRowThreads; ++i) {
-      if (i < cpt) {
-        out[static_cast<long long>(row) * C + q + i * kRowThreads] =
-            valid ? __double2float_rn(acc[i]) : 0.0f;
-      }
-    }
+    finish_row(out, thresh_out, count_out, row, C, lane, a0, a1, th, cnt);
   }
 }
 
 }  // namespace
 
+// shared memory a block needs for M memory rows
+extern "C" long long hvpr_memory_lookup_smem(int M) {
+  const int Mp = (M + kChunk - 1) / kChunk * kChunk;
+  return 2LL * kChunkElems * 2 + 4LL * kRows * (Mp + kLPad) + 4LL * kRows * kChunk;
+}
+
 // pillars (R, C) f32, mem (M, C) bf16, out (R, C) f32, all contiguous;
 // row_mask (R,) bool may be null (all rows); rows outside it get out = 0,
-// thresh = 0, count = 0. thresh (R,) f32 and count (R,) int32 may be null. C % 16 == 0, C <= 64,
-// 1 <= k <= 128. Returns cudaGetLastError() after the launch.
+// thresh = 0, count = 0. thresh (R,) f32 and count (R,) int32 may be null.
+// C % 16 == 0, C <= 64, 1 <= k <= 128. Returns cudaGetLastError() after the
+// launch.
 extern "C" int hvpr_memory_lookup(const float* pillars, const void* mem,
                                   const void* row_mask, float* out,
                                   float* thresh, int* count, int R, int M,
                                   int C, int k, void* stream) {
-  const int Mp = (M + kChunk - 1) / kChunk * kChunk;
-  const size_t smem = static_cast<size_t>(C) * kStride * 8 + kRows * C * 8 +
-                      static_cast<size_t>(kRows) * Mp * 4 + kRows * kChunk * 4;
+  const size_t smem = (size_t)hvpr_memory_lookup_smem(M);
   cudaError_t e = cudaFuncSetAttribute(
       memory_lookup_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int blocks = (R + kRows - 1) / kRows;
-  memory_lookup_kernel<<<blocks, kThreads, smem,
+  memory_lookup_kernel<<<(R + kRows - 1) / kRows, kThreads, smem,
                          static_cast<cudaStream_t>(stream)>>>(
       pillars, static_cast<const __nv_bfloat16*>(mem),
-      static_cast<const bool*>(row_mask), out, thresh, count, R,
-      M, C, k);
+      static_cast<const bool*>(row_mask), out, thresh, count, R, M, C, k);
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,13 +17,15 @@
 // So the kernels and the plain versions select the same points and agree to
 // the bit but for the order-dependent last bit of an f64 sum.
 //
-// What bounds them: operations. Each kernel makes the dense (rows, N) score
-// product of the rows it processes, 2*R*N*C flops (8.0e10 at hvpr.yaml batch
-// 4: R = 38,047 valid rows, N = 16,384, C = 64), against ~25 MB of inputs;
-// the softmax and value products touch only the selected points (~k a
-// row). These kernels run the products as f64 multiply-adds on the CUDA
+// What bounds them. K8 and K9 make the dense (rows, N) score product of
+// the rows they process, 2*R*N*C flops (8.0e10 at hvpr.yaml batch 4: R =
+// 38,047 valid rows, N = 16,384, C = 64), against ~25 MB of inputs: bound
+// by operations. They run the products as f64 multiply-adds on the CUDA
 // cores (for the exact sums above), far from the bf16 tensor-core bound;
-// FP64 tensor cores (mma.sync m8n8k4) or bf16 wgmma are later work.
+// FP64 tensor cores (mma.sync m8n8k4) or bf16 wgmma are later work. K10
+// touches only the selected pairs (~825k a call at hvpr.yaml), 2*C flops
+// each, against the valid rows of dout (9.7 MB), the pairs (~5 MB) and dval
+// (16.8 MB): bound by bytes, ~0.01 ms a call at 3.35 TB/s.
 //
 // Design. A tile is 32 pillar rows of one scan, held in shared memory as
 // f64, channel-major. The scan's table streams through shared memory in
@@ -38,20 +40,39 @@
 //       shared memory during the one dense sweep, in index order (ballots).
 //       A row with at most 128 selected points then finishes from its list:
 //       logits (split: one dot a point), max, exp, f64 den, bf16 weights, and
-//       the output with lanes over channels. A row that selects more (a tie
-//       over many points) is redone by its warp in three passes over all N
-//       points, so any count from 0 to N is right.
-//   K10 has no atomics: a block owns 128 points of one scan and walks every
-//       tile of the scan's valid rows in order, recomputing the scores, the
-//       selection and the bf16 weights from the forward's saved max and den;
-//       a thread owns 32 channels of one point and adds w * dout in row
-//       order into f64 registers, so dval is the same bits on every run.
+//       the output with lanes over channels. It also writes the list out,
+//       the "pairs": the row's kCap slots of point index (int32) and the
+//       bf16 weight it used for out, index -1 and weight 0 past its count.
+//       A row that selects more (a tie over many points) is redone by its
+//       warp in three passes over all N points, so any count from 0 to N is
+//       right; its slots are all -1 (an overflow row).
+//   K10 is a deterministic transpose-reduce of the pairs, with no float
+//       atomics, in steps on the stream: (a) count the pairs of each point
+//       (integer atomics); (b) an exclusive scan of the counts into segment
+//       offsets, in tiles of 4096 (tile sums, then each tile after the ones
+//       before it), which also lists the long points (more than kPiece =
+//       256 rows); (c) place each pair's key (row * kCap + slot) into its
+//       point's segment (integer atomics: in no fixed order); (d) sort each
+//       short segment by key, a thread a pair counting the smaller keys of
+//       its segment, and (d') each long one by a block, a counting sort by
+//       row through a byte map of the scan's rows in shared memory (a point
+//       is listed once a row at most); (e) list each scan's overflow rows in
+//       ascending order; (f) a warp a short point sums bf16(w) * dout[v]
+//       over its rows in ascending order into f64 registers (lanes over
+//       channels, 8 rows' loads in flight), merging in the overflow rows,
+//       whose scores and weights it recomputes at that point from the
+//       forward's saved max and den; (f') a block a long point, its rows
+//       cut into pieces of kPiece, each summed so by a warp, the warps'
+//       sums added in warp order. So dval is the same bits on every run.
+//       (Random weights make hub points: at hvpr.yaml batch 4 one point is
+//       listed by 8,760 rows, against 12.6 on average.)
 // Rows outside the row mask are skipped (their outputs are 0), and a tile
 // without a valid row costs one check.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -64,12 +85,18 @@ constexpr int kRowsPerWarp = kRows / kWarps;     // 4
 constexpr int kColsPerLane = kChunk / 32;        // 4
 constexpr int kMaxC = 64;
 constexpr int kCap = 128;                    // K9: selected points a row's list holds
-constexpr int kHalfC = kMaxC / 2;            // K10: channels a thread owns
+constexpr int kScanThreads = 1024;           // K10 (b), (e): one block
+constexpr int kScanTile = 4 * kScanThreads;  // K10 (b): counts a block scans
+constexpr int kPiece = 256;                  // K10: rows of a short point, of a piece
+constexpr int kLongThreads = 1024;           // K10 (d'), (f'): a block a long point
+constexpr int kLongWarps = kLongThreads / 32;
+constexpr int kSlotWindow = 32768;           // K10 (d'): rows its shared slot map covers
+constexpr int kLongBlocks = 132;             // K10 (d'), (f'): blocks over the long points
+constexpr int kAhead = 8;                    // K10 (f): rows whose dout loads are in flight
 constexpr float kNeg = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
 static_assert(kRowsPerWarp == 4 && kColsPerLane == 4, "tile mapping");
-static_assert(kThreads == 2 * kChunk, "K10: two threads (channel halves) a point");
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -363,7 +390,9 @@ masked_attend_fwd_kernel(const __nv_bfloat16* __restrict__ pill,
                          const float* __restrict__ neg, const float* __restrict__ th,
                          const bool* __restrict__ row_mask, float* __restrict__ out,
                          float* __restrict__ mx_out, float* __restrict__ den_out,
-                         int* __restrict__ cnt_out, int V, int N, int C, int shared) {
+                         int* __restrict__ cnt_out, int* __restrict__ pidx_out,
+                         __nv_bfloat16* __restrict__ pw_out, int V, int N, int C,
+                         int shared) {
   extern __shared__ __align__(16) unsigned char smem[];
   double* ps = reinterpret_cast<double*>(smem);            // kMaxC x kRows
   double* ts = ps + kMaxC * kRows;                          // kMaxC x kChunk
@@ -381,6 +410,12 @@ masked_attend_fwd_kernel(const __nv_bfloat16* __restrict__ pill,
       mx_out[row0 + t] = 0.f;
       den_out[row0 + t] = 0.f;
       cnt_out[row0 + t] = 0;
+    }
+    for (int i = threadIdx.x; i < kRows * kCap; i += kThreads) {
+      if (v0 + i / kCap < V) {
+        pidx_out[row0 * kCap + i] = -1;
+        pw_out[row0 * kCap + i] = __float2bfloat16_rn(0.f);
+      }
     }
     return;
   }
@@ -442,14 +477,22 @@ masked_attend_fwd_kernel(const __nv_bfloat16* __restrict__ pill,
     if (v >= V) continue;
     float* out_row = out + (row0 + r) * C;
     float m = 0.f, d = 0.f;
+    int listed = 0;             // pairs written out: the count of a list row
     if (!live[i]) {
       if (lane < C) out_row[lane] = 0.f;
       if (lane + 32 < C) out_row[lane + 32] = 0.f;
     } else if (cnt[i] <= kCap) {
       attend_from_list(ps, r, lidx + r * kCap, lval + r * kCap, cnt[i], valb, shared != 0,
                        C, lane, out_row, m, d);
+      listed = cnt[i];
     } else {
       attend_dense(ps, r, selb, valb, nb, thr[i], N, C, shared != 0, lane, out_row, m, d);
+    }
+    // the row's pairs; lane e % 32 wrote lval[e] (the bf16 weight) itself
+    for (int e = lane; e < kCap; e += 32) {
+      const bool in = e < listed;
+      pidx_out[(row0 + r) * kCap + e] = in ? lidx[r * kCap + e] : -1;
+      pw_out[(row0 + r) * kCap + e] = __float2bfloat16_rn(in ? lval[r * kCap + e] : 0.f);
     }
     if (lane == 0) {
       mx_out[row0 + r] = m;
@@ -461,94 +504,433 @@ masked_attend_fwd_kernel(const __nv_bfloat16* __restrict__ pill,
 
 // ----------------------------------------------------------------- K10
 
-__global__ void __launch_bounds__(kThreads, 2)
-masked_attend_bwd_kernel(const __nv_bfloat16* __restrict__ pill,
-                         const __nv_bfloat16* __restrict__ sel,
-                         const __nv_bfloat16* __restrict__ val,
-                         const float* __restrict__ neg, const float* __restrict__ th,
-                         const float* __restrict__ mx, const float* __restrict__ den,
-                         const float* __restrict__ dout, const bool* __restrict__ row_mask,
-                         float* __restrict__ dval, int V, int N, int C, int shared) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  double* ts = reinterpret_cast<double*>(smem);            // kMaxC x kChunk, fixed
-  double* ps = ts + kMaxC * kChunk;                         // kMaxC x kRows
-  float* W = reinterpret_cast<float*>(ps + kMaxC * kRows);  // kRows x kChunk
-  float* D = W + kRows * kChunk;                            // kRows x kMaxC
-  float* rth = D + kRows * kMaxC;                           // kRows
-  float* rmx = rth + kRows;                                 // kRows
-  float* rden = rmx + kRows;                                // kRows
-  const int b = blockIdx.y, n0 = blockIdx.x * kChunk;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const __nv_bfloat16* selb = sel + (size_t)b * N * C;
-  const __nv_bfloat16* valb = val + (size_t)b * N * C;
-  const float* nb = neg + (size_t)b * N;
-
-  load_chunk(selb, ts, n0, N, C);
-  // this thread's point and channel half for the accumulation
-  const int jo = threadIdx.x % kChunk, half = threadIdx.x / kChunk;
-  double acc[kHalfC];
+// exclusive prefix of each thread's value over the block (kScanThreads
+// threads); *total gets the block's sum
+__device__ int block_exclusive_scan(int x, int* total) {
+  __shared__ int warp_sums[kScanThreads / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int inc = x;
 #pragma unroll
-  for (int c = 0; c < kHalfC; ++c) acc[c] = 0.0;
-
-  for (int v0 = 0; v0 < V; v0 += kRows) {
-    // (a barrier too: the last tile's reads of ps, W and D are done)
-    if (!tile_has_valid(row_mask, b, v0, V)) continue;
-    load_pillars(pill, ps, b, v0, V, C);
-    for (int i = threadIdx.x; i < kRows * kMaxC; i += kThreads) {
-      const int r = i / kMaxC, c = i % kMaxC;
-      D[i] = (v0 + r < V && c < C) ? dout[((size_t)b * V + v0 + r) * C + c] : 0.f;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(kFull, inc, off);
+    if (lane >= off) inc += y;
+  }
+  __syncthreads();                           // a previous call's reads are done
+  if (lane == 31) warp_sums[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    int w = warp_sums[lane];
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(kFull, w, off);
+      if (lane >= off) w += y;
     }
-    if (threadIdx.x < kRows) {
-      const int v = v0 + threadIdx.x;
-      const bool live = row_valid(row_mask, b, v, V);
-      rth[threadIdx.x] = live ? th[(size_t)b * V + v] : CUDART_INF_F;
-      rmx[threadIdx.x] = live ? mx[(size_t)b * V + v] : 0.f;
-      rden[threadIdx.x] = live ? den[(size_t)b * V + v] : 0.f;
+    warp_sums[lane] = w;                     // inclusive over the warps
+  }
+  __syncthreads();
+  *total = warp_sums[kScanThreads / 32 - 1];
+  return inc - x + (warp > 0 ? warp_sums[warp - 1] : 0);
+}
+
+// the pairs a row wrote out: its count if it finished from its list, else 0
+__device__ __forceinline__ int listed_pairs(const int* __restrict__ cnt, int row) {
+  const int c = cnt[row];
+  return c <= kCap ? c : 0;
+}
+
+// (a) counts[b N + n] = the number of listed pairs of point n of scan b; a
+// warp a row
+__global__ void __launch_bounds__(kThreads)
+pair_count_kernel(const int* __restrict__ pidx, const int* __restrict__ cnt,
+                  int* __restrict__ counts, int rows, int V, int N) {
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const int c = listed_pairs(cnt, row);
+  int* cb = counts + (size_t)(row / V) * N;
+  for (int e = lane; e < c; e += 32) atomicAdd(cb + pidx[(size_t)row * kCap + e], 1);
+}
+
+// the counts array is zero-padded to a multiple of kScanTile
+__host__ __device__ __forceinline__ int scan_padded(int n) {
+  return (n + kScanTile - 1) / kScanTile * kScanTile;
+}
+
+// (b1) per tile of kScanTile counts, their sum and how many are long
+// (> kPiece); a thread 4 counts
+__global__ void __launch_bounds__(kScanThreads)
+scan_tiles_kernel(const int* __restrict__ counts, int* __restrict__ tile_sum,
+                  int* __restrict__ tile_long) {
+  const int4 v = reinterpret_cast<const int4*>(counts)[blockIdx.x * kScanThreads + threadIdx.x];
+  int total, total_long;
+  block_exclusive_scan(v.x + v.y + v.z + v.w, &total);
+  block_exclusive_scan((v.x > kPiece) + (v.y > kPiece) + (v.z > kPiece) + (v.w > kPiece),
+                       &total_long);
+  if (threadIdx.x == 0) {
+    tile_sum[blockIdx.x] = total;
+    tile_long[blockIdx.x] = total_long;
+  }
+}
+
+// (b2) offsets[i] = counts[0] + ... + counts[i - 1] for i <= n, a copy of
+// offsets[0..n) in cursor, and the long points in ascending order with
+// their number; a block a tile, after the tiles before it
+__global__ void __launch_bounds__(kScanThreads)
+scan_write_kernel(const int* __restrict__ counts, const int* __restrict__ tile_sum,
+                  const int* __restrict__ tile_long, int* __restrict__ offsets,
+                  int* __restrict__ cursor, int* __restrict__ longp, int* __restrict__ n_long,
+                  int n) {
+  int base = 0, lbase = 0;
+  for (int t = 0; t < (int)blockIdx.x; ++t) {
+    base += tile_sum[t];
+    lbase += tile_long[t];
+  }
+  const int i0 = blockIdx.x * kScanTile + 4 * threadIdx.x;
+  const int4 v = reinterpret_cast<const int4*>(counts)[i0 / 4];
+  const int c[4] = {v.x, v.y, v.z, v.w};
+  int total, total_long;
+  int run = base + block_exclusive_scan(c[0] + c[1] + c[2] + c[3], &total);
+  int lpos = lbase + block_exclusive_scan((c[0] > kPiece) + (c[1] > kPiece) +
+                                          (c[2] > kPiece) + (c[3] > kPiece), &total_long);
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    const int i = i0 + h;
+    if (i < n) {
+      offsets[i] = run;
+      cursor[i] = run;
+      if (c[h] > kPiece) longp[lpos++] = i;
     }
-    __syncthreads();
-    double s64[kRowsPerWarp][kColsPerLane];
-    tile_dot(ps, ts, C, s64);
+    run += c[h];
+  }
+  if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0) {
+    offsets[n] = base + total;
+    *n_long = lbase + total_long;
+  }
+}
+
+// (c) each listed pair's key, row * kCap + slot, into its point's segment
+// (in no fixed order); a warp a row
+__global__ void __launch_bounds__(kThreads)
+pair_place_kernel(const int* __restrict__ pidx, const int* __restrict__ cnt,
+                  int* __restrict__ cursor, int* __restrict__ keys, int rows, int V, int N) {
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const int c = listed_pairs(cnt, row);
+  int* cb = cursor + (size_t)(row / V) * N;
+  for (int e = lane; e < c; e += 32) {
+    const int key = row * kCap + e;
+    keys[atomicAdd(cb + pidx[key], 1)] = key;
+  }
+}
+
+// (d) each short segment (at most kPiece keys) sorted by key into `sorted`:
+// a pair's place is the number of smaller keys in its segment (the keys of
+// a segment are distinct); a warp a row, a lane a pair
+__global__ void __launch_bounds__(kThreads)
+pair_rank_kernel(const int* __restrict__ pidx, const int* __restrict__ cnt,
+                 const int* __restrict__ offsets, const int* __restrict__ keys,
+                 int* __restrict__ sorted, int rows, int V, int N) {
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const int c = listed_pairs(cnt, row);
+  const int* ob = offsets + (size_t)(row / V) * N;
+  for (int e = lane; e < c; e += 32) {
+    const int key = row * kCap + e;
+    const int p = pidx[key];
+    const int o = ob[p], len = ob[p + 1] - o;
+    if (len > kPiece) continue;                 // a long segment: (d')
+    int rank = 0;
+    for (int j = 0; j < len; ++j) rank += keys[o + j] < key;
+    sorted[o + rank] = key;
+  }
+}
+
+// (d') each long segment sorted by key into `sorted`, a block a segment: a
+// counting sort by row, as a point is listed at most once a row. Per window
+// of kSlotWindow rows of its scan, the block marks each listed row's slot
+// (slot + 1, a byte) in shared memory, then writes the marked rows in order.
+__global__ void __launch_bounds__(kLongThreads)
+long_sort_kernel(const int* __restrict__ offsets, const int* __restrict__ keys,
+                 int* __restrict__ sorted, const int* __restrict__ longp,
+                 const int* __restrict__ n_long, int V, int N) {
+  __shared__ __align__(16) unsigned char slot[kSlotWindow];
+  constexpr int kPer = kSlotWindow / kLongThreads;             // 32 slots a thread
+  static_assert(kLongThreads == kScanThreads, "block_exclusive_scan");
+  const int nl = *n_long;
+  for (int s = blockIdx.x; s < nl; s += gridDim.x) {
+    const int p = longp[s];
+    const int o = offsets[p], len = offsets[p + 1] - o;
+    const int row0 = p / N * V;                                // the scan's first row
+    int done = 0;
+    for (int w0 = 0; w0 < V; w0 += kSlotWindow) {
+      for (int i = threadIdx.x; i < kSlotWindow / 16; i += kLongThreads)
+        reinterpret_cast<uint4*>(slot)[i] = make_uint4(0u, 0u, 0u, 0u);
+      __syncthreads();
+      for (int i = threadIdx.x; i < len; i += kLongThreads) {
+        const int key = keys[o + i];
+        const int v = key / kCap - row0 - w0;
+        if (0 <= v && v < kSlotWindow) slot[v] = (unsigned char)(key % kCap + 1);
+      }
+      __syncthreads();
+      const int j0 = threadIdx.x * kPer;
+      int mine = 0;
 #pragma unroll
-    for (int j = 0; j < kColsPerLane; ++j) {
-      const int n = n0 + lane + 32 * j;
-      const float ng = n < N ? nb[n] : kNeg;
-      const bool ok = n < N && ng == 0.f;
-#pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        const int r = warp * kRowsPerWarp + i;
-        const float s = __fadd_rn(__double2float_rn(s64[i][j]), ng);
-        float w = 0.f;
-        if (ok && s >= rth[r]) {
-          const float l = shared ? s : dot_row(ps, r, valb + (size_t)n * C, C);
-          const float e = expf(__fsub_rn(l, rmx[r]));
-          const float d = rden[r];
-          w = d > 0.f ? bf16_round(__fdiv_rn(e, fmaxf(d, 1e-30f))) : 0.f;
+      for (int j = 0; j < kPer; ++j) mine += slot[j0 + j] != 0;
+      int total;
+      int pos = done + block_exclusive_scan(mine, &total);
+      for (int j = 0; j < kPer && mine > 0; ++j) {
+        const int e = slot[j0 + j];
+        if (e != 0) {
+          sorted[o + pos++] = (row0 + w0 + j0 + j) * kCap + e - 1;
+          --mine;
         }
-        W[r * kChunk + lane + 32 * j] = w;
       }
-    }
-    __syncthreads();
-    for (int r = 0; r < kRows; ++r) {
-      const float w = W[r * kChunk + jo];
-      if (w != 0.f) {
-        const float* dr = D + r * kMaxC + half * kHalfC;
-#pragma unroll
-        for (int c = 0; c < kHalfC; ++c) acc[c] = fma((double)w, (double)dr[c], acc[c]);
-      }
+      done += total;
+      __syncthreads();                                         // slot is cleared next
     }
   }
-  const int n = n0 + jo;
-  if (n < N) {
-    float* dst = dval + ((size_t)b * N + n) * C + half * kHalfC;
+}
+
+// (e) per scan (a block), its overflow rows (inside the mask, past the
+// list) in ascending order as global rows b V + v, and their number
+__global__ void __launch_bounds__(kScanThreads)
+overflow_rows_kernel(const int* __restrict__ cnt, int* __restrict__ ovf,
+                     int* __restrict__ n_ovf, int V) {
+  const int b = blockIdx.x;
+  const int per = (V + kScanThreads - 1) / kScanThreads;
+  const int v0 = min(V, (int)threadIdx.x * per), v1 = min(V, v0 + per);
+  const int* cb = cnt + (size_t)b * V;
+  int s = 0;
+  for (int v = v0; v < v1; ++v) s += cb[v] > kCap;
+  int total;
+  int pos = block_exclusive_scan(s, &total);
+  for (int v = v0; v < v1; ++v)
+    if (cb[v] > kCap) ovf[(size_t)b * V + pos++] = b * V + v;
+  if (threadIdx.x == 0) n_ovf[b] = total;
+}
+
+// bf16(a) . bf16(x) over C channels, f64 in channel order (as tile_dot and
+// dot_row), rounded to f32
+__device__ __forceinline__ float dot_bf16(const __nv_bfloat16* __restrict__ a,
+                                          const __nv_bfloat16* __restrict__ x, int C) {
+  double acc = 0.0;
+  for (int c = 0; c < C; ++c)
+    acc = fma((double)__bfloat162float(a[c]), (double)__bfloat162float(x[c]), acc);
+  return __double2float_rn(acc);
+}
+
+// what (f) needs of one point: its scan's overflow rows and the inputs that
+// recompute their weights at this point, and where the sums go
+struct PointCtx {
+  const int* ovf;                // the scan's overflow rows, ascending global rows
+  int n_ovf;
+  const __nv_bfloat16* pill;
+  const __nv_bfloat16* srow;     // the point's row of sel and of val
+  const __nv_bfloat16* vrow;
+  float ng;
+  const float* th;
+  const float* mx;
+  const float* den;
+  const __nv_bfloat16* pw;
+  const float* dout;
+  int C;
+  bool shared;
+};
+
+__device__ __forceinline__ PointCtx point_ctx(int pt, int b, int V, int C, int shared,
+                                              const int* ovf, const int* n_ovf,
+                                              const __nv_bfloat16* pill,
+                                              const __nv_bfloat16* sel,
+                                              const __nv_bfloat16* val, const float* neg,
+                                              const float* th, const float* mx,
+                                              const float* den, const __nv_bfloat16* pw,
+                                              const float* dout) {
+  return PointCtx{ovf + (size_t)b * V, n_ovf[b], pill, sel + (size_t)pt * C,
+                  val + (size_t)pt * C, neg[pt], th, mx, den, pw, dout, C, shared != 0};
+}
+
+// overflow row `row`'s bf16 weight at the point, as K9's dense pass made it
+__device__ __forceinline__ float overflow_weight(const PointCtx& x, int row) {
+  const __nv_bfloat16* prow = x.pill + (size_t)row * x.C;
+  const float s = __fadd_rn(dot_bf16(prow, x.srow, x.C), x.ng);
+  if (x.ng != 0.f || !(s >= x.th[row])) return 0.f;
+  const float l = x.shared ? s : dot_bf16(prow, x.vrow, x.C);
+  const float e = expf(__fsub_rn(l, x.mx[row]));
+  const float d = x.den[row];
+  return d > 0.f ? bf16_round(__fdiv_rn(e, fmaxf(d, 1e-30f))) : 0.f;
+}
+
+__device__ __forceinline__ void add_row(const PointCtx& x, int row, float w, int lane,
+                                        double& a0, double& a1) {
+  const float* d = x.dout + (size_t)row * x.C;
+  if (lane < x.C) a0 = fma((double)w, (double)d[lane], a0);
+  if (lane + 32 < x.C) a1 = fma((double)w, (double)d[lane + 32], a1);
+}
+
+// adds to (a0, a1) bf16(w) * dout over the point's listed rows keys[0..nk)
+// (sorted) and its overflow rows ovf[t0..t1), merged in ascending row
+// order; one warp, lane t owning channels t and t + 32. The overflow rows
+// come in batches of 32: lane j holds row tb + j and its weight.
+__device__ __forceinline__ void reduce_rows(const PointCtx& x, const int* __restrict__ keys,
+                                            int nk, int t0, int t1, int lane, double& a0,
+                                            double& a1) {
+  int tb = t0, t = t0, o_row = INT_MAX;
+  float o_w = 0.f;
+  if (t0 < t1 && tb + lane < t1) {
+    o_row = x.ovf[tb + lane];
+    o_w = overflow_weight(x, o_row);
+  }
+  int next = t < t1 ? __shfl_sync(kFull, o_row, 0) : INT_MAX;
+  for (int base = 0;; base += 32) {
+    int row = INT_MAX;
+    float w = 0.f;
+    if (base + lane < nk) {
+      const int key = keys[base + lane];
+      row = key / kCap;
+      w = __bfloat162float(x.pw[key]);
+    }
+    const int n_here = base < nk ? min(32, nk - base) : 0;
+    const int last = n_here > 0 ? __shfl_sync(kFull, row, n_here - 1) : INT_MAX;
+    if (next > last) {
+      // no overflow row before the batch's last: the batch alone, kAhead
+      // rows' dout loads in flight before their multiply-adds
+      for (int q0 = 0; q0 < n_here; q0 += kAhead) {
+        float d0[kAhead], d1[kAhead], wq[kAhead];
 #pragma unroll
-    for (int c = 0; c < kHalfC; ++c)
-      if (half * kHalfC + c < C) dst[c] = bf16_round(__double2float_rn(acc[c]));
+        for (int u = 0; u < kAhead; ++u) {
+          const int q = min(q0 + u, n_here - 1);
+          const int rq = __shfl_sync(kFull, row, q);
+          wq[u] = q0 + u < n_here ? __shfl_sync(kFull, w, q) : 0.f;
+          const float* d = x.dout + (size_t)rq * x.C;
+          d0[u] = lane < x.C ? d[lane] : 0.f;
+          d1[u] = lane + 32 < x.C ? d[lane + 32] : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < kAhead; ++u) {
+          if (q0 + u < n_here) {
+            a0 = fma((double)wq[u], (double)d0[u], a0);
+            a1 = fma((double)wq[u], (double)d1[u], a1);
+          }
+        }
+      }
+      // done, or the overflow rows past the last key in the next round
+      if (n_here < 32 && next == INT_MAX) break;
+      continue;
+    }
+    for (int q = 0; q <= n_here; ++q) {
+      const int rq = q < n_here ? __shfl_sync(kFull, row, q) : INT_MAX;
+      // the overflow rows before rq
+      while (next < rq) {
+        const float wo = __shfl_sync(kFull, o_w, t - tb);
+        if (wo != 0.f) add_row(x, next, wo, lane, a0, a1);
+        if (++t < t1 && t - tb == 32) {
+          tb = t;
+          o_row = INT_MAX;
+          o_w = 0.f;
+          if (tb + lane < t1) {
+            o_row = x.ovf[tb + lane];
+            o_w = overflow_weight(x, o_row);
+          }
+        }
+        next = t < t1 ? __shfl_sync(kFull, o_row, t - tb) : INT_MAX;
+      }
+      if (q < n_here) add_row(x, rq, __shfl_sync(kFull, w, q), lane, a0, a1);
+    }
+    if (n_here < 32) break;
+  }
+}
+
+__device__ __forceinline__ void store_dval(float* __restrict__ dval, int pt, int C, int lane,
+                                           double a0, double a1) {
+  float* dst = dval + (size_t)pt * C;
+  if (lane < C) dst[lane] = bf16_round(__double2float_rn(a0));
+  if (lane + 32 < C) dst[lane + 32] = bf16_round(__double2float_rn(a1));
+}
+
+// (f) dval[b, n] = bf16(sum over the rows v that select point n, ascending,
+// of bf16(w[v, n]) * dout[b, v]) for the short points (at most kPiece
+// listed rows); a warp a point. Listed rows take w from the pairs; overflow
+// rows recompute it as K9's dense pass made it (score, selection, logit,
+// exp, the saved mx and den).
+__global__ void __launch_bounds__(kThreads)
+pair_reduce_kernel(const int* __restrict__ offsets, const int* __restrict__ sorted,
+                   const __nv_bfloat16* __restrict__ pw, const int* __restrict__ ovf,
+                   const int* __restrict__ n_ovf, const float* __restrict__ dout,
+                   const __nv_bfloat16* __restrict__ pill,
+                   const __nv_bfloat16* __restrict__ sel,
+                   const __nv_bfloat16* __restrict__ val, const float* __restrict__ neg,
+                   const float* __restrict__ th, const float* __restrict__ mx,
+                   const float* __restrict__ den, float* __restrict__ dval, int B, int V,
+                   int N, int C, int shared) {
+  const int pt = blockIdx.x * kWarps + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (pt >= B * N) return;
+  const int o = offsets[pt], len = offsets[pt + 1] - o;
+  if (len > kPiece) return;                        // a long point: (f')
+  const PointCtx x = point_ctx(pt, pt / N, V, C, shared, ovf, n_ovf, pill, sel, val, neg, th,
+                               mx, den, pw, dout);
+  double a0 = 0.0, a1 = 0.0;
+  reduce_rows(x, sorted + o, len, 0, x.n_ovf, lane, a0, a1);
+  store_dval(dval, pt, C, lane, a0, a1);
+}
+
+// first i in [0, n) with rows[i] >= row (rows ascending), else n
+__device__ __forceinline__ int lower_bound(const int* rows, int n, int row) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (rows[mid] < row) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// (f') the long points, a block a point: its sorted rows cut into pieces of
+// kPiece, warp w reducing pieces w, w + 32, ... (each in ascending row order,
+// with the overflow rows that fall between its first row and the next
+// piece's), the warps' f64 sums then added in warp order
+__global__ void __launch_bounds__(kLongThreads)
+long_reduce_kernel(const int* __restrict__ offsets, const int* __restrict__ sorted,
+                   const int* __restrict__ longp, const int* __restrict__ n_long,
+                   const __nv_bfloat16* __restrict__ pw, const int* __restrict__ ovf,
+                   const int* __restrict__ n_ovf, const float* __restrict__ dout,
+                   const __nv_bfloat16* __restrict__ pill,
+                   const __nv_bfloat16* __restrict__ sel,
+                   const __nv_bfloat16* __restrict__ val, const float* __restrict__ neg,
+                   const float* __restrict__ th, const float* __restrict__ mx,
+                   const float* __restrict__ den, float* __restrict__ dval, int V, int N,
+                   int C, int shared) {
+  __shared__ double part[kLongWarps][2][32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nl = *n_long;
+  for (int s = blockIdx.x; s < nl; s += gridDim.x) {
+    const int pt = longp[s];
+    const int o = offsets[pt], len = offsets[pt + 1] - o;
+    const PointCtx x = point_ctx(pt, pt / N, V, C, shared, ovf, n_ovf, pill, sel, val, neg,
+                                 th, mx, den, pw, dout);
+    const int pieces = (len + kPiece - 1) / kPiece;
+    double a0 = 0.0, a1 = 0.0;
+    for (int pc = warp; pc < pieces; pc += kLongWarps) {
+      const int k0 = pc * kPiece, k1 = min(len, k0 + kPiece);
+      const int t0 = pc == 0 ? 0 : lower_bound(x.ovf, x.n_ovf, sorted[o + k0] / kCap);
+      const int t1 = pc == pieces - 1 ? x.n_ovf
+                                      : lower_bound(x.ovf, x.n_ovf, sorted[o + k1] / kCap);
+      reduce_rows(x, sorted + o + k0, k1 - k0, t0, t1, lane, a0, a1);
+    }
+    part[warp][0][lane] = a0;
+    part[warp][1][lane] = a1;
+    __syncthreads();
+    if (warp == 0) {
+      double s0 = 0.0, s1 = 0.0;
+      for (int w = 0; w < kLongWarps; ++w) {
+        s0 += part[w][0][lane];
+        s1 += part[w][1][lane];
+      }
+      store_dval(dval, pt, C, lane, s0, s1);
+    }
+    __syncthreads();                               // part is reused next round
   }
 }
 
 constexpr size_t kThreshSmem = sizeof(double) * (kMaxC * kRows + kMaxC * kChunk);
 constexpr size_t kFwdSmem = kThreshSmem + (sizeof(int) + sizeof(float)) * kRows * kCap;
-constexpr size_t kBwdSmem = kThreshSmem + sizeof(float) * (kRows * kChunk + kRows * kMaxC + 3 * kRows);
 
 }  // namespace
 
@@ -571,11 +953,13 @@ extern "C" int hvpr_bucket_threshold(const void* pill, const void* tab, const fl
 
 // pillars (B, V, C), sel and val (B, N, C) bf16 (one pointer when shared);
 // neg (B, N), th (B, V) f32; row_mask (B, V) bool; out (B, V, C),
-// mx, den (B, V) f32 and cnt (B, V) int32 out (0 outside the mask).
+// mx, den (B, V) f32 and cnt (B, V) int32 out (0 outside the mask); the
+// pairs pidx (B, V, kCap) int32 and pw (B, V, kCap) bf16 out.
 extern "C" int hvpr_masked_attend_fwd(const void* pill, const void* sel, const void* val,
                                       const float* neg, const float* th, const void* row_mask,
-                                      float* out, float* mx, float* den, int* cnt, int B,
-                                      int V, int N, int C, int shared, void* stream) {
+                                      float* out, float* mx, float* den, int* cnt, int* pidx,
+                                      void* pw, int B, int V, int N, int C, int shared,
+                                      void* stream) {
   cudaError_t e = cudaFuncSetAttribute(masked_attend_fwd_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)kFwdSmem);
@@ -584,25 +968,63 @@ extern "C" int hvpr_masked_attend_fwd(const void* pill, const void* sel, const v
   masked_attend_fwd_kernel<<<grid, kThreads, kFwdSmem, (cudaStream_t)stream>>>(
       static_cast<const __nv_bfloat16*>(pill), static_cast<const __nv_bfloat16*>(sel),
       static_cast<const __nv_bfloat16*>(val), neg, th, static_cast<const bool*>(row_mask),
-      out, mx, den, cnt, V, N, C, shared);
+      out, mx, den, cnt, pidx, static_cast<__nv_bfloat16*>(pw), V, N, C, shared);
   return (int)cudaGetLastError();
 }
 
-// the forward's inputs and its mx, den; dout (B, V, C) f32; dval (B, N, C)
-// f32 out, each value bf16-exact.
+// int32 scratch K10 needs (see hvpr_masked_attend_bwd)
+extern "C" long long hvpr_masked_attend_bwd_work(int B, int V, int N) {
+  const long long points = (long long)B * N, rows = (long long)B * V;
+  const long long tiles = scan_padded(B * N) / kScanTile;
+  return scan_padded(B * N) + 2 * tiles + 3 * points + 2 + 2 * rows * kCap + rows + B;
+}
+
+// the forward's inputs, its mx, den, cnt and pairs; dout (B, V, C) f32;
+// dval (B, N, C) f32 out, each value bf16-exact; work: int32 scratch of
+// hvpr_masked_attend_bwd_work(B, V, N) elements. B * V * kCap < 2^31.
 extern "C" int hvpr_masked_attend_bwd(const void* pill, const void* sel, const void* val,
                                       const float* neg, const float* th, const float* mx,
-                                      const float* den, const float* dout,
-                                      const void* row_mask, float* dval, int B, int V, int N,
-                                      int C, int shared, void* stream) {
-  cudaError_t e = cudaFuncSetAttribute(masked_attend_bwd_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)kBwdSmem);
+                                      const float* den, const int* cnt, const int* pidx,
+                                      const void* pw, const float* dout, float* dval,
+                                      int* work, int B, int V, int N, int C, int shared,
+                                      void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int rows = B * V, points = B * N;
+  const int padded = scan_padded(points), tiles = padded / kScanTile;
+  int* counts = work;                                  // padded, zeros past points
+  int* tile_sum = counts + padded;                     // tiles
+  int* tile_long = tile_sum + tiles;                   // tiles
+  int* offsets = tile_long + tiles;                    // points + 1
+  int* cursor = offsets + points + 1;                  // points
+  int* longp = cursor + points;                        // points
+  int* n_long = longp + points;                        // 1
+  int* keys = n_long + 1;                              // rows * kCap
+  int* sorted = keys + (size_t)rows * kCap;            // rows * kCap
+  int* ovf = sorted + (size_t)rows * kCap;             // rows
+  int* n_ovf = ovf + rows;                             // B
+  cudaError_t e = cudaMemsetAsync(counts, 0, sizeof(int) * padded, st);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((N + kChunk - 1) / kChunk, B);
-  masked_attend_bwd_kernel<<<grid, kThreads, kBwdSmem, (cudaStream_t)stream>>>(
-      static_cast<const __nv_bfloat16*>(pill), static_cast<const __nv_bfloat16*>(sel),
-      static_cast<const __nv_bfloat16*>(val), neg, th, mx, den, dout,
-      static_cast<const bool*>(row_mask), dval, V, N, C, shared);
+  const int row_blocks = (rows + kWarps - 1) / kWarps;
+  const auto* pwb = static_cast<const __nv_bfloat16*>(pw);
+  const auto* pb = static_cast<const __nv_bfloat16*>(pill);
+  const auto* sb = static_cast<const __nv_bfloat16*>(sel);
+  const auto* vb = static_cast<const __nv_bfloat16*>(val);
+  pair_count_kernel<<<row_blocks, kThreads, 0, st>>>(pidx, cnt, counts, rows, V, N);
+  scan_tiles_kernel<<<tiles, kScanThreads, 0, st>>>(counts, tile_sum, tile_long);
+  scan_write_kernel<<<tiles, kScanThreads, 0, st>>>(counts, tile_sum, tile_long, offsets,
+                                                    cursor, longp, n_long, points);
+  pair_place_kernel<<<row_blocks, kThreads, 0, st>>>(pidx, cnt, cursor, keys, rows, V, N);
+  pair_rank_kernel<<<row_blocks, kThreads, 0, st>>>(pidx, cnt, offsets, keys, sorted, rows,
+                                                    V, N);
+  long_sort_kernel<<<kLongBlocks, kLongThreads, 0, st>>>(offsets, keys, sorted, longp, n_long,
+                                                         V, N);
+  overflow_rows_kernel<<<B, kScanThreads, 0, st>>>(cnt, ovf, n_ovf, V);
+  pair_reduce_kernel<<<(points + kWarps - 1) / kWarps, kThreads, 0, st>>>(
+      offsets, sorted, pwb, ovf, n_ovf, dout, pb, sb, vb, neg, th, mx, den, dval, B, V, N, C,
+      shared);
+  long_reduce_kernel<<<kLongBlocks, kLongThreads, 0, st>>>(offsets, sorted, longp, n_long,
+                                                           pwb, ovf, n_ovf, dout, pb, sb, vb,
+                                                           neg, th, mx, den, dval, V, N, C,
+                                                           shared);
   return (int)cudaGetLastError();
 }

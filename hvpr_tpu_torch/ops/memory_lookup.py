@@ -35,7 +35,6 @@ from . import _kernels
 
 NUM_BUCKETS = 128
 _NEG = -1e30
-_ROWS = 16              # pillar rows per block of the kernel
 _SMEM_LIMIT = 232448    # bytes of shared memory a block can have on sm_90
 
 
@@ -109,9 +108,10 @@ def memory_lookup_fused(pillars, memory, k, row_mask=None, return_stats=False):
                              'pillars device')
     if c % 16 or c > 64:
         raise ValueError(f'memory_lookup: C={c} must be a multiple of 16, <= 64')
-    mp = _round_up(m, NUM_BUCKETS)
-    smem = (c * (NUM_BUCKETS + 1) * 8 + _ROWS * c * 8 + _ROWS * mp * 4
-            + _ROWS * NUM_BUCKETS * 4)
+    lib = _kernels.library('memory_lookup')
+    lib.hvpr_memory_lookup_smem.argtypes = [ctypes.c_int]
+    lib.hvpr_memory_lookup_smem.restype = ctypes.c_longlong
+    smem = lib.hvpr_memory_lookup_smem(m)
     if smem > _SMEM_LIMIT:
         raise ValueError(f'memory_lookup: M={m}, C={c} need {smem} B of shared '
                          f'memory per block, above {_SMEM_LIMIT}')
@@ -123,7 +123,6 @@ def memory_lookup_fused(pillars, memory, k, row_mask=None, return_stats=False):
     if r == 0:
         return (out, thresh, count) if return_stats else out
     mem_bf = memory.to(torch.bfloat16).contiguous()
-    lib = _kernels.library('memory_lookup')
     fn = lib.hvpr_memory_lookup
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int

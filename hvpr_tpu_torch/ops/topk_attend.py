@@ -25,6 +25,16 @@ for padding):
   ``pillars`` and ``sel_table`` get none (the JAX package's custom VJP
   returns zeros for them).
 
+The forward also returns each row's selected pairs, which the backward
+reduces instead of recomputing the (V, N) scores: ``pair_idx`` (B, V, 128)
+int32 holds the row's selected points in index order and ``pair_w`` (B, V,
+128) bf16 the weights ``bf16(w)`` it used for ``out``, index -1 and weight 0
+past the row's count. A row inside ``row_mask`` that selects more than 128
+points (an overflow row: a tie over many points) keeps no pairs (all -1);
+the backward recomputes its weights from the saved ``mx`` and ``den``, as
+the dense plain version :func:`masked_attend_bwd_plain` does for every row.
+That dense version stays as the oracle of both backwards.
+
 Where the twin rounds in the backward (found from ``jax.grad`` of
 ``_attend_emulation``): ``dout`` stays f32 (the transposed product takes the
 f32 cotangent and the bf16 weights with an f32 result), and ``dval``, the
@@ -62,6 +72,7 @@ NUM_BUCKETS = 128
 _NEG = -1e30
 _MAX_C = 64
 _PLAIN_ROWS = 1024     # rows per chunk of the plain versions: (rows, N) f64 scores
+PAIR_CAP = 128         # pair slots a row: the length of K9's shared list
 
 
 def _round_up(x, m):
@@ -127,15 +138,39 @@ def bucket_threshold_plain(pillars, table, neg, k, row_mask):
     return th
 
 
+def _pairs(sel, w):
+    """A chunk's pair slots from its (rows, N) selection and bf16 weights:
+    (rows, PAIR_CAP) int32 indices in index order, -1 past the count, and
+    their weights as bf16, 0 past the count; all -1 and 0 for a row that
+    selects more than PAIR_CAP points."""
+    n = sel.shape[1]
+    cnt = sel.sum(dim=-1)
+    listed = sel & (cnt <= PAIR_CAP)[:, None]
+    # the selected indices first, ascending: sort keys n (selected), n + N
+    cols = torch.arange(n, device=sel.device).expand_as(sel)
+    order = torch.sort(torch.where(listed, cols, cols + n), dim=-1).values
+    order = order[:, :min(n, PAIR_CAP)]
+    keep = order < n
+    idx = torch.where(keep, order, -1).to(torch.int32)
+    wts = torch.where(keep, torch.gather(w, 1, order % n), 0.0).to(torch.bfloat16)
+    if n < PAIR_CAP:
+        idx = torch.cat([idx, idx.new_full((idx.shape[0], PAIR_CAP - n), -1)], 1)
+        wts = torch.cat([wts, wts.new_zeros((wts.shape[0], PAIR_CAP - n))], 1)
+    return idx, wts
+
+
 def masked_attend_fwd_plain(pillars, sel_table, val_table, neg, thresh, shared,
                             row_mask):
-    """(out (B, V, C), mx (B, V), den (B, V), selected count (B, V) int32)."""
+    """(out (B, V, C), mx (B, V), den (B, V), selected count (B, V) int32,
+    pair_idx (B, V, 128) int32, pair_w (B, V, 128) bf16)."""
     b, v, c = pillars.shape
     dev = pillars.device
     out = torch.zeros(b, v, c, dtype=torch.float32, device=dev)
     mx = torch.zeros(b, v, dtype=torch.float32, device=dev)
     den = torch.zeros(b, v, dtype=torch.float32, device=dev)
     cnt = torch.zeros(b, v, dtype=torch.int32, device=dev)
+    pair_idx = torch.full((b, v, PAIR_CAP), -1, dtype=torch.int32, device=dev)
+    pair_w = torch.zeros(b, v, PAIR_CAP, dtype=torch.bfloat16, device=dev)
     for bi, rows in _row_chunks(row_mask):
         p, _, s, sel = _scan_rows(pillars, sel_table, neg, thresh, bi, rows)
         val = _bf(val_table[bi])
@@ -143,10 +178,12 @@ def masked_attend_fwd_plain(pillars, sel_table, val_table, neg, thresh, shared,
         m = torch.where(sel, l, _NEG).amax(dim=-1)
         e = _exp(sel, l, m)
         d = e.double().sum(dim=-1).float()
-        out[bi, rows] = (_bf(_normalize(e, d)) @ val).float()
+        w = _bf(_normalize(e, d))
+        out[bi, rows] = (w @ val).float()
         mx[bi, rows], den[bi, rows] = m, d
         cnt[bi, rows] = sel.sum(dim=-1).to(torch.int32)
-    return out, mx, den, cnt
+        pair_idx[bi, rows], pair_w[bi, rows] = _pairs(sel, w.float())
+    return out, mx, den, cnt, pair_idx, pair_w
 
 
 def masked_attend_bwd_plain(pillars, sel_table, val_table, neg, thresh, mx, den,
@@ -158,6 +195,33 @@ def masked_attend_bwd_plain(pillars, sel_table, val_table, neg, thresh, mx, den,
         l = s if shared else (p @ _bf(val_table[bi]).t()).float()
         w = _normalize(_exp(sel, l, mx[bi, rows]), den[bi, rows])
         dval[bi] += _bf(w).t() @ dout[bi, rows].double()
+    return dval.float().to(torch.bfloat16).float()
+
+
+def masked_attend_bwd_pairs_plain(pillars, sel_table, val_table, neg, thresh, mx,
+                                  den, dout, shared, row_mask, pair_idx, pair_w, cnt):
+    """The plain version of K10: the gradient of ``val_table`` from the
+    forward's pairs. Listed rows take their weights from the pairs and
+    overflow rows (count above 128) recompute theirs; the (rows, N) weights
+    then go through the same f64 product as :func:`masked_attend_bwd_plain`,
+    so the two give the same bits when the pairs hold the forward's
+    weights."""
+    n = val_table.shape[1]
+    dval = torch.zeros(val_table.shape, dtype=torch.float64, device=pillars.device)
+    for bi, rows in _row_chunks(row_mask):
+        listed = cnt[bi, rows] <= PAIR_CAP
+        idx = pair_idx[bi, rows].long()
+        # slots past a row's count (-1) land in a dropped column N
+        w = torch.zeros(len(rows), n + 1, dtype=torch.float64, device=pillars.device)
+        w.scatter_(1, torch.where(idx >= 0, idx, n), pair_w[bi, rows].double())
+        w = w[:, :n]
+        ovf = torch.nonzero(~listed).squeeze(1)
+        if len(ovf):
+            r = rows[ovf]
+            p, _, s, sel = _scan_rows(pillars, sel_table, neg, thresh, bi, r)
+            l = s if shared else (p @ _bf(val_table[bi]).t()).float()
+            w[ovf] = _bf(_normalize(_exp(sel, l, mx[bi, r]), den[bi, r]))
+        dval[bi] += w.t() @ dout[bi, rows].double()
     return dval.float().to(torch.bfloat16).float()
 
 
@@ -234,7 +298,8 @@ def bucket_threshold(pillars, table, neg, k, row_mask):
 def masked_attend_fwd(pillars, sel_table, val_table, neg, thresh, shared,
                       row_mask):
     """Forward of :func:`masked_attend` (kernel K9): (out (B, V, C), mx, den,
-    selected count) with the last three (B, V)."""
+    selected count, pair_idx, pair_w) with mx, den and count (B, V) and the
+    pairs (B, V, 128) (see the module docstring)."""
     if not _kernels.use_kernel(pillars):
         return masked_attend_fwd_plain(pillars, sel_table, val_table, neg,
                                        thresh, shared, row_mask)
@@ -248,27 +313,31 @@ def masked_attend_fwd(pillars, sel_table, val_table, neg, thresh, shared,
     mx = torch.empty(b, v, dtype=torch.float32, device=dev)
     den = torch.empty(b, v, dtype=torch.float32, device=dev)
     cnt = torch.empty(b, v, dtype=torch.int32, device=dev)
+    pair_idx = torch.empty(b, v, PAIR_CAP, dtype=torch.int32, device=dev)
+    pair_w = torch.empty(b, v, PAIR_CAP, dtype=torch.bfloat16, device=dev)
     if b * v == 0:
-        return out, mx, den, cnt
+        return out, mx, den, cnt, pair_idx, pair_w
     fn = _kernels.library('topk_attend').hvpr_masked_attend_fwd
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(_kernels.ptr(pb), _kernels.ptr(sb), _kernels.ptr(vb),
              _kernels.ptr(ng), _kernels.ptr(th), _kernels.ptr(row_mask),
              _kernels.ptr(out), _kernels.ptr(mx), _kernels.ptr(den),
-             _kernels.ptr(cnt), b, v, n, c, int(bool(shared)),
-             _kernels.stream_handle(pillars))
+             _kernels.ptr(cnt), _kernels.ptr(pair_idx), _kernels.ptr(pair_w),
+             b, v, n, c, int(bool(shared)), _kernels.stream_handle(pillars))
     _kernels.launched('masked_attend_fwd', err)
-    return out, mx, den, cnt
+    return out, mx, den, cnt, pair_idx, pair_w
 
 
 def masked_attend_bwd(pillars, sel_table, val_table, neg, thresh, mx, den, dout,
-                      shared, row_mask):
+                      shared, row_mask, pair_idx, pair_w, cnt):
     """Backward of :func:`masked_attend` (kernel K10): the (B, N, C) f32
-    gradient of ``val_table`` for upstream gradient ``dout`` (B, V, C)."""
+    gradient of ``val_table`` for upstream gradient ``dout`` (B, V, C), from
+    the forward's outputs ``mx``, ``den``, ``cnt`` and pairs."""
     if not _kernels.use_kernel(pillars):
-        return masked_attend_bwd_plain(pillars, sel_table, val_table, neg,
-                                       thresh, mx, den, dout, shared, row_mask)
+        return masked_attend_bwd_pairs_plain(pillars, sel_table, val_table, neg,
+                                             thresh, mx, den, dout, shared,
+                                             row_mask, pair_idx, pair_w, cnt)
     pb, sb = _bf16(pillars), _bf16(sel_table)
     vb = sb if shared else _bf16(val_table)
     ng, th = neg.float().contiguous(), thresh.detach().float().contiguous()
@@ -277,16 +346,32 @@ def masked_attend_bwd(pillars, sel_table, val_table, neg, thresh, mx, den, dout,
     b, v, n, c = _check('masked_attend backward', pb, (sb, vb), ng,
                         ((th, bv), (mx, bv), (den, bv), (dy, tuple(pillars.shape))),
                         row_mask)
+    for name, t, dtype, shape in (('cnt', cnt, torch.int32, bv),
+                                  ('pair_idx', pair_idx, torch.int32, bv + (PAIR_CAP,)),
+                                  ('pair_w', pair_w, torch.bfloat16, bv + (PAIR_CAP,))):
+        _kernels.check_cuda_input(f'masked_attend backward {name}', t, dtype, len(shape))
+        if t.shape != shape or t.device != pillars.device:
+            raise ValueError(f'masked_attend backward: {name} {tuple(t.shape)}, '
+                             f'expected {shape} on the pillars device')
+    if b * v * PAIR_CAP >= 2 ** 31:
+        raise ValueError(f'masked_attend backward: B*V={b * v} rows give pair keys '
+                         f'past int32')
     dval = torch.empty(b, n, c, dtype=torch.float32, device=pillars.device)
     if b * v == 0:
         return dval.zero_()
-    fn = _kernels.library('topk_attend').hvpr_masked_attend_bwd
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib = _kernels.library('topk_attend')
+    size = lib.hvpr_masked_attend_bwd_work
+    size.argtypes = [ctypes.c_int] * 3
+    size.restype = ctypes.c_longlong
+    work = torch.empty(size(b, v, n), dtype=torch.int32, device=pillars.device)
+    fn = lib.hvpr_masked_attend_bwd
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(_kernels.ptr(pb), _kernels.ptr(sb), _kernels.ptr(vb),
              _kernels.ptr(ng), _kernels.ptr(th), _kernels.ptr(mx),
-             _kernels.ptr(den), _kernels.ptr(dy), _kernels.ptr(row_mask),
-             _kernels.ptr(dval), b, v, n, c, int(bool(shared)),
+             _kernels.ptr(den), _kernels.ptr(cnt), _kernels.ptr(pair_idx),
+             _kernels.ptr(pair_w), _kernels.ptr(dy), _kernels.ptr(dval),
+             _kernels.ptr(work), b, v, n, c, int(bool(shared)),
              _kernels.stream_handle(pillars))
     _kernels.launched('masked_attend_bwd', err)
     return dval
@@ -296,19 +381,20 @@ class _MaskedAttend(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, pillars, sel_table, val_table, neg, thresh, row_mask, shared):
-        out, mx, den, _ = masked_attend_fwd(pillars, sel_table, val_table, neg,
-                                            thresh, shared, row_mask)
+        out, mx, den, cnt, pair_idx, pair_w = masked_attend_fwd(
+            pillars, sel_table, val_table, neg, thresh, shared, row_mask)
         ctx.save_for_backward(pillars, sel_table, val_table, neg, thresh,
-                              row_mask, mx, den)
+                              row_mask, mx, den, cnt, pair_idx, pair_w)
         ctx.shared = shared
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        pillars, sel_table, val_table, neg, thresh, row_mask, mx, den = \
-            ctx.saved_tensors
+        (pillars, sel_table, val_table, neg, thresh, row_mask, mx, den, cnt,
+         pair_idx, pair_w) = ctx.saved_tensors
         dval = masked_attend_bwd(pillars, sel_table, val_table, neg, thresh, mx,
-                                 den, dout, ctx.shared, row_mask)
+                                 den, dout, ctx.shared, row_mask, pair_idx, pair_w,
+                                 cnt)
         # the gradient goes to the val slot only: when shared the same
         # tensor fills both table slots, and a gradient in both would double
         return None, None, dval.to(val_table.dtype), None, None, None, None

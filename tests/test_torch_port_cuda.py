@@ -11,8 +11,9 @@ distances. K6/K7 (the memory
 reconstruction) and K9/K10 (the masked attention) also accumulate exact
 products in f64, but a sum of f32 terms in f64 may round its last bit by
 order: their float outputs are held to 1e-5 of the output's largest
-magnitude; K8's thresholds and K9's selected counts and row maxima are
-exact.
+magnitude; K8's thresholds and K9's selected counts, row maxima and pairs
+(indices and bf16 weights) are exact. K10 reduces K9's pairs; it is also held
+to the dense plain backward, which recomputes every row's weights.
 """
 
 import numpy as np
@@ -26,7 +27,8 @@ from hvpr_tpu_torch.ops.memory_recon import memory_recon, recon_backward, recon_
 from hvpr_tpu_torch.ops.pn2_select import ball_query_bucket, fps_chunks, three_nn_bucket
 from hvpr_tpu_torch.ops.segment_sweep import segment_sweep
 from hvpr_tpu_torch.ops.topk_attend import (bucket_threshold, masked_attend,
-                                            masked_attend_bwd, masked_attend_fwd)
+                                            masked_attend_bwd, masked_attend_bwd_plain,
+                                            masked_attend_fwd)
 
 pytestmark = pytest.mark.cuda
 
@@ -251,9 +253,10 @@ def test_topk_attend_kernels(cuda, b, v, n, c, k):
         assert torch.equal(th, th_p)
         for shared in (True, False):
             val = points if shared else vals
-            (out, mx, den, cnt), (out_p, mx_p, den_p, cnt_p) = _both(
+            (out, mx, den, cnt, pidx, pw), (out_p, mx_p, den_p, cnt_p, pidx_p, pw_p) = _both(
                 masked_attend_fwd, pillars, points, val, neg, th, shared, mask)
             assert torch.equal(cnt, cnt_p) and torch.equal(mx, mx_p)
+            assert torch.equal(pidx, pidx_p) and torch.equal(pw, pw_p)     # K9's pairs
             _close(out, out_p)
             _close(den, den_p)
             assert int(cnt[0, 1]) == n - 37                  # the zero row
@@ -262,9 +265,12 @@ def test_topk_attend_kernels(cuda, b, v, n, c, k):
                 assert int(cnt[2].max()) == 0 and float(out[2].abs().max()) == 0.0
             assert int(cnt[~mask].sum()) == 0 and float(out[~mask].abs().sum()) == 0.0
             dval, dval_p = _both(masked_attend_bwd, pillars, points, val, neg, th, mx,
-                                 den, dout, shared, mask)
+                                 den, dout, shared, mask, pidx, pw, cnt)
             _close(dval, dval_p)
             assert torch.equal(dval, dval.to(torch.bfloat16).float())
+            # and the dense oracle, which recomputes every row's weights
+            _close(dval, masked_attend_bwd_plain(pillars, points, val, neg, th, mx, den,
+                                                 dout, shared, mask))
 
 
 @pytest.mark.parametrize('shared', [True, False])
@@ -280,11 +286,42 @@ def test_masked_attend_autograd_launches_k9_and_k10(cuda, shared):
     after = _kernels.launch_counts()
     assert after['masked_attend_fwd'] == before['masked_attend_fwd'] + 1
     assert after['masked_attend_bwd'] == before['masked_attend_bwd'] + 1
-    _, mx, den, _ = masked_attend_fwd(pillars, points, val.detach(), neg, th, shared,
-                                      row_mask)
+    _, mx, den, cnt, pidx, pw = masked_attend_fwd(pillars, points, val.detach(), neg, th,
+                                                  shared, row_mask)
     with _kernels.plain_versions():
         want = masked_attend_bwd(pillars, points, val.detach(), neg, th, mx, den, dout,
-                                 shared, row_mask)
+                                 shared, row_mask, pidx, pw, cnt)
     _close(val.grad, want)                                  # once, not twice when shared
     if not shared:
         assert pts.grad is None
+
+
+@pytest.mark.parametrize('v', [2000, 40000])     # long points; two byte-map windows
+def test_masked_attend_bwd_long_points(cuda, v):
+    """Points listed by many rows: K10 sorts and reduces a point with more
+    than 256 listed rows by a block (its rows' byte map in windows of 32768
+    rows, its sum in pieces); the zero row (an overflow row) merges into
+    every point's sum."""
+    rng = np.random.default_rng(v)
+    b, n, c, k = 1, 1000, 16, 4
+    pillars, points, vals, neg, row_mask, dout = _attend_inputs(rng, b, v, n, c, cuda)
+    row_mask[:] = True
+    pillars[0, :, 0] = pillars[0, :, 0].abs() + 1.0       # every row leans to channel 0
+    pillars[0, 1] = 0.0                                    # but the zero row
+    points[0, 7] = 0.0
+    points[0, 7, 0] = 1000.0                               # a point every row selects
+    th = bucket_threshold(pillars, points, neg, k, row_mask)
+    for shared in (True, False):
+        val = points if shared else vals
+        _, mx, den, cnt, pidx, pw = masked_attend_fwd(pillars, points, val, neg, th, shared,
+                                                      row_mask)
+        assert int((pidx == 7).sum()) > (256 if v < 32768 else 32768)
+        assert int(cnt[0, 1]) > 128                        # the zero row overflows
+        dval, dval_p = _both(masked_attend_bwd, pillars, points, val, neg, th, mx, den, dout,
+                             shared, row_mask, pidx, pw, cnt)
+        _close(dval, dval_p)
+        _close(dval, masked_attend_bwd_plain(pillars, points, val, neg, th, mx, den, dout,
+                                             shared, row_mask))
+        again = masked_attend_bwd(pillars, points, val, neg, th, mx, den, dout, shared,
+                                  row_mask, pidx, pw, cnt)
+        assert torch.equal(again, dval)                    # the same bits every run

@@ -156,7 +156,8 @@ def test_masked_attend_edge_rows():
 
     every = _all_rows(b, v)
     th = port_ta.bucket_threshold(tp, ts, tn, k, every)
-    out, mx, den, cnt = port_ta.masked_attend_fwd(tp, ts, tv, tn, th, False, every)
+    out, mx, den, cnt, pidx, pw = port_ta.masked_attend_fwd(tp, ts, tv, tn, th, False,
+                                                            every)
     assert (cnt[2] == 0).all() and (out[2] == 0).all() and (den[2] == 0).all()
     assert int(cnt[0, 1]) == n - 37
     out_s, *_ = port_ta.masked_attend_fwd(tp, ts, ts, tn, th, True, every)
@@ -167,14 +168,15 @@ def test_masked_attend_edge_rows():
 
     tm = _t(mask)
     th_m = port_ta.bucket_threshold(tp, ts, tn, k, tm)
-    out_m, mx_m, den_m, cnt_m = port_ta.masked_attend_fwd(tp, ts, tv, tn, th_m, False, tm)
+    out_m, mx_m, den_m, cnt_m, pidx_m, pw_m = port_ta.masked_attend_fwd(
+        tp, ts, tv, tn, th_m, False, tm)
     assert (out_m[~tm] == 0).all() and (cnt_m[~tm] == 0).all()
     np.testing.assert_array_equal(out_m[tm].numpy(), out[tm].numpy())
     dval_m = port_ta.masked_attend_bwd(tp, ts, tv, tn, th_m, mx_m, den_m, _t(dout),
-                                       False, tm)
+                                       False, tm, pidx_m, pw_m, cnt_m)
     dout0 = np.where(mask[..., None], dout, 0.0).astype(np.float32)
     dval0 = port_ta.masked_attend_bwd(tp, ts, tv, tn, th, mx, den, _t(dout0), False,
-                                      every)
+                                      every, pidx, pw, cnt)
     np.testing.assert_array_equal(dval_m.numpy(), dval0.numpy())
 
 
@@ -187,7 +189,7 @@ def test_selection_is_the_forward_set():
     pillars, points, vals, neg = (_t(x) for x in _inputs(rng, b, v, n, c, quantized=False))
     mask = _t(rng.uniform(size=(b, v)) > 0.4)
     th = port_ta.bucket_threshold(pillars, points, neg, k, mask)
-    _, _, _, cnt = port_ta.masked_attend_fwd(pillars, points, vals, neg, th, False, mask)
+    cnt = port_ta.masked_attend_fwd(pillars, points, vals, neg, th, False, mask)[3]
     seen = 0
     for bi, rows, sel in port_ta.selection(pillars, points, neg, th, mask):
         np.testing.assert_array_equal(rows.numpy(), np.flatnonzero(mask[bi].numpy()))
