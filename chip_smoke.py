@@ -23,7 +23,10 @@ scans with seeded random weights:
   memory reconstruction forward/backward, K8 the bucket threshold, K9/K10
   the masked attention forward/backward) is held against its plain version
   at the shapes of one step (K9's pairs, the selected points and bf16
-  weights K10 reduces, exactly; K10 also against the dense plain backward,
+  weights K10 reduces, exactly; K9's two kernels, the dense sweep of the
+  points' call and the pair pass of the memory call, which reads the first
+  call's selection, the pair pass also against the plain version that
+  recomputes the selection; K10 also against the dense plain backward,
   which recomputes every row's weights), one step through the kernels
   must equal one step through the plain versions from the same state bit
   for bit under torch's deterministic algorithms (each gradient, loss term
@@ -35,11 +38,17 @@ scans with seeded random weights:
   ``pointnet2.three_nn`` calls of one fused step it must equal its plain
   version (indices and distances) and launch once a call; the share of
   points whose bucket set is the exact set is printed.
+- exact FPS (``furthest_point_sample(num_chunks=1)``, K5's long path) over
+  the fused batch's 4 whole scans of 16,384 points, npoint 4096: equal to
+  its plain version, timed, one launch.
 - training in ``TRAIN_ATTEND_MODE: gather``: the kernel step must equal the
   plain step as above, and 2 timed steps must launch K4-K7 and never K8-K10.
 
-Device times by kernel (torch.profiler) are printed for K2, K3, K7 and
-K10's parts. Yardsticks (timed, never called by the port): K2 beside
+Device times by kernel (torch.profiler) are printed for K2, K3, K7, K9 (the
+dense sweep and the pair pass) and K10's parts, and for K6 run to the end
+of its sweep, of its row chain and whole; K6's count of nonzero weights a
+row, and the FP64-tensor-core (DMMA) bounds of K6, K7 and K9 beside their
+bf16 bounds. Yardsticks (timed, never called by the port): K2 beside
 ``scaled_dot_product_attention`` over the selected sets, K3 beside
 ``torch.zeros`` + ``index_put_``, K9 beside ``scaled_dot_product_attention``.
 
@@ -72,12 +81,15 @@ F64_TC_FLOPS_PER_S = 67e12         # H100 SXM f64 on the tensor cores (DMMA)
 INFER_KERNELS = ('segment_sweep', 'memory_lookup', 'bev_canvas')
 # launches of each train kernel in one step of hvpr.yaml: 2 SA levels x 2
 # radii ball queries, one FPS per level, one reconstruction each way, one
-# threshold, and the masked attention of the points and of their
-# reconstructions, each way (the last three in fused mode only)
+# threshold, and the masked attention of the points (K9's dense sweep) and
+# of their reconstructions (K9's pair pass, on the first call's selection),
+# and both backwards (the last four in fused mode only)
 STEP_LAUNCHES = {'ball_query': 4, 'fps_chunks': 2, 'memory_recon_fwd': 1,
                  'memory_recon_bwd': 1, 'bucket_threshold': 1,
-                 'masked_attend_fwd': 2, 'masked_attend_bwd': 2}
-ATTEND_KERNELS = ('bucket_threshold', 'masked_attend_fwd', 'masked_attend_bwd')
+                 'masked_attend_fwd': 1, 'masked_attend_pairs': 1, 'masked_attend_bwd': 2}
+ATTEND_KERNELS = ('bucket_threshold', 'masked_attend_fwd', 'masked_attend_pairs',
+                  'masked_attend_bwd')
+EXACT_FPS_NPOINT = 4096            # hvpr.yaml's SA1 npoint, over whole scans
 # K6/K7 and K9/K10 against their plain versions: both accumulate exact
 # products in f64 and round once, so they agree but for an order-dependent
 # last f64 bit of a sum; allowed: 1e-5 of the output's largest magnitude
@@ -101,6 +113,8 @@ META = {
                          'hvpr_tpu/ops/topk_attend.py:179'),
     'masked_attend_fwd': ('hvpr_tpu_torch/csrc/topk_attend.cu',
                           'hvpr_tpu/ops/topk_attend.py:376'),
+    'masked_attend_pairs': ('hvpr_tpu_torch/csrc/topk_attend.cu',
+                            'hvpr_tpu/ops/topk_attend.py:376'),
     'masked_attend_bwd': ('hvpr_tpu_torch/csrc/topk_attend.cu',
                           'hvpr_tpu/ops/topk_attend.py:427'),
     'three_nn_bucket': ('hvpr_tpu_torch/csrc/three_nn.cu',
@@ -510,14 +524,18 @@ def train_stage_ms(net, batch, reps=3):
     return {name: statistics.median(v) for name, v in times.items()}
 
 
-def _train_bounds(name, calls, plain_outs, selected):
-    """(bound ms, bound_by) of one step's calls of train kernel ``name``,
-    from this run's inputs (and, for the ball query, the plain results,
-    which say where each centre's sweep may stop; for the masked attention,
-    ``selected``: {shared: selected points summed over the valid rows})."""
+def _train_bounds(name, calls, plain_outs, selected, recon_nonzero):
+    """(bound ms, bound_by, DMMA bound ms or None) of one step's calls of
+    train kernel ``name``, from this run's inputs (and, for the ball query,
+    the plain results, which say where each centre's sweep may stop; for the
+    masked attention, ``selected``: {shared: selected points summed over the
+    valid rows}; for K6, ``recon_nonzero``: the nonzero weights n W needs).
+    The DMMA bound is the time of the same products on the FP64 tensor
+    cores, where the kernel runs them there (K6, K7, K9's dense sweep)."""
     import torch
     from hvpr_tpu_torch.ops.topk_attend import PAIR_CAP
     ops = nbytes = 0.0
+    dmma_ops = None
     flops = F32_FLOPS_PER_S
     for (args, _), out in zip(calls, plain_outs):
         if name == 'ball_query':
@@ -540,40 +558,59 @@ def _train_bounds(name, calls, plain_outs, selected):
             ops += 10.0 * r * l * nsamp
             nbytes += pts.numel() * 4 + valid.numel() + r * nsamp * 4
         elif name.startswith('memory_recon'):
-            # products of R x M x C multiply-adds on bf16 tensor cores: 2 in
-            # the forward (x W^T, n W), 5 in the backward (x W^T, dy W^T,
-            # dl W, dl^T x, n^T dy)
+            # products of R x M x C multiply-adds on bf16 tensor cores: the
+            # forward's x W^T and n W over the nonzero weights of n (a sparse
+            # product), the backward's five dense ones (x W^T, dy W^T, dl W,
+            # dl^T x, n^T dy)
             x, w = args[0], args[1]
             r, c = x.shape
             m = w.shape[0]
-            n_products = 2 if name == 'memory_recon_fwd' else 5
-            ops += n_products * 2.0 * r * m * c
+            if name == 'memory_recon_fwd':
+                work = 2.0 * r * m * c + 2.0 * c * recon_nonzero
+                nbytes += (2 * r * c + m * c) * 4
+            else:
+                work = 5 * 2.0 * r * m * c
+                nbytes += (3 * r * c + 2 * m * c) * 4
+            ops += work
+            dmma_ops = (dmma_ops or 0.0) + work
             flops = BF16_FLOPS_PER_S
-            nbytes += (2 * r * c + m * c) * 4 if name == 'memory_recon_fwd' \
-                else (3 * r * c + 2 * m * c) * 4
         else:
             # the dense (R, N) score product s of the R valid rows on bf16
             # tensor cores; K9 and K10 add 2 C flops a selected point for
             # the value product (out, or dval), and where the tables are
             # split 2 C more for its logit l, which only the selected
-            # points need
+            # points need; K9's pair pass makes no dense product but for its
+            # overflow rows
             pill, table = args[0], args[1]
             b, v, c = pill.shape
             n = table.shape[1]
             row_mask = args[{'bucket_threshold': 4, 'masked_attend_fwd': 6,
-                             'masked_attend_bwd': 9}[name]]
+                             'masked_attend_pairs': 6, 'masked_attend_bwd': 9}[name]]
             r = float(row_mask.sum())
             io = pill.numel() + table.numel() + b * n + b * v       # in, f32
+            outs = b * v * c * 4 + 3 * b * v * 4 + b * v * PAIR_CAP * 6
             if name == 'bucket_threshold':
                 ops += 2.0 * r * n * c
                 nbytes += io * 4 + b * v + b * v * 4
                 flops = BF16_FLOPS_PER_S
             elif name == 'masked_attend_fwd':         # + out, mx, den, count, pairs
                 shared = args[5]
-                ops += 2.0 * r * n * c + (1 if shared else 2) * 2.0 * c * selected[shared]
+                work = 2.0 * r * n * c + (1 if shared else 2) * 2.0 * c * selected[shared]
+                ops += work
+                dmma_ops = (dmma_ops or 0.0) + work
                 io += 0 if shared else table.numel()
-                nbytes += io * 4 + b * v + b * v * c * 4 + 3 * b * v * 4 \
-                    + b * v * PAIR_CAP * 6
+                nbytes += io * 4 + b * v + outs
+                flops = BF16_FLOPS_PER_S
+            elif name == 'masked_attend_pairs':
+                # the selection's count and listed indices in, each selected
+                # value row read once
+                shared, (sel_cnt, _) = args[5], args[7]
+                ovf = float(((sel_cnt > PAIR_CAP) & row_mask).sum())
+                listed = float(torch.where((sel_cnt <= PAIR_CAP) & row_mask, sel_cnt, 0).sum())
+                per = 1 if shared else 2
+                ops += per * 2.0 * c * selected[shared] + per * 2.0 * c * n * ovf
+                nbytes += (r * c + args[2].numel() + b * n + b * v * 2) * 4 + b * v \
+                    + listed * 4 + outs
                 flops = BF16_FLOPS_PER_S
             else:
                 # the reduce over the listed pairs: reads the valid rows of
@@ -585,7 +622,65 @@ def _train_bounds(name, calls, plain_outs, selected):
                 ops += 2.0 * c * selected[shared] + (1 if shared else 2) * 2.0 * c * n * n_ovf
                 nbytes += r * c * 4 + listed * 6 + b * n * c * 4
                 flops = F32_FLOPS_PER_S
-    return bound(ops, flops, nbytes)
+    b_ms, b_by = bound(ops, flops, nbytes)
+    return b_ms, b_by, None if dmma_ops is None else dmma_ops / F64_TC_FLOPS_PER_S * 1e3
+
+
+def _recon_nonzero(calls):
+    """K6's nonzero weights: per row of each call, the count of nonzero
+    bf16(n) (from the plain attention), printed as a distribution with the
+    share of 16-row tiles that take the dense output (a row above the list
+    cap, or lam = 0); returns their sum, the work of the sparse n W."""
+    import ctypes
+    import torch
+    from hvpr_tpu_torch.ops import _kernels, memory_recon
+    lib = _kernels.library('memory_recon')
+    lib.hvpr_memory_recon_fwd_cap.restype = ctypes.c_int
+    cap = lib.hvpr_memory_recon_fwd_cap()
+    total = 0.0
+    for (x, w, lam), _ in calls:
+        counts = torch.cat([(memory_recon._attention(xc, w, lam)[3].to(torch.bfloat16) != 0)
+                            .sum(dim=1) for xc in x.split(8192)])
+        tiles = torch.nn.functional.pad(counts, (0, -len(counts) % 16)).reshape(-1, 16)
+        dense = (tiles > cap).any(dim=1) if lam > 0 else torch.ones(len(tiles), dtype=bool)
+        total += float(counts.sum())
+        q = torch.quantile(counts.float(), torch.tensor([0.5, 0.99], device=counts.device))
+        print(f'memory_recon_fwd: nonzero weights a row (lam {lam}, list cap {cap}) mean '
+              f'{float(counts.float().mean()):.3f}, median {float(q[0]):.0f}, 99th '
+              f'percentile {float(q[1]):.0f}, max {int(counts.max())}; rows with none '
+              f'{float((counts == 0).float().mean()):.4f}; tiles on the dense output '
+              f'{float(dense.float().mean()):.4f} of {len(tiles)}')
+    return total
+
+
+def _recon_parts(calls):
+    """'sweep ms, row chain ms, output ms': device times of K6 run to the end
+    of its sweep, of its row chain, and whole (hvpr_memory_recon_fwd_part),
+    the differences of their torch.profiler device times. Launched by the
+    library entry, not the wrapper: these launches count for no path."""
+    import ctypes
+    import torch
+    from hvpr_tpu_torch.ops import _kernels
+    fn = _kernels.library('memory_recon').hvpr_memory_recon_fwd_part
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int,
+                                                                ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    times = []
+    for stop in (1, 2, 0):
+        def run(stop=stop):
+            for (x, w, lam), _ in calls:
+                xb = x.to(torch.bfloat16).contiguous()
+                wb = w.to(torch.bfloat16).contiguous()
+                y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+                if fn(_kernels.ptr(xb), _kernels.ptr(wb), _kernels.ptr(y), x.shape[0],
+                      w.shape[0], x.shape[1], float(lam), stop, _kernels.stream_handle(x)):
+                    fail('memory_recon_fwd: a part run failed to launch')
+        got = device_breakdown(run)
+        ms = [float(p.split()[-1]) for p in got.split(', ') if p.startswith('recon_fwd_kernel')]
+        times.append(ms[0] if ms else float('nan'))
+    sweep, chain, whole = times
+    return (f'sweep {sweep:.4f}, row chain {chain - sweep:.4f}, output {whole - chain:.4f} '
+            f'(whole {whole:.4f})')
 
 
 def _attend_library_ms(calls):
@@ -600,7 +695,7 @@ def _attend_library_ms(calls):
     from hvpr_tpu_torch.ops import topk_attend
     total = 0.0
     for args, _ in calls:
-        pill, sel, val, neg, th, shared, row_mask = args
+        pill, sel, val, neg, th, shared, row_mask = args[:7]
         kv_all = (sel if shared else val).to(torch.bfloat16)
         for bi, rows, sel_mask in topk_attend.selection(pill, sel, neg, th, row_mask):
             q = pill[bi, rows].to(torch.bfloat16)[None]
@@ -639,7 +734,8 @@ def _lookup_library_ms(pill, memw, row_mask, thresh):
 # float outputs that must equal the plain version's exactly: K8's thresholds,
 # K9's row maxima and pair weights (and every integer output: counts, pair
 # indices); the rest within RECON_RTOL
-EXACT_OUTPUTS = {'bucket_threshold': (0,), 'masked_attend_fwd': (1, 5)}
+EXACT_OUTPUTS = {'bucket_threshold': (0,), 'masked_attend_fwd': (1, 5),
+                 'masked_attend_pairs': (1, 5)}
 
 
 def train_phase(smi, mode):
@@ -687,6 +783,8 @@ def train_phase(smi, mode):
                                      topk_attend.bucket_threshold),
                 'masked_attend_fwd': (topk_attend, 'masked_attend_fwd',
                                       topk_attend.masked_attend_fwd),
+                # the same wrapper; its calls that carry a selection
+                'masked_attend_pairs': (None, None, topk_attend.masked_attend_fwd),
                 'masked_attend_bwd': (topk_attend, 'masked_attend_bwd',
                                       topk_attend.masked_attend_bwd)}
     wrappers = {k: w for k, w in wrappers.items() if k in step_launches}
@@ -719,7 +817,8 @@ def train_phase(smi, mode):
                     out = []
                     # and the FP modules' exact 3-NN, whose inputs K11 takes
                     calls = capture_calls(
-                        [(mod, attr, name) for name, (mod, attr, _) in wrappers.items()]
+                        [(mod, attr, name) for name, (mod, attr, _) in wrappers.items()
+                         if mod is not None]
                         + [(pointnet2, 'three_nn', 'three_nn')],
                         lambda: out.append(net.train_step(batch)))
                     metrics = out[0]
@@ -746,6 +845,12 @@ def train_phase(smi, mode):
           f'{len(differ)} differ')
     if differ:
         fail(f'the {mode} kernel step differs from the plain step in {differ[:5]}')
+    if fused:
+        # K9's calls: the dense sweep's (no selection), the pair pass's
+        fwd = calls.pop('masked_attend_fwd', [])
+        calls['masked_attend_fwd'] = [cl for cl in fwd if cl[0][7] is None]
+        calls['masked_attend_pairs'] = [cl for cl in fwd if cl[0][7] is not None]
+        del fwd                 # the captures are freed with `calls` below
     for name, per_step in step_launches.items():
         if len(calls.get(name, ())) != per_step:
             fail(f'one {mode} train step called {name} {len(calls.get(name, ()))} '
@@ -808,6 +913,33 @@ def train_phase(smi, mode):
             if name in ('memory_recon_bwd', 'masked_attend_bwd'):
                 print(f'{name}: device ms per step by kernel (torch.profiler): '
                       + device_breakdown(lambda: [fn(*a, **kw) for a, kw in calls[name]]))
+            if name == 'memory_recon_fwd':
+                print('memory_recon_fwd: device ms per step (torch.profiler) of K6 run to '
+                      'the end of its sweep, of its row chain, and whole: '
+                      + _recon_parts(calls[name]))
+            if name == 'masked_attend_pairs':
+                # the pair pass on the shared call's selection against the
+                # plain version that recomputes the selection: the same bits
+                for (args, kwargs), want in zip(calls[name], plain_outs):
+                    got = fn(*args, **kwargs)
+                    with _kernels.plain_versions():
+                        fresh_sel = fn(*args[:7])
+                    torch.cuda.synchronize()
+                    for i, (g, w) in enumerate(zip(got, fresh_sel)):
+                        e = float((g.double() - w.double()).abs().max())
+                        if (e != 0.0 if i != 0 and i != 2
+                                else e > RECON_RTOL * float(w.abs().max())):
+                            fail(f'{name}: output {i} differs from the plain version that '
+                                 f'recomputes the selection by {e}')
+                    print(f'{name}: against the plain version that recomputes the '
+                          f'selection: cnt, mx and pairs equal, out/den max_abs_err '
+                          f'{float((got[0] - fresh_sel[0]).abs().max())}/'
+                          f'{float((got[2] - fresh_sel[2]).abs().max())}')
+                    del got, fresh_sel
+                print('masked_attend: device ms per step by kernel, the dense sweep and '
+                      'the pair pass (torch.profiler): ' + device_breakdown(
+                          lambda: [fn(*a, **kw) for key in ('masked_attend_fwd', name)
+                                   for a, kw in calls[key]]))
             if name == 'masked_attend_bwd':
                 # K10 reduces K9's pairs; the dense plain version recomputes
                 # every row's scores and weights: the oracle of both
@@ -825,7 +957,8 @@ def train_phase(smi, mode):
 
         # the selected sets: points per valid pillar row, per K9 call
         selected = {}
-        for (args, _), fwd_out in zip(calls['masked_attend_fwd'], outs['masked_attend_fwd']):
+        for (args, _), fwd_out in zip(calls['masked_attend_fwd'] + calls['masked_attend_pairs'],
+                                      outs['masked_attend_fwd'] + outs['masked_attend_pairs']):
             shared, row_mask = args[5], args[6]
             cnt, pidx = fwd_out[3], fwd_out[4]
             c = cnt[row_mask].float()
@@ -843,15 +976,20 @@ def train_phase(smi, mode):
                   f'{float(per_point.float().mean()):.3f}, max {int(per_point.max())}; '
                   f'pair buffers {b_ * v_ * topk_attend.PAIR_CAP * 6 / 2**20:.1f} MiB a call')
             del keys, per_point
+        recon_nonzero = _recon_nonzero(calls['memory_recon_fwd'])
         for name in wrappers:
-            b_ms, b_by = _train_bounds(name, calls[name], outs[name], selected)
+            b_ms, b_by, dmma_ms = _train_bounds(name, calls[name], outs[name], selected,
+                                                recon_nonzero)
             entries[name].update(bound_ms=b_ms, bound_by=b_by)
-            print(f'{name}: bound {b_ms:.4f} ms ({b_by})')
-        entries['masked_attend_fwd']['library_ms'] = _attend_library_ms(
-            calls['masked_attend_fwd'])
-        print(f'masked_attend_fwd: scaled_dot_product_attention over the same valid rows '
-              f'and selected sets {entries["masked_attend_fwd"]["library_ms"]:.4f} ms for '
-              'both calls')
+            on_dmma = '' if dmma_ms is None else \
+                f'; its products on the FP64 tensor cores (DMMA) {dmma_ms:.4f} ms'
+            print(f'{name}: bound {b_ms:.4f} ms ({b_by}){on_dmma}')
+            if dmma_ms is not None:
+                entries[name]['dmma_bound_ms'] = dmma_ms
+        for name in ('masked_attend_fwd', 'masked_attend_pairs'):
+            entries[name]['library_ms'] = _attend_library_ms(calls[name])
+            print(f'{name}: scaled_dot_product_attention over the same valid rows and '
+                  f'selected sets {entries[name]["library_ms"]:.4f} ms')
         del outs
 
     # 4. the main path: the timed steps, counts from zero. The captured
@@ -964,6 +1102,56 @@ def three_nn_phase(calls):
                                 'library_ms': None}}, launches
 
 
+def exact_fps_phase(smi):
+    """K5's long path: exact FPS, ``furthest_point_sample(num_chunks=1)``,
+    over the 4 whole scans of the fused train batch (16,384 points a set),
+    hvpr.yaml's SA1 npoint, held against its plain version (indices equal),
+    timed, and driven as its own path with the counts from zero. Returns
+    ({'ms', 'plain_ms', 'bound_ms', 'launches'}, that path's launch counts)."""
+    import numpy as np
+    import torch
+    from hvpr_tpu_torch.models import DatasetMeta
+    from hvpr_tpu_torch.ops import _kernels, pointnet2
+    from hvpr_tpu_torch.utils.scans import realistic_scans_with_boxes
+
+    cfg = load_cfg()
+    meta = DatasetMeta(cfg.DATA_CONFIG, cfg.CLASS_NAMES, mode='train')
+    pts, _ = realistic_scans_with_boxes(np.random.default_rng(0), TRAIN_BATCH, N_POINTS,
+                                        meta.point_cloud_range)
+    xyz = torch.from_numpy(np.ascontiguousarray(pts[..., :3])).cuda()
+    mask = torch.ones(TRAIN_BATCH, N_POINTS, dtype=torch.bool, device='cuda')
+
+    def run():
+        return pointnet2.furthest_point_sample(xyz, mask, EXACT_FPS_NPOINT, num_chunks=1)
+    got = run()
+    with _kernels.plain_versions():
+        want = run()
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f'exact FPS differs from its plain version in {int((got != want).sum())} '
+             f'indices')
+    if got.shape != (TRAIN_BATCH, EXACT_FPS_NPOINT) or any(
+            len(set(row.tolist())) != EXACT_FPS_NPOINT for row in got):
+        fail('exact FPS: wrong shape or a repeated index')
+    ms = cuda_ms(run, reps=10, warmup=2)
+    with _kernels.plain_versions():
+        plain_ms = cuda_ms(run, reps=1, warmup=0)
+    # ~10 f32 operations per row and step; the real bound is the chain of
+    # npoint dependent steps
+    b_ms, b_by = bound(10.0 * TRAIN_BATCH * N_POINTS * EXACT_FPS_NPOINT, F32_FLOPS_PER_S,
+                       xyz.numel() * 4 + mask.numel() + TRAIN_BATCH * EXACT_FPS_NPOINT * 4)
+    _kernels.reset_launch_counts()
+    run()
+    torch.cuda.synchronize()
+    launches = _kernels.launch_counts()
+    if launches['fps_chunks'] != 1 or sum(launches.values()) != 1:
+        fail(f'the exact FPS path launched {launches}, expected K5 once')
+    print(f'exact FPS (K5 long path): ({TRAIN_BATCH}, {N_POINTS}) -> {EXACT_FPS_NPOINT}, '
+          f'equal to plain, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms '
+          f'({b_by}; latency: {EXACT_FPS_NPOINT} dependent steps), on {smi}')
+    return {'ms': ms, 'plain_ms': plain_ms, 'bound_ms': b_ms, 'launches': 1}, launches
+
+
 def main():
     import torch
 
@@ -1010,6 +1198,9 @@ def main():
     del nn_calls
     print(f'three_nn phase: {time.perf_counter() - t0:.1f} s')
     t0 = time.perf_counter()
+    exact_fps, _ = exact_fps_phase(smi)
+    print(f'exact FPS phase: {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
     _, _, gather_metrics, _ = train_phase(smi, 'gather')
     print(f'train phase (gather): {time.perf_counter() - t0:.1f} s')
     # for information: the fused selection is a superset of the exact top-k,
@@ -1029,6 +1220,10 @@ def main():
                         'max_abs_err': e['max_abs_err'], 'ms': e['ms'],
                         'plain_ms': e['plain_ms'], 'bound_ms': e['bound_ms'],
                         'bound_by': e['bound_by'], 'library_ms': e['library_ms']})
+        if 'dmma_bound_ms' in e:
+            kernels[-1]['dmma_bound_ms'] = e['dmma_bound_ms']
+        if name == 'fps_chunks':
+            kernels[-1]['exact_fps'] = exact_fps
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

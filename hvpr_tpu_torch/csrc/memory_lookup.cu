@@ -64,6 +64,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "dmma.cuh"
+
 namespace {
 
 constexpr int kRows = 16;                       // pillar rows per block
@@ -84,36 +86,15 @@ constexpr unsigned kFull = 0xffffffffu;
 static_assert(kRows == 16 && kWCols == 8, "a warp's tile: two 8 x 8 mma tiles");
 static_assert(kRows * kCap * 8 <= 2 * kChunkElems * 2, "the lists fit the chunk buffers");
 
-__device__ __forceinline__ double widen(__nv_bfloat16 v) { return (double)__bfloat162float(v); }
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// D (8 x 8) += A (8 x 4) B (4 x 8) on the FP64 tensor cores. Per lane:
-// a = A[lane / 4][lane % 4], b = B[lane % 4][lane / 4], and
-// d0, d1 = D[lane / 4][2 (lane % 4) + {0, 1}].
-__device__ __forceinline__ void dmma(double& d0, double& d1, double a, double b) {
-  asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};"
-               : "+d"(d0), "+d"(d1)
-               : "d"(a), "d"(b));
-}
+using hvpr::bf16_round;
+using hvpr::dmma;
+using hvpr::widen;
 
 // Start copying chunk `ch` (memory rows ch * 128 ...) of the (M, C) bf16
 // memory into dst (rows of kCS), 16 bytes a copy; rows past M are zeros.
 __device__ __forceinline__ void stage_chunk(const __nv_bfloat16* __restrict__ mem,
                                             __nv_bfloat16* dst, int ch, int M, int C) {
-  const int vpr = C / 8;
-  for (int i = threadIdx.x; i < kChunk * vpr; i += kThreads) {
-    const int n = i / vpr, v = i - n * vpr;
-    const int row = ch * kChunk + n;
-    const __nv_bfloat16* src = mem + (size_t)min(row, M - 1) * C + v * 8;
-    const unsigned saddr = (unsigned)__cvta_generic_to_shared(dst + n * kCS + v * 8);
-    const int bytes = row < M ? 16 : 0;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(saddr), "l"(src), "r"(bytes));
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
+  hvpr::stage_rows<kChunk, kCS, kThreads>(mem, dst, ch * kChunk, M, C);
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -252,9 +233,9 @@ memory_lookup_kernel(const float* __restrict__ pillars,
   for (int ch = 0; ch < n_chunks; ++ch) {
     if (ch + 1 < n_chunks) {
       stage_chunk(mem, chunks + ((ch + 1) & 1) * kChunkElems, ch + 1, M, C);
-      asm volatile("cp.async.wait_group 1;\n" ::);
+      hvpr::cp_async_wait<1>();
     } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
+      hvpr::cp_async_wait<0>();
     }
     __syncthreads();
     const __nv_bfloat16* cb = chunks + (ch & 1) * kChunkElems;

@@ -7,13 +7,31 @@
 // blocks stream through, and the (rows, M) attention never leaves VMEM; the
 // backward recomputes it and accumulates dW across a sequential grid.
 //
-// K6 hvpr_memory_recon_fwd, one kernel per block of 16 rows: the block's
-// (16, M) logits live in shared memory (128 KB at M = 2000); the bf16
-// memory streams through shared memory in 64-row chunks, twice: once for the
-// logits, once for the output n W. Softmax, shrink and renorm run on the
-// shared tile, one warp per row. Its products are f64 FMAs on the CUDA
-// cores.
-//
+// K6 hvpr_memory_recon_fwd, one kernel, a block of 16 warps owning 16 rows,
+// K2's layout (memory_lookup.cu) carried over:
+//   sweep: the logits x W^T on the FP64 tensor cores (mma.sync m8n8k4 .f64,
+//     DMMA). W streams through shared memory as bf16 in 128-row chunks
+//     (rows padded to 144 B), double-buffered with cp.async, and each W
+//     fragment is widened to f64 as it is loaded; a warp owns the 16 rows x
+//     8 columns of each chunk, its x fragments in registers for the whole
+//     sweep. The logits, rounded to f32, fill a shared tile of 16 x (Mp + 8)
+//     f32 (129 KB at M = 2000).
+//   row chain: a warp a row, softmax, shrink and renorm on the tile in the
+//     plain version's f32 IEEE operations and order, with f64 row sums, in
+//     three passes; a weight that the shrink sets to zero skips its
+//     divisions (most of them: with seeded random weights, 86% of the rows
+//     at hvpr.yaml keep none). The tile then holds n = bf16(renorm(shrink(a))) and each row
+//     its count of nonzero weights.
+//   output n W: a weight is nonzero only where a > lam, and the a of a row
+//     sum to 1, so a row has fewer than 1/lam of them (400 at hvpr.yaml's
+//     lam = 0.0025). Each row lists its nonzero columns in index order
+//     (ballots; indices in the free chunk buffers, weights compacted in
+//     place in the tile) and a warp sums bf16(n) bf16(W) over the list in
+//     f64, lanes over channels, the W rows read from L2 with 8 rows' loads
+//     in flight. A tile in which a row lists more than kFCap = 512 columns,
+//     and every tile at lam = 0 (n = a is dense), takes a second sweep over
+//     W instead, n W on DMMA (a warp an 8 x 8 output tile). kFCap = 512 puts
+//     every row of a lam >= 1/512 on the list path.
 // K7 hvpr_memory_recon_bwd runs its five products (l = x W^T, dn = dy W^T,
 // dx = dl W, dW = dl^T x + n^T dy) on the FP64 tensor cores
 // (mma.sync.aligned.m8n8k4 .f64, DMMA), as block tiles of 64-128 rows, so
@@ -49,23 +67,22 @@
 //
 // Bound: operations. K6 is 2 and K7 5 products of R x M x C multiply-adds
 // (R = 65,536 rows, M = 2000, C = 64 at hvpr.yaml batch 4), whose bound is
-// that of bf16 tensor cores (989 TFLOP/s). K6 runs them as f64 FMAs on the
-// CUDA cores; K7 on the FP64 tensor cores (67 TFLOP/s), which keeps the
-// f64 sums that make kernel and plain version agree, at 1/15 of the bf16
-// rate.
+// that of bf16 tensor cores (989 TFLOP/s). Both run them on the FP64 tensor
+// cores (67 TFLOP/s), which keeps the f64 sums that make kernel and plain
+// version agree, at 1/15 of the bf16 rate; K6's second product touches
+// only the nonzero weights (list path), so its DMMA bound is that of the
+// logits, 2 R M C / 67e12 = 0.25 ms.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "dmma.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxC = 64;
-constexpr int kChunk = 64;              // K6: memory rows per shared chunk
-constexpr int kWStride = kMaxC + 1;     // K6: padded f64 row of a chunk
-constexpr int kFwdRows = 16;
 constexpr float kEps = 1e-12f;
 constexpr float kDelta = 1e-12f;
 
@@ -85,6 +102,28 @@ constexpr int kDwK = 32;                //      rows per chunk
 constexpr int kDwAStride = kMem + 4;
 constexpr int kCStride = kMaxC + 4;     // (c), (d): a chunk's C-wide rows
 
+// K6 tiles
+constexpr int kFRows = 16;              // rows a block
+constexpr int kFWarps = 16;             // a warp a row in the row chain
+constexpr int kFThreads = 32 * kFWarps;
+constexpr int kFChunk = 128;            // W rows a chunk
+constexpr int kFWCols = kFChunk / kFWarps;      // a warp's columns of a chunk: 8
+constexpr int kFKSteps = kMaxC / 4;     // mma k-steps at most
+constexpr int kFCS = kMaxC + 8;         // bf16 row stride of a chunk (144 B)
+constexpr int kFChunkElems = kFChunk * kFCS;
+constexpr int kFLPad = 8;               // f32 pad of a logit row
+constexpr int kFCap = 512;              // nonzero weights a row's list holds
+constexpr int kFAhead = 8;              // list rows whose loads are in flight
+constexpr unsigned kFull = 0xffffffffu;
+
+static_assert(kFRows == 16 && kFWCols == 8 && kFWarps == kFRows, "K6's warp tiles");
+static_assert(kFRows * kFCap * 4 <= 2 * kFChunkElems * 2,
+              "the lists' indices fit the chunk buffers");
+
+using hvpr::bf16_round;
+using hvpr::dmma;
+using hvpr::widen;
+
 __device__ __forceinline__ double warp_sum(double v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
@@ -95,88 +134,9 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// memory rows [m0, m0 + kChunk) as f64 into ws (zeros past m and c)
-__device__ void load_w_chunk(const __nv_bfloat16* __restrict__ w, double* ws,
-                             int m0, int m, int c) {
-  for (int i = threadIdx.x; i < kChunk * kMaxC; i += kThreads) {
-    const int mm = i / kMaxC, cc = i % kMaxC;
-    double v = 0.0;
-    if (m0 + mm < m && cc < c) v = (double)to_f(w[(size_t)(m0 + mm) * c + cc]);
-    ws[mm * kWStride + cc] = v;
-  }
-}
-
-// `rows` rows of a bf16 (R, C) matrix from row0 as f64 (zeros past r and c)
-__device__ void load_rows(const __nv_bfloat16* __restrict__ src, double* dst,
-                          int row0, int rows, int r, int c) {
-  for (int i = threadIdx.x; i < rows * kMaxC; i += kThreads) {
-    const int rr = i / kMaxC, cc = i % kMaxC;
-    double v = 0.0;
-    if (row0 + rr < r && cc < c) v = (double)to_f(src[(size_t)(row0 + rr) * c + cc]);
-    dst[rr * kMaxC + cc] = v;
-  }
-}
-
-// L = x W^T for a shared (ROWS x m) tile L
-template <int ROWS>
-__device__ void logits_pass(const __nv_bfloat16* __restrict__ w, const double* xs,
-                            float* L, double* ws, int m, int c) {
-  constexpr int kPairs = ROWS * kChunk / kThreads;
-  for (int m0 = 0; m0 < m; m0 += kChunk) {
-    __syncthreads();
-    load_w_chunk(w, ws, m0, m, c);
-    __syncthreads();
-    for (int k = 0; k < kPairs; ++k) {
-      const int p = threadIdx.x + k * kThreads;
-      const int rr = p / kChunk, mm = p % kChunk;
-      if (m0 + mm >= m) continue;
-      const double* wr = ws + mm * kWStride;
-      const double* xr = xs + rr * kMaxC;
-      double acc = 0.0;
-      for (int cc = 0; cc < c; ++cc) acc = fma(xr[cc], wr[cc], acc);
-      L[rr * m + m0 + mm] = (float)acc;
-    }
-  }
-  __syncthreads();
-}
-
-// out[row0 + r, :] = T[r, :] W for a shared (rows x m) tile T of bf16 values
-template <int ROWS>
-__device__ void product_pass(const __nv_bfloat16* __restrict__ w, const float* T,
-                             double* ws, float* __restrict__ out, int row0, int r,
-                             int m, int c) {
-  constexpr int kOuts = ROWS * kMaxC / kThreads;
-  double acc[kOuts];
-  for (int k = 0; k < kOuts; ++k) acc[k] = 0.0;
-  for (int m0 = 0; m0 < m; m0 += kChunk) {
-    __syncthreads();
-    load_w_chunk(w, ws, m0, m, c);
-    __syncthreads();
-    const int mlen = min(kChunk, m - m0);
-    for (int k = 0; k < kOuts; ++k) {
-      const int o = threadIdx.x + k * kThreads;
-      const int rr = o / kMaxC, cc = o % kMaxC;
-      const float* tr = T + rr * m + m0;
-      for (int mm = 0; mm < mlen; ++mm)
-        acc[k] = fma((double)tr[mm], ws[mm * kWStride + cc], acc[k]);
-    }
-  }
-  for (int k = 0; k < kOuts; ++k) {
-    const int o = threadIdx.x + k * kThreads;
-    const int rr = o / kMaxC, cc = o % kMaxC;
-    if (row0 + rr < r && cc < c) out[(size_t)(row0 + rr) * c + cc] = (float)acc[k];
-  }
-}
-
-// softmax of a row held in shared memory, in place; returns nothing, the
-// row then holds a = e / sum(e)
-__device__ void softmax_row(float* lr, int m, int lane) {
+// the softmax numerators of a row held in shared memory, in place: the
+// row then holds e = exp(l - max l); returns sum(e), summed in f64
+__device__ float softmax_numerators(float* lr, int m, int lane) {
   float mx = -INFINITY;
   for (int j = lane; j < m; j += 32) mx = fmaxf(mx, lr[j]);
   mx = warp_max(mx);
@@ -186,8 +146,7 @@ __device__ void softmax_row(float* lr, int m, int lane) {
     lr[j] = e;
     se += (double)e;
   }
-  const float sf = (float)warp_sum(se);
-  for (int j = lane; j < m; j += 32) lr[j] = __fdiv_rn(lr[j], sf);
+  return (float)warp_sum(se);
 }
 
 __device__ __forceinline__ float shrink(float a, float lam) {
@@ -197,48 +156,210 @@ __device__ __forceinline__ float shrink(float a, float lam) {
 
 // ----------------------------------------------------------------- K6
 
-__global__ void __launch_bounds__(kThreads)
+// out[0..C) += the list's bf16 weights lv times the W rows li, in list
+// order; lanes over channels, kFAhead rows' loads in flight
+__device__ __forceinline__ void output_from_list(const __nv_bfloat16* __restrict__ w,
+                                                 const int* li, const float* lv, int cnt,
+                                                 int C, int lane, double& a0, double& a1) {
+  for (int e0 = 0; e0 < cnt; e0 += kFAhead) {
+    float wt[kFAhead];
+    __nv_bfloat16 m0[kFAhead], m1[kFAhead];
+#pragma unroll
+    for (int u = 0; u < kFAhead; ++u) {
+      const int e = min(e0 + u, cnt - 1);
+      wt[u] = e0 + u < cnt ? lv[e] : 0.0f;
+      const __nv_bfloat16* wr = w + (size_t)li[e] * C;
+      m0[u] = wr[lane < C ? lane : 0];
+      m1[u] = wr[lane + 32 < C ? lane + 32 : 0];
+    }
+#pragma unroll
+    for (int u = 0; u < kFAhead; ++u) {
+      if (e0 + u < cnt) {
+        a0 = fma((double)wt[u], widen(m0[u]), a0);
+        a1 = fma((double)wt[u], widen(m1[u]), a1);
+      }
+    }
+  }
+}
+
+// stop = 0 runs all of it; 1 ends after the sweep and 2 after the row chain
+// (to time the parts; those runs leave y undefined)
+__global__ void __launch_bounds__(kFThreads, 1)
 recon_fwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                 float* __restrict__ y, int r, int m, int c, float lam) {
-  extern __shared__ double smem_d[];
-  double* ws = smem_d;                                   // kChunk x kWStride
-  double* xs = ws + kChunk * kWStride;                   // kFwdRows x kMaxC
-  float* L = reinterpret_cast<float*>(xs + kFwdRows * kMaxC);   // kFwdRows x m
-  const int row0 = blockIdx.x * kFwdRows;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+                 float* __restrict__ y, int r, int m, int c, float lam, int stop) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int Mp = (m + kFChunk - 1) / kFChunk * kFChunk;
+  const int n_chunks = Mp / kFChunk;
+  const int LS = Mp + kFLPad;
+  __nv_bfloat16* chunks = reinterpret_cast<__nv_bfloat16*>(smem);    // 2 x kFChunkElems
+  float* L = reinterpret_cast<float*>(chunks + 2 * kFChunkElems);    // kFRows x LS
+  int* counts = reinterpret_cast<int*>(L + kFRows * LS);             // kFRows
+  int* lidx = reinterpret_cast<int*>(smem);         // kFRows x kFCap, after the sweep
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const int row0 = blockIdx.x * kFRows;
 
-  load_rows(x, xs, row0, kFwdRows, r, c);
-  logits_pass<kFwdRows>(w, xs, L, ws, m, c);
+  hvpr::stage_rows<kFChunk, kFCS, kFThreads>(w, chunks, 0, m, c);
 
-  for (int rr = warp; rr < kFwdRows; rr += kWarps) {
-    float* lr = L + rr * m;
-    softmax_row(lr, m, lane);
+  // 1. the warp's x fragments, widened: a[i][ks] = x[row0 + 8 i + g][4 ks + q]
+  //    (zero past r)
+  const int ksteps = c / 4;
+  double a[2][kFKSteps];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + i * 8 + g;
+#pragma unroll
+    for (int ks = 0; ks < kFKSteps; ++ks)
+      a[i][ks] = row < r && ks < ksteps ? widen(x[(size_t)row * c + ks * 4 + q]) : 0.0;
+  }
+
+  // 2. the sweep: the logits of the warp's 16 rows x 8 columns of each
+  //    chunk on DMMA, rounded to f32 into the tile (columns past m: W's zero
+  //    rows give 0, never read)
+  const int wc = warp * kFWCols;
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    if (ch + 1 < n_chunks) {
+      hvpr::stage_rows<kFChunk, kFCS, kFThreads>(
+          w, chunks + ((ch + 1) & 1) * kFChunkElems, (ch + 1) * kFChunk, m, c);
+      hvpr::cp_async_wait<1>();
+    } else {
+      hvpr::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* cb = chunks + (ch & 1) * kFChunkElems;
+    double acc[2][2] = {{0.0, 0.0}, {0.0, 0.0}};
+#pragma unroll
+    for (int ks = 0; ks < kFKSteps; ++ks) {
+      if (ks < ksteps) {
+        const double b = widen(cb[(wc + g) * kFCS + ks * 4 + q]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) dmma(acc[i][0], acc[i][1], a[i][ks], b);
+      }
+    }
+    const int col = ch * kFChunk + wc + 2 * q;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<float2*>(L + (i * 8 + g) * LS + col) =
+          make_float2(__double2float_rn(acc[i][0]), __double2float_rn(acc[i][1]));
+    __syncthreads();                    // the buffer is refilled next round
+  }
+  if (stop == 1) {
+    if (threadIdx.x < kFRows && row0 + threadIdx.x < r)
+      y[(size_t)(row0 + threadIdx.x) * c] = L[threadIdx.x * LS];
+    return;
+  }
+
+  // 3. the row chain, a warp a row: n = bf16(renorm(shrink(softmax(l)))) in
+  //    place (zeros past m) and the row's count of nonzero weights. Where
+  //    u = a - lam <= 0 the shrunk weight s is +0 (relu(u) a / ...), and so
+  //    is n = s / t (t >= delta > 0): those elements skip the divisions,
+  //    most of a row at lam = 0.0025. An e below e_lo, an f32 product that
+  //    is below lam sum(e) (its two roundings are far inside the factor
+  //    1 - 1e-6), has e / sum(e) < lam and so a = rn(e / sum(e)) <= lam:
+  //    it skips a's division too.
+  const int rr = warp;
+  float* lr = L + rr * LS;
+  int cnt = 0;
+  if (row0 + rr < r) {
+    const float sf = softmax_numerators(lr, m, lane);
+    float t = 0.f;
     if (lam > 0.f) {
+      const float e_lo = __fmul_rn(__fmul_rn(lam, sf), 0.999999f);
       double st = 0.0;
       for (int j = lane; j < m; j += 32) {
-        const float s = shrink(lr[j], lam);
+        const float e = lr[j];
+        float s = 0.f;
+        if (e >= e_lo) {
+          const float a = __fdiv_rn(e, sf);
+          if (__fsub_rn(a, lam) > 0.f) s = shrink(a, lam);
+        }
         lr[j] = s;
         st += (double)s;
       }
-      const float t = fmaxf((float)warp_sum(st), kDelta);
-      for (int j = lane; j < m; j += 32) lr[j] = round_bf16(__fdiv_rn(lr[j], t));
-    } else {
-      for (int j = lane; j < m; j += 32) lr[j] = round_bf16(lr[j]);
+      t = fmaxf((float)warp_sum(st), kDelta);
     }
+    for (int j0 = 0; j0 < Mp; j0 += 32) {
+      const int j = j0 + lane;
+      float n = 0.f;
+      if (j < m) {
+        const float v = lr[j];          // s when lam > 0, else e
+        n = lam > 0.f ? (v != 0.f ? bf16_round(__fdiv_rn(v, t)) : 0.f)
+                      : bf16_round(__fdiv_rn(v, sf));
+      }
+      lr[j] = n;
+      cnt += __popc(__ballot_sync(kFull, n != 0.0f));
+    }
+  } else {
+    for (int j = lane; j < Mp; j += 32) lr[j] = 0.0f;
   }
-  product_pass<kFwdRows>(w, L, ws, y, row0, r, m, c);
+  if (lane == 0) counts[rr] = cnt;
+  __syncthreads();
+  if (stop == 2) {
+    if (lane == 0 && row0 + rr < r) y[(size_t)(row0 + rr) * c] = lr[0];
+    return;
+  }
+  bool dense = !(lam > 0.f);
+  for (int i = 0; i < kFRows; ++i) dense = dense || counts[i] > kFCap;
+
+  if (!dense) {
+    // 4a. the list path: a warp a row, the nonzero columns in index order
+    //     (weights compacted in place: a column's list position is at most
+    //     its index, and the warp has read its 32 columns before the ballot)
+    if (row0 + rr >= r) return;
+    int* li = lidx + rr * kFCap;
+    const unsigned below = (1u << lane) - 1u;
+    int pos = 0;
+    for (int j0 = 0; j0 < m; j0 += 32) {
+      const int j = j0 + lane;
+      const float wv = j < m ? lr[j] : 0.0f;
+      const unsigned ball = __ballot_sync(kFull, wv != 0.0f);
+      if (wv != 0.0f) {
+        const int p = pos + __popc(ball & below);
+        li[p] = j;
+        lr[p] = wv;
+      }
+      pos += __popc(ball);
+    }
+    __syncwarp();
+    double a0 = 0.0, a1 = 0.0;
+    output_from_list(w, li, lr, cnt, c, lane, a0, a1);
+    float* yr = y + (size_t)(row0 + rr) * c;
+    if (lane < c) yr[lane] = __double2float_rn(a0);
+    if (lane + 32 < c) yr[lane + 32] = __double2float_rn(a1);
+    return;
+  }
+
+  // 4b. the dense path: n W on DMMA in a second sweep over W; warp w owns
+  //     output rows 8 (w % 2).. and channels 8 (w / 2).. (none when past c)
+  const int rt = warp & 1, ct = warp >> 1;
+  const bool active = ct * 8 < c;
+  double d0 = 0.0, d1 = 0.0;
+  hvpr::stage_rows<kFChunk, kFCS, kFThreads>(w, chunks, 0, m, c);
+  const float* nrow = L + (rt * 8 + g) * LS;
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    if (ch + 1 < n_chunks) {
+      hvpr::stage_rows<kFChunk, kFCS, kFThreads>(
+          w, chunks + ((ch + 1) & 1) * kFChunkElems, (ch + 1) * kFChunk, m, c);
+      hvpr::cp_async_wait<1>();
+    } else {
+      hvpr::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* cb = chunks + (ch & 1) * kFChunkElems;
+    if (active) {
+#pragma unroll 8
+      for (int kk = 0; kk < kFChunk; kk += 4)
+        dmma(d0, d1, (double)nrow[ch * kFChunk + kk + q], widen(cb[(kk + q) * kFCS + ct * 8 + g]));
+    }
+    __syncthreads();
+  }
+  const int row = row0 + rt * 8 + g, col = ct * 8 + 2 * q;
+  if (active && row < r) {
+    if (col < c) y[(size_t)row * c + col] = __double2float_rn(d0);
+    if (col + 1 < c) y[(size_t)row * c + col + 1] = __double2float_rn(d1);
+  }
 }
 
 // ----------------------------------------------------------------- K7
-
-// D (8 x 8) += A (8 x 4) B (4 x 8) on the FP64 tensor cores. Per lane:
-// a = A[lane / 4][lane % 4], b = B[lane % 4][lane / 4], and
-// d0, d1 = D[lane / 4][2 (lane % 4) + {0, 1}].
-__device__ __forceinline__ void dmma(double& d0, double& d1, double a, double b) {
-  asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};"
-               : "+d"(d0), "+d"(d1)
-               : "d"(a), "d"(b));
-}
 
 // A warp's (TM * 8) x (TN * 8) tile of D += A B^T over k_steps * 4 of K, from
 // shared f64 tiles: A's rows a_row0.., B's rows (D's columns) b_row0..;
@@ -276,8 +397,6 @@ __device__ __forceinline__ void zero(double (&acc)[TM][TN][2]) {
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j][0] = acc[i][j][1] = 0.0;
 }
-
-__device__ __forceinline__ double widen(__nv_bfloat16 v) { return (double)to_f(v); }
 
 // A (ROWS x COLS) tile of a row-major bf16 matrix, rows row0.. (< row_end)
 // and columns col0.. (< col_end) of row stride ld, widened into a shared f64
@@ -524,9 +643,6 @@ __global__ void recon_dw_reduce_kernel(const double* __restrict__ partial,
   dw[i] = (float)s;
 }
 
-size_t fwd_smem(int m) {
-  return sizeof(double) * (kChunk * kWStride + kFwdRows * kMaxC) + sizeof(float) * kFwdRows * m;
-}
 
 constexpr size_t kLogitsSmem = sizeof(double) * (kLRows + kLMem) * kLStride;
 constexpr size_t kDxSmem = sizeof(double) * (kXRows * kXAStride + kXK * kCStride);
@@ -539,15 +655,35 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 
 }  // namespace
 
+// shared memory a K6 block needs for M memory rows
+extern "C" long long hvpr_memory_recon_fwd_smem(int m) {
+  const int Mp = (m + kFChunk - 1) / kFChunk * kFChunk;
+  return 2LL * kFChunkElems * 2 + 4LL * kFRows * (Mp + kFLPad) + 4LL * kFRows;
+}
+
+// nonzero weights a row's list holds (a tile with a longer row, or lam = 0,
+// takes the dense output path)
+extern "C" int hvpr_memory_recon_fwd_cap() { return kFCap; }
+
+// K6 run to the end of one of its parts: stop = 1 the sweep, 2 the row
+// chain, 0 all of it (y is defined only then). x (R, C), w (M, C) bf16,
+// y (R, C) f32; C % 8 == 0, C <= 64.
+extern "C" int hvpr_memory_recon_fwd_part(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                                          float* y, int r, int m, int c, float lam, int stop,
+                                          void* stream) {
+  const size_t smem = (size_t)hvpr_memory_recon_fwd_smem(m);
+  cudaError_t err = allow_smem(recon_fwd_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (r + kFRows - 1) / kFRows;
+  recon_fwd_kernel<<<blocks, kFThreads, smem, (cudaStream_t)stream>>>(x, w, y, r, m, c, lam,
+                                                                      stop);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int hvpr_memory_recon_fwd(const __nv_bfloat16* x, const __nv_bfloat16* w,
                                      float* y, int r, int m, int c, float lam,
                                      void* stream) {
-  const size_t smem = fwd_smem(m);
-  cudaError_t err = allow_smem(recon_fwd_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (r + kFwdRows - 1) / kFwdRows;
-  recon_fwd_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(x, w, y, r, m, c, lam);
-  return (int)cudaGetLastError();
+  return hvpr_memory_recon_fwd_part(x, w, y, r, m, c, lam, 0, stream);
 }
 
 // ld: (2, R, M) f32 scratch for l and dn; dl, n: (R, M) bf16 scratch;

@@ -3,7 +3,7 @@
 //
 // Replaces the TPU kernels of hvpr_tpu/ops/topk_attend.py:
 //   K8  hvpr_bucket_threshold:   :179 `_bmax_kernel` and :204 `_thresh_kernel`
-//   K9  hvpr_masked_attend_fwd:  :376 `_attend_fwd_kernel`
+//   K9  hvpr_masked_attend_fwd and hvpr_masked_attend_pairs: :376 `_attend_fwd_kernel`
 //   K10 hvpr_masked_attend_bwd:  :427 `_bwd_kernel`
 // with the semantics of the JAX package's XLA twin (bucket_threshold's XLA
 // branch and _attend_emulation), spelled out in ops/topk_attend.py. Per
@@ -20,32 +20,49 @@
 // What bounds them. K8 and K9 make the dense (rows, N) score product of
 // the rows they process, 2*R*N*C flops (8.0e10 at hvpr.yaml batch 4: R =
 // 38,047 valid rows, N = 16,384, C = 64), against ~25 MB of inputs: bound
-// by operations. They run the products as f64 multiply-adds on the CUDA
-// cores (for the exact sums above), far from the bf16 tensor-core bound;
-// FP64 tensor cores (mma.sync m8n8k4) or bf16 wgmma are later work. K10
-// touches only the selected pairs (~825k a call at hvpr.yaml), 2*C flops
-// each, against the valid rows of dout (9.7 MB), the pairs (~5 MB) and dval
-// (16.8 MB): bound by bytes, ~0.01 ms a call at 3.35 TB/s.
+// by operations. K8 runs them as f64 multiply-adds on the CUDA cores (for
+// the exact sums above); K9 on the FP64 tensor cores (mma.sync m8n8k4 .f64,
+// DMMA, 67 TFLOP/s: 1.19 ms for that product, against 0.08 ms on bf16
+// tensor cores). K10 touches only the selected pairs (~825k a call at
+// hvpr.yaml), 2*C flops each, against the valid rows of dout (9.7 MB), the
+// pairs (~5 MB) and dval (16.8 MB): bound by bytes, ~0.01 ms a call at
+// 3.35 TB/s.
 //
-// Design. A tile is 32 pillar rows of one scan, held in shared memory as
-// f64, channel-major. The scan's table streams through shared memory in
-// 128-point chunks (f64, channel-major, 64 KB), so a chunk holds exactly
-// one point of each bucket. Warp w owns rows 4w..4w+3 and lane t columns
-// t, t+32, t+64, t+96 of a chunk: 16 f64 sums a thread, the pillar values
-// read as broadcasts and the chunk's columns conflict-free.
-//   K8  keeps each thread's 16 bucket maxima in registers over the chunks;
-//       a warp then finds each row's k-th largest of 128 maxima by counting
-//       (greater / greater-or-equal), as K2 does.
-//   K9  appends each row's selected points (index, score) to a list in
-//       shared memory during the one dense sweep, in index order (ballots).
-//       A row with at most 128 selected points then finishes from its list:
-//       logits (split: one dot a point), max, exp, f64 den, bf16 weights, and
-//       the output with lanes over channels. It also writes the list out,
-//       the "pairs": the row's kCap slots of point index (int32) and the
-//       bf16 weight it used for out, index -1 and weight 0 past its count.
-//       A row that selects more (a tie over many points) is redone by its
-//       warp in three passes over all N points, so any count from 0 to N is
-//       right; its slots are all -1 (an overflow row).
+// Design.
+//   K8  a tile is 32 pillar rows of one scan, held in shared memory as f64,
+//       channel-major; the scan's table streams through shared memory in
+//       128-point chunks (f64, channel-major, 64 KB), so a chunk holds
+//       exactly one point of each bucket. Warp w owns rows 4w..4w+3 and
+//       lane t columns t, t+32, t+64, t+96 of a chunk: 16 f64 sums a
+//       thread. It keeps each thread's 16 bucket maxima in registers over
+//       the chunks; a warp then finds each row's k-th largest of 128 maxima
+//       by counting (greater / greater-or-equal), as K2 does.
+//   K9  two kernels. The dense sweep (masked_attend_fwd_kernel): a tile of
+//       16 rows, 4 warps, 4 blocks an SM, the table streamed as bf16 by
+//       cp.async, the scores on DMMA with K2's bf16 -> f64 fragments. The
+//       table (2 MB a scan) is read from L2 once a tile: 2,378 tiles of 16
+//       rows read 4.9 GB a call at hvpr.yaml batch 4, 600 of 64 rows 1.2
+//       GB. Yet on the same inputs 64-row tiles (one block an SM, 16
+//       warps) took 3.93 ms, 32-row 3.62 and 16-row 3.41 on an H100
+//       (PERF.md, K9; tools/torch_port/k9_tile_sizes.py): four blocks an
+//       SM overlap one block's barriers with another's DMMA, and L2
+//       serves the 4.9 GB at ~1.4 TB/s, well inside its rate. K8's
+//       threshold is known before the sweep, so no score is kept: each row
+//       appends its selected points (index, score) to a list in shared
+//       memory in index order (ballot masks, then the tile's 4 column warps
+//       in point order). A row with at most
+//       128 selected points finishes from its list: logits (split: one dot
+//       a point), max, exp, f64 den, bf16 weights, and the output with
+//       lanes over channels. It also writes the list out, the "pairs": the
+//       row's kCap slots of point index (int32) and the bf16 weight it used
+//       for out, index -1 and weight 0 past its count. A row that selects
+//       more (a tie over many points) is redone by its warp in three passes
+//       over all N points, so any count from 0 to N is right; its slots
+//       are all -1 (an overflow row). The pair pass
+//       (masked_attend_pairs_kernel) serves a call handed an earlier call's
+//       selection (the fused step's split call reads the shared call's
+//       count and pairs): no sweep, each listed row's logits over its
+//       listed points only, overflow rows by the three passes.
 //   K10 is a deterministic transpose-reduce of the pairs, with no float
 //       atomics, in steps on the stream: (a) count the pairs of each point
 //       (integer atomics); (b) an exclusive scan of the counts into segment
@@ -75,6 +92,8 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "dmma.cuh"
+
 namespace {
 
 constexpr int kRows = 32;                    // pillar rows per tile
@@ -98,9 +117,7 @@ constexpr unsigned kFull = 0xffffffffu;
 
 static_assert(kRowsPerWarp == 4 && kColsPerLane == 4, "tile mapping");
 
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
+using hvpr::bf16_round;
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
@@ -117,23 +134,25 @@ __device__ __forceinline__ bool row_valid(const bool* __restrict__ row_mask, int
   return v < V && row_mask[(size_t)b * V + v];
 }
 
-// true in every thread when a row of the tile [v0, v0 + kRows) is valid;
-// also a block barrier
+// true in every thread when a row of the tile [v0, v0 + ROWS) is valid;
+// also a block barrier (the block has at least ROWS threads)
+template <int ROWS = kRows>
 __device__ __forceinline__ bool tile_has_valid(const bool* __restrict__ row_mask, int b,
                                                int v0, int V) {
   const int t = threadIdx.x;
-  return __syncthreads_or(t < kRows && row_valid(row_mask, b, v0 + t, V)) != 0;
+  return __syncthreads_or(t < ROWS && row_valid(row_mask, b, v0 + t, V)) != 0;
 }
 
-// pillar rows [v0, v0 + kRows) of scan b as f64, channel-major:
-// ps[c * kRows + r] (zeros past V and past C)
+// pillar rows [v0, v0 + ROWS) of scan b as f64, channel-major:
+// ps[c * ROWS + r] (zeros past V and past C), by THREADS threads
+template <int ROWS = kRows, int THREADS = kThreads>
 __device__ void load_pillars(const __nv_bfloat16* __restrict__ pill, double* ps, int b,
                              int v0, int V, int C) {
-  for (int i = threadIdx.x; i < kRows * kMaxC; i += kThreads) {
-    const int r = i % kRows, c = i / kRows;
+  for (int i = threadIdx.x; i < ROWS * kMaxC; i += THREADS) {
+    const int r = i % ROWS, c = i / ROWS;
     double x = 0.0;
     if (v0 + r < V && c < C) x = (double)__bfloat162float(pill[((size_t)b * V + v0 + r) * C + c]);
-    ps[c * kRows + r] = x;
+    ps[c * ROWS + r] = x;
   }
 }
 
@@ -190,8 +209,9 @@ __device__ __forceinline__ void tile_dot(const double* ps, const double* ts, int
   }
 }
 
-// bf16(pillar row r of the tile) . x for one bf16 row x of C values
-__device__ __forceinline__ float dot_row(const double* ps, int r,
+// bf16(pillar row r of the tile) . x for one bf16 row x of C values; the
+// tile is channel-major with `stride` rows
+__device__ __forceinline__ float dot_row(const double* ps, int stride, int r,
                                          const __nv_bfloat16* __restrict__ x, int C) {
   double acc = 0.0;
   for (int c = 0; c < C; c += 8) {
@@ -199,7 +219,7 @@ __device__ __forceinline__ float dot_row(const double* ps, int r,
     const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
 #pragma unroll
     for (int u = 0; u < 8; ++u)
-      acc = fma(ps[(c + u) * kRows + r], (double)__bfloat162float(e[u]), acc);
+      acc = fma(ps[(c + u) * stride + r], (double)__bfloat162float(e[u]), acc);
   }
   return __double2float_rn(acc);
 }
@@ -296,13 +316,17 @@ bucket_threshold_kernel(const __nv_bfloat16* __restrict__ pill,
 // ----------------------------------------------------------------- K9
 
 // One row from its list of n selected points (n <= kCap): lidx holds their
-// indices in ascending order, lval their scores; lval is overwritten.
-__device__ void attend_from_list(const double* ps, int r, const int* lidx, float* lval,
-                                 int count, const __nv_bfloat16* __restrict__ valb,
-                                 bool shared, int C, int lane, float* __restrict__ out_row,
-                                 float& mx, float& den) {
-  if (!shared)
-    for (int e = lane; e < count; e += 32) lval[e] = dot_row(ps, r, valb + (size_t)lidx[e] * C, C);
+// indices in ascending order, lval their logits when have_logits (else they
+// are computed here, bf16(pillar) . bf16(val)); lval is overwritten with the
+// row's bf16 weights.
+__device__ void attend_from_list(const double* ps, int ps_stride, int r, const int* lidx,
+                                 float* lval, int count,
+                                 const __nv_bfloat16* __restrict__ valb, bool have_logits,
+                                 int C, int lane, float* __restrict__ out_row, float& mx,
+                                 float& den) {
+  if (!have_logits)
+    for (int e = lane; e < count; e += 32)
+      lval[e] = dot_row(ps, ps_stride, r, valb + (size_t)lidx[e] * C, C);
   __syncwarp();
   float m = kNeg;
   for (int e = lane; e < count; e += 32) m = fmaxf(m, lval[e]);
@@ -334,24 +358,27 @@ __device__ void attend_from_list(const double* ps, int r, const int* lidx, float
 
 // One row with more than kCap selected points, by one warp in three passes
 // over all N points: row max of the logits, den, then the output.
-__device__ __noinline__ void attend_dense(const double* ps, int r, const __nv_bfloat16* __restrict__ selb,
-                             const __nv_bfloat16* __restrict__ valb,
-                             const float* __restrict__ nb, float thr, int N, int C,
-                             bool shared, int lane, float* __restrict__ out_row, float& mx,
-                             float& den) {
+__device__ __noinline__ void attend_dense(const double* ps, int ps_stride, int r,
+                                          const __nv_bfloat16* __restrict__ selb,
+                                          const __nv_bfloat16* __restrict__ valb,
+                                          const float* __restrict__ nb, float thr, int N,
+                                          int C, bool shared, int lane,
+                                          float* __restrict__ out_row, float& mx,
+                                          float& den) {
   float m = kNeg;
   for (int n = lane; n < N; n += 32) {
     if (nb[n] != 0.f) continue;
-    const float s = __fadd_rn(dot_row(ps, r, selb + (size_t)n * C, C), nb[n]);
-    if (s >= thr) m = fmaxf(m, shared ? s : dot_row(ps, r, valb + (size_t)n * C, C));
+    const float s = __fadd_rn(dot_row(ps, ps_stride, r, selb + (size_t)n * C, C), nb[n]);
+    if (s >= thr)
+      m = fmaxf(m, shared ? s : dot_row(ps, ps_stride, r, valb + (size_t)n * C, C));
   }
   m = warp_max(m);
   double sd = 0.0;
   for (int n = lane; n < N; n += 32) {
     if (nb[n] != 0.f) continue;
-    const float s = __fadd_rn(dot_row(ps, r, selb + (size_t)n * C, C), nb[n]);
+    const float s = __fadd_rn(dot_row(ps, ps_stride, r, selb + (size_t)n * C, C), nb[n]);
     if (s >= thr) {
-      const float l = shared ? s : dot_row(ps, r, valb + (size_t)n * C, C);
+      const float l = shared ? s : dot_row(ps, ps_stride, r, valb + (size_t)n * C, C);
       sd += (double)expf(__fsub_rn(l, m));
     }
   }
@@ -361,9 +388,9 @@ __device__ __noinline__ void attend_dense(const double* ps, int r, const __nv_bf
     const int n = n0 + lane;
     float w = 0.f;
     if (n < N && nb[n] == 0.f) {
-      const float s = __fadd_rn(dot_row(ps, r, selb + (size_t)n * C, C), nb[n]);
+      const float s = __fadd_rn(dot_row(ps, ps_stride, r, selb + (size_t)n * C, C), nb[n]);
       if (s >= thr) {
-        const float l = shared ? s : dot_row(ps, r, valb + (size_t)n * C, C);
+        const float l = shared ? s : dot_row(ps, ps_stride, r, valb + (size_t)n * C, C);
         w = bf16_round(__fdiv_rn(expf(__fsub_rn(l, m)), fmaxf(d, 1e-30f)));
       }
     }
@@ -383,7 +410,94 @@ __device__ __noinline__ void attend_dense(const double* ps, int r, const __nv_bf
   den = d;
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
+// What a row's finish needs besides its list: the scan's tables, the
+// outputs, and the row's place in them.
+struct AttendOut {
+  const __nv_bfloat16* selb;     // the scan's (N, C) tables and neg
+  const __nv_bfloat16* valb;
+  const float* nb;
+  float* out;
+  float* mx;
+  float* den;
+  int* cnt;
+  int* pidx;
+  __nv_bfloat16* pw;
+  int N;
+  int C;
+  bool shared;
+};
+
+// A row's outputs (global row g, tile row r): out, mx, den, its count and
+// its pairs, from its list (count <= kCap; lval holds the logits when
+// have_logits) or by the dense passes (an overflow row: no pairs); a row
+// outside the mask outputs zeros.
+__device__ void finish_row(const AttendOut& o, const double* ps, int ps_stride, int r,
+                           size_t g, bool live, float thr, int count, const int* lidx,
+                           float* lval, bool have_logits, int lane) {
+  float* out_row = o.out + g * o.C;
+  float m = 0.f, d = 0.f;
+  int listed = 0;               // pairs written out: the count of a list row
+  if (!live) {
+    if (lane < o.C) out_row[lane] = 0.f;
+    if (lane + 32 < o.C) out_row[lane + 32] = 0.f;
+  } else if (count <= kCap) {
+    attend_from_list(ps, ps_stride, r, lidx, lval, count, o.valb, have_logits, o.C, lane,
+                     out_row, m, d);
+    listed = count;
+  } else {
+    attend_dense(ps, ps_stride, r, o.selb, o.valb, o.nb, thr, o.N, o.C, o.shared, lane,
+                 out_row, m, d);
+  }
+  // lane e % 32 wrote lval[e] (the bf16 weight) itself
+  for (int e = lane; e < kCap; e += 32) {
+    const bool in = e < listed;
+    o.pidx[g * kCap + e] = in ? lidx[e] : -1;
+    o.pw[g * kCap + e] = __float2bfloat16_rn(in ? lval[e] : 0.f);
+  }
+  if (lane == 0) {
+    o.mx[g] = m;
+    o.den[g] = d;
+    o.cnt[g] = live ? count : 0;
+  }
+}
+
+// the outputs of a tile of `rows` rows without a valid row: zeros, no pairs
+__device__ void empty_tile(const AttendOut& o, size_t row0, int rows, int threads) {
+  for (int i = threadIdx.x; i < rows * o.C; i += threads) o.out[row0 * o.C + i] = 0.f;
+  for (int i = threadIdx.x; i < rows; i += threads) {
+    o.mx[row0 + i] = 0.f;
+    o.den[row0 + i] = 0.f;
+    o.cnt[row0 + i] = 0;
+  }
+  for (int i = threadIdx.x; i < rows * kCap; i += threads) {
+    o.pidx[row0 * kCap + i] = -1;
+    o.pw[row0 * kCap + i] = __float2bfloat16_rn(0.f);
+  }
+}
+
+// K9's dense sweep: a tile of kARows = 16 pillar rows of one scan, 4 warps
+// (the tile size is this one constant; 64 rows take 16 warps). The scan's
+// selection table streams through shared memory in 128-point chunks as
+// bf16 (rows padded to 144 B), double-buffered with cp.async; warp w owns
+// rows 16 (w % (kARows / 16)).. and points 32 (w / (kARows / 16)).. of each
+// chunk (2 x 4 mma tiles), its pillar fragments widened to f64 in registers
+// for the whole sweep and each table fragment widened as it is loaded, the
+// scores on DMMA. A chunk's picks enter each row's list in index order: a
+// row's picks within a warp are one 32-bit mask (OR of its 4 lanes), and
+// the 4 warps over a row's points add in point order by their counts in
+// shared memory. Then a warp finishes kARows / kAWarps = 4 rows.
+constexpr int kARows = 16;
+constexpr int kARowGroups = kARows / 16;        // warps over a chunk's rows
+constexpr int kAWarps = 4 * kARowGroups;        // and 4 over its points
+constexpr int kAThreads = 32 * kAWarps;
+constexpr int kABlocks = 512 / kAThreads;       // blocks an SM (the registers)
+constexpr int kAKSteps = kMaxC / 4;
+constexpr int kACS = kMaxC + 8;                 // bf16 row stride of a chunk (144 B)
+constexpr int kAChunkElems = kChunk * kACS;
+static_assert(kARows % 16 == 0 && kChunk == 4 * 32, "warp w: 16 rows x 32 points");
+static_assert(2 * kAChunkElems * 2 >= kMaxC * kARows * 8, "the pillar tile fits the chunks");
+
+__global__ void __launch_bounds__(kAThreads, kABlocks)
 masked_attend_fwd_kernel(const __nv_bfloat16* __restrict__ pill,
                          const __nv_bfloat16* __restrict__ sel,
                          const __nv_bfloat16* __restrict__ val,
@@ -394,111 +508,194 @@ masked_attend_fwd_kernel(const __nv_bfloat16* __restrict__ pill,
                          __nv_bfloat16* __restrict__ pw_out, int V, int N, int C,
                          int shared) {
   extern __shared__ __align__(16) unsigned char smem[];
-  double* ps = reinterpret_cast<double*>(smem);            // kMaxC x kRows
-  double* ts = ps + kMaxC * kRows;                          // kMaxC x kChunk
-  int* lidx = reinterpret_cast<int*>(ts + kMaxC * kChunk);  // kRows x kCap
-  float* lval = reinterpret_cast<float*>(lidx + kRows * kCap);   // kRows x kCap
+  __nv_bfloat16* chunks = reinterpret_cast<__nv_bfloat16*>(smem);    // 2 x kAChunkElems
+  double* ps = reinterpret_cast<double*>(smem);        // kMaxC x kARows, after the sweep
+  int* lidx = reinterpret_cast<int*>(chunks + 2 * kAChunkElems);     // kARows x kCap
+  float* lval = reinterpret_cast<float*>(lidx + kARows * kCap);      // kARows x kCap
+  int* part = reinterpret_cast<int*>(lval + kARows * kCap);          // kARows x 4
+  int* total = part + kARows * 4;                                    // kARows
+  const int b = blockIdx.y, v0 = blockIdx.x * kARows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const size_t row0 = (size_t)b * V + v0;
+  const __nv_bfloat16* selb = sel + (size_t)b * N * C;
+  const float* nb = neg + (size_t)b * N;
+  const AttendOut o{selb, val + (size_t)b * N * C, nb, out, mx_out, den_out, cnt_out,
+                    pidx_out, pw_out, N, C, shared != 0};
+
+  if (!tile_has_valid<kARows>(row_mask, b, v0, V)) {
+    empty_tile(o, row0, min(kARows, V - v0), kAThreads);
+    return;
+  }
+  hvpr::stage_rows<kChunk, kACS, kAThreads>(selb, chunks, 0, N, C);
+  if (threadIdx.x < kARows) total[threadIdx.x] = 0;
+
+  // the warp's rows rb + 8 i + g (i < 2) and points cb + 8 j + 2 q + h
+  // (j < 4, h < 2) of a chunk; a row outside the mask selects nothing
+  const int rb = (warp % kARowGroups) * 16, cg = warp / kARowGroups, cb = cg * 32;
+  const int ksteps = C / 4;
+  double a[2][kAKSteps];
+  float thr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int v = v0 + rb + 8 * i + g;
+    const bool ok = row_valid(row_mask, b, v, V);
+    thr[i] = ok ? th[(size_t)b * V + v] : CUDART_INF_F;
+#pragma unroll
+    for (int ks = 0; ks < kAKSteps; ++ks)
+      a[i][ks] = v < V && ks < ksteps
+          ? hvpr::widen(pill[((size_t)b * V + v) * C + ks * 4 + q]) : 0.0;
+  }
+
+  const int n_chunks = (N + kChunk - 1) / kChunk;
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    if (ch + 1 < n_chunks) {
+      hvpr::stage_rows<kChunk, kACS, kAThreads>(
+          selb, chunks + ((ch + 1) & 1) * kAChunkElems, (ch + 1) * kChunk, N, C);
+      hvpr::cp_async_wait<1>();
+    } else {
+      hvpr::cp_async_wait<0>();
+    }
+    __syncthreads();                    // the chunk is in; last chunk's totals done
+    const __nv_bfloat16* tb = chunks + (ch & 1) * kAChunkElems;
+    double acc[2][4][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = 0.0;
+#pragma unroll
+    for (int ks = 0; ks < kAKSteps; ++ks) {
+      if (ks < ksteps) {
+        double bf[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) bf[j] = hvpr::widen(tb[(cb + 8 * j + g) * kACS + ks * 4 + q]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) hvpr::dmma(acc[i][j][0], acc[i][j][1], a[i][ks], bf[j]);
+      }
+    }
+    // scores, picks, and each row's mask of picks over the warp's 32 points
+    const int nc = ch * kChunk + cb;
+    float sc[2][4][2];
+    unsigned mask[2] = {0u, 0u};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = nc + 8 * j + 2 * q + h;
+        const float ng = n < N ? nb[n] : kNeg;
+        const bool ok = n < N && ng == 0.f;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float s = __fadd_rn(__double2float_rn(acc[i][j][h]), ng);
+          sc[i][j][h] = s;
+          if (ok && s >= thr[i]) mask[i] |= 1u << (8 * j + 2 * q + h);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mask[i] |= __shfl_xor_sync(kFull, mask[i], 1);
+      mask[i] |= __shfl_xor_sync(kFull, mask[i], 2);
+      if (q == 0) part[(rb + 8 * i + g) * 4 + cg] = __popc(mask[i]);
+    }
+    __syncthreads();                    // every warp's counts
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (mask[i] == 0u) continue;
+      const int r = rb + 8 * i + g;
+      int base = total[r];
+      for (int w4 = 0; w4 < cg; ++w4) base += part[r * 4 + w4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int bit = 8 * j + 2 * q + h;
+          if (mask[i] >> bit & 1u) {
+            const int pos = base + __popc(mask[i] & ((1u << bit) - 1u));
+            if (pos < kCap) {
+              lidx[r * kCap + pos] = nc + 8 * j + 2 * q + h;
+              lval[r * kCap + pos] = sc[i][j][h];
+            }
+          }
+        }
+    }
+    __syncthreads();                    // the counts are read
+    if (threadIdx.x < kARows) {
+      const int* pr = part + threadIdx.x * 4;
+      total[threadIdx.x] += pr[0] + pr[1] + pr[2] + pr[3];
+    }
+  }
+  __syncthreads();                      // the totals; the chunk buffers are free
+  load_pillars<kARows, kAThreads>(pill, ps, b, v0, V, C);
+  __syncthreads();
+
+  // each warp finishes 4 rows
+  for (int r = warp; r < kARows; r += kAWarps) {
+    const int v = v0 + r;
+    if (v >= V) continue;
+    const bool live = row_valid(row_mask, b, v, V);
+    finish_row(o, ps, kARows, r, row0 + r, live, live ? th[row0 + r] : 0.f,
+               live ? total[r] : 0, lidx + r * kCap, lval + r * kCap, shared != 0, lane);
+  }
+}
+
+// K9's pair pass: a call handed the selection of an earlier call over the
+// same pillars, selection table, neg, thresholds and row mask (the fused
+// step's split call, after the shared one) makes no dense sweep. A tile of
+// kRows rows, a warp 4 rows: a row with at most kCap selected points takes
+// their indices from the selection and computes its logits over them only;
+// an overflow row (more) takes the dense passes.
+__global__ void __launch_bounds__(kThreads)
+masked_attend_pairs_kernel(const __nv_bfloat16* __restrict__ pill,
+                           const __nv_bfloat16* __restrict__ sel,
+                           const __nv_bfloat16* __restrict__ val,
+                           const float* __restrict__ neg, const float* __restrict__ th,
+                           const bool* __restrict__ row_mask,
+                           const int* __restrict__ sel_cnt, const int* __restrict__ sel_idx,
+                           float* __restrict__ out, float* __restrict__ mx_out,
+                           float* __restrict__ den_out, int* __restrict__ cnt_out,
+                           int* __restrict__ pidx_out, __nv_bfloat16* __restrict__ pw_out,
+                           int V, int N, int C, int shared) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  double* ps = reinterpret_cast<double*>(smem);                   // kMaxC x kRows
+  int* lidx = reinterpret_cast<int*>(ps + kMaxC * kRows);          // kRows x kCap
+  float* lval = reinterpret_cast<float*>(lidx + kRows * kCap);     // kRows x kCap
   const int b = blockIdx.y, v0 = blockIdx.x * kRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const size_t row0 = (size_t)b * V + v0;
-
-  if (!tile_has_valid(row_mask, b, v0, V)) {
-    for (int i = threadIdx.x; i < kRows * C; i += kThreads)
-      if (v0 + i / C < V) out[row0 * C + i] = 0.f;
-    const int t = threadIdx.x;
-    if (t < kRows && v0 + t < V) {
-      mx_out[row0 + t] = 0.f;
-      den_out[row0 + t] = 0.f;
-      cnt_out[row0 + t] = 0;
-    }
-    for (int i = threadIdx.x; i < kRows * kCap; i += kThreads) {
-      if (v0 + i / kCap < V) {
-        pidx_out[row0 * kCap + i] = -1;
-        pw_out[row0 * kCap + i] = __float2bfloat16_rn(0.f);
-      }
-    }
-    return;
-  }
-  load_pillars(pill, ps, b, v0, V, C);
   const __nv_bfloat16* selb = sel + (size_t)b * N * C;
   const __nv_bfloat16* valb = val + (size_t)b * N * C;
   const float* nb = neg + (size_t)b * N;
+  const AttendOut o{selb, valb, nb, out, mx_out, den_out, cnt_out, pidx_out, pw_out, N, C,
+                    shared != 0};
 
-  // a row outside the mask selects nothing (its threshold is +inf)
-  float thr[kRowsPerWarp];
-  bool live[kRowsPerWarp];
-  int cnt[kRowsPerWarp];
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int v = v0 + warp * kRowsPerWarp + i;
-    live[i] = row_valid(row_mask, b, v, V);
-    thr[i] = live[i] ? th[(size_t)b * V + v] : CUDART_INF_F;
-    cnt[i] = 0;
+  if (!tile_has_valid(row_mask, b, v0, V)) {
+    empty_tile(o, row0, min(kRows, V - v0), kThreads);
+    return;
   }
-  const unsigned below = (1u << lane) - 1u;
-
-  // the dense sweep: scores, selection, the rows' lists in index order
-  const int n_chunks = (N + kChunk - 1) / kChunk;
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    __syncthreads();
-    load_chunk(selb, ts, ch * kChunk, N, C);
-    __syncthreads();
-    double acc[kRowsPerWarp][kColsPerLane];
-    tile_dot(ps, ts, C, acc);
-#pragma unroll
-    for (int j = 0; j < kColsPerLane; ++j) {
-      const int n = ch * kChunk + lane + 32 * j;
-      const float ng = n < N ? nb[n] : kNeg;
-      const bool ok = n < N && ng == 0.f;
-#pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        const float s = __fadd_rn(__double2float_rn(acc[i][j]), ng);
-        const bool pick = ok && s >= thr[i];
-        const unsigned ball = __ballot_sync(kFull, pick);
-        if (pick) {
-          const int pos = cnt[i] + __popc(ball & below);
-          if (pos < kCap) {
-            const int r = warp * kRowsPerWarp + i;
-            lidx[r * kCap + pos] = n;
-            lval[r * kCap + pos] = s;
-          }
-        }
-        cnt[i] += __popc(ball);
-      }
-    }
-  }
-  __syncwarp();
-
-  // each warp finishes its own rows
-#pragma unroll
+  load_pillars(pill, ps, b, v0, V, C);
+  __syncthreads();
   for (int i = 0; i < kRowsPerWarp; ++i) {
     const int r = warp * kRowsPerWarp + i;
     const int v = v0 + r;
     if (v >= V) continue;
-    float* out_row = out + (row0 + r) * C;
-    float m = 0.f, d = 0.f;
-    int listed = 0;             // pairs written out: the count of a list row
-    if (!live[i]) {
-      if (lane < C) out_row[lane] = 0.f;
-      if (lane + 32 < C) out_row[lane + 32] = 0.f;
-    } else if (cnt[i] <= kCap) {
-      attend_from_list(ps, r, lidx + r * kCap, lval + r * kCap, cnt[i], valb, shared != 0,
-                       C, lane, out_row, m, d);
-      listed = cnt[i];
-    } else {
-      attend_dense(ps, r, selb, valb, nb, thr[i], N, C, shared != 0, lane, out_row, m, d);
+    const bool live = row_valid(row_mask, b, v, V);
+    const int count = live ? sel_cnt[row0 + r] : 0;
+    int* li = lidx + r * kCap;
+    float* lv = lval + r * kCap;
+    if (live && count <= kCap) {
+      // the logits of the listed points (the shared call's: its scores)
+      for (int e = lane; e < count; e += 32) {
+        const int n = sel_idx[(row0 + r) * kCap + e];
+        li[e] = n;
+        lv[e] = shared ? __fadd_rn(dot_row(ps, kRows, r, selb + (size_t)n * C, C), nb[n])
+                       : dot_row(ps, kRows, r, valb + (size_t)n * C, C);
+      }
     }
-    // the row's pairs; lane e % 32 wrote lval[e] (the bf16 weight) itself
-    for (int e = lane; e < kCap; e += 32) {
-      const bool in = e < listed;
-      pidx_out[(row0 + r) * kCap + e] = in ? lidx[r * kCap + e] : -1;
-      pw_out[(row0 + r) * kCap + e] = __float2bfloat16_rn(in ? lval[r * kCap + e] : 0.f);
-    }
-    if (lane == 0) {
-      mx_out[row0 + r] = m;
-      den_out[row0 + r] = d;
-      cnt_out[row0 + r] = live[i] ? cnt[i] : 0;
-    }
+    __syncwarp();
+    finish_row(o, ps, kRows, r, row0 + r, live, live ? th[row0 + r] : 0.f, count, li, lv,
+               true, lane);
   }
 }
 
@@ -930,7 +1127,10 @@ long_reduce_kernel(const int* __restrict__ offsets, const int* __restrict__ sort
 }
 
 constexpr size_t kThreshSmem = sizeof(double) * (kMaxC * kRows + kMaxC * kChunk);
-constexpr size_t kFwdSmem = kThreshSmem + (sizeof(int) + sizeof(float)) * kRows * kCap;
+constexpr size_t kFwdSmem = 2 * kAChunkElems * 2 + (sizeof(int) + sizeof(float)) * kARows * kCap
+                            + sizeof(int) * kARows * 5;
+constexpr size_t kPairsSmem = sizeof(double) * kMaxC * kRows
+                              + (sizeof(int) + sizeof(float)) * kRows * kCap;
 
 }  // namespace
 
@@ -954,7 +1154,7 @@ extern "C" int hvpr_bucket_threshold(const void* pill, const void* tab, const fl
 // pillars (B, V, C), sel and val (B, N, C) bf16 (one pointer when shared);
 // neg (B, N), th (B, V) f32; row_mask (B, V) bool; out (B, V, C),
 // mx, den (B, V) f32 and cnt (B, V) int32 out (0 outside the mask); the
-// pairs pidx (B, V, kCap) int32 and pw (B, V, kCap) bf16 out.
+// pairs pidx (B, V, kCap) int32 and pw (B, V, kCap) bf16 out. C % 8 == 0.
 extern "C" int hvpr_masked_attend_fwd(const void* pill, const void* sel, const void* val,
                                       const float* neg, const float* th, const void* row_mask,
                                       float* out, float* mx, float* den, int* cnt, int* pidx,
@@ -964,11 +1164,33 @@ extern "C" int hvpr_masked_attend_fwd(const void* pill, const void* sel, const v
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)kFwdSmem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((V + kRows - 1) / kRows, B);
-  masked_attend_fwd_kernel<<<grid, kThreads, kFwdSmem, (cudaStream_t)stream>>>(
+  const dim3 grid((V + kARows - 1) / kARows, B);
+  masked_attend_fwd_kernel<<<grid, kAThreads, kFwdSmem, (cudaStream_t)stream>>>(
       static_cast<const __nv_bfloat16*>(pill), static_cast<const __nv_bfloat16*>(sel),
       static_cast<const __nv_bfloat16*>(val), neg, th, static_cast<const bool*>(row_mask),
       out, mx, den, cnt, pidx, static_cast<__nv_bfloat16*>(pw), V, N, C, shared);
+  return (int)cudaGetLastError();
+}
+
+// The same outputs from the selection (sel_cnt (B, V), sel_idx (B, V, kCap)
+// int32: the cnt and pidx of an earlier call over the same pillars, sel,
+// neg, th and row_mask) without the dense sweep.
+extern "C" int hvpr_masked_attend_pairs(const void* pill, const void* sel, const void* val,
+                                        const float* neg, const float* th,
+                                        const void* row_mask, const int* sel_cnt,
+                                        const int* sel_idx, float* out, float* mx,
+                                        float* den, int* cnt, int* pidx, void* pw, int B,
+                                        int V, int N, int C, int shared, void* stream) {
+  cudaError_t e = cudaFuncSetAttribute(masked_attend_pairs_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)kPairsSmem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((V + kRows - 1) / kRows, B);
+  masked_attend_pairs_kernel<<<grid, kThreads, kPairsSmem, (cudaStream_t)stream>>>(
+      static_cast<const __nv_bfloat16*>(pill), static_cast<const __nv_bfloat16*>(sel),
+      static_cast<const __nv_bfloat16*>(val), neg, th, static_cast<const bool*>(row_mask),
+      sel_cnt, sel_idx, out, mx, den, cnt, pidx, static_cast<__nv_bfloat16*>(pw), V, N, C,
+      shared);
   return (int)cudaGetLastError();
 }
 

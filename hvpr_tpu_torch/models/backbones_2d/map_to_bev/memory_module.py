@@ -65,18 +65,21 @@ class MemoryUnitAgg(nn.Module):
         return {'output': self._aggregate(cand.reshape(b, v, k, c), pillars,
                                           topk_valid)}
 
-    def train_forward_fused(self, pillars, points, neg, thresh, vmask):
+    def train_forward_fused(self, pillars, points, neg, thresh, vmask, selection=None):
         """(B, V, C) pillars, (B, N, C) point features, (B, N) f32 ``neg``
         (0 valid, -1e30 padded), (B, V) thresholds from
         :func:`ops.topk_attend.bucket_threshold` over (pillars, points) ->
         dict(output=(B, V, C)). Each point is reconstructed once; a pillar
         aggregates the reconstructions of the points its threshold selects,
         with logits ``pillar . reconstruction``. Rows outside ``vmask`` output
-        0."""
+        0. ``selection``: the selection of a
+        :func:`ops.topk_attend.masked_attend` call over the same pillars,
+        points, neg, thresholds and vmask, reused instead of recomputed."""
         b, n, c = points.shape
         recon = memory_recon(points.reshape(-1, c), self.weight,
                              shrink_thres=self.shrink_thres).reshape(b, n, c)
-        return {'output': masked_attend(pillars, points, recon, neg, thresh, vmask)}
+        return {'output': masked_attend(pillars, points, recon, neg, thresh, vmask,
+                                        selection=selection)}
 
     def eval_forward(self, pillars, k, mode='fused', vmask=None):
         """(B, V, C) pillars -> dict(output=(B, V, C)); ``vmask`` (B, V)

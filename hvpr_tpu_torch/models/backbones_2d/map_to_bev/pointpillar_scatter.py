@@ -128,10 +128,13 @@ class PointPillarScatterAggMemory1Scale(nn.Module):
             neg = torch.where(pmask, 0.0, -1e30).float()
             row_mask = vmask.contiguous()
             thresh = bucket_threshold(pillars, points, neg, self.k, row_mask)
-            # shared: one tensor as both tables, the scores are the logits
-            point_agg = masked_attend(pillars, points, points, neg, thresh, row_mask)
+            # shared: one tensor as both tables, the scores are the logits;
+            # the memory call selects the same points, so it reads this
+            # call's selection instead of making the score sweep again
+            point_agg, selection = masked_attend(pillars, points, points, neg, thresh,
+                                                 row_mask, return_selection=True)
             mem_agg = self.memory.train_forward_fused(
-                pillars, points, neg, thresh, row_mask)['output']
+                pillars, points, neg, thresh, row_mask, selection=selection)['output']
         else:
             point_agg, topk_idx, topk_valid = attentive_point_pooling(
                 points, pmask, pillars, self.k)

@@ -3,9 +3,10 @@
 Each source ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, loaded with ``ctypes`` (no
 PyTorch headers, so a build takes seconds). Libraries land in ``build/`` at
-the repository root, named by a hash of their source, and are built at first
-use: all missing ones at once, one ``nvcc`` process per source, started
-together. Nothing here runs at import time.
+the repository root, named by a hash of their source and of the shared
+headers ``csrc/*.cuh``, and are built at first use: all missing ones at
+once, one ``nvcc`` process per source, started together. Nothing here runs
+at import time.
 
 Every wrapper in ``ops/`` calls :func:`launched` right after its kernel
 returns: it raises on a nonzero ``cudaGetLastError()`` and otherwise adds one
@@ -29,11 +30,12 @@ BUILD_DIR = _PKG.parent / 'build'
 SOURCES = ('segment_sweep', 'memory_lookup', 'bev_canvas', 'ball_query',
            'fps_chunks', 'memory_recon', 'topk_attend', 'three_nn')
 # one launch count per kernel; memory_recon.cu holds K6 and K7, topk_attend.cu
-# K8-K10
+# K8-K10, and K9 two kernels: the dense sweep (masked_attend_fwd) and the
+# pair pass of a call handed another call's selection (masked_attend_pairs)
 KERNELS = ('segment_sweep', 'memory_lookup', 'bev_canvas', 'ball_query',
            'fps_chunks', 'memory_recon_fwd', 'memory_recon_bwd',
-           'bucket_threshold', 'masked_attend_fwd', 'masked_attend_bwd',
-           'three_nn_bucket')
+           'bucket_threshold', 'masked_attend_fwd', 'masked_attend_pairs',
+           'masked_attend_bwd', 'three_nn_bucket')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -51,7 +53,10 @@ def _nvcc():
 
 
 def _lib_path(name):
-    digest = hashlib.sha256((CSRC / f'{name}.cu').read_bytes()
+    # the headers of csrc/ too: a source that includes an edited header
+    # must not load a library built from the old one
+    headers = b''.join(p.read_bytes() for p in sorted(CSRC.glob('*.cuh')))
+    digest = hashlib.sha256((CSRC / f'{name}.cu').read_bytes() + headers
                             + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f'libhvpr_{name}_{digest}.so'
 

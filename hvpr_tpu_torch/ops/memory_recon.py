@@ -29,9 +29,12 @@ port differs by f32 rounding, amplified where a bf16 rounding of n or dl
 flips.
 
 On a CUDA tensor :func:`recon_forward` launches ``csrc/memory_recon.cu``'s
-forward kernel (K6) and :func:`recon_backward` its backward kernels (K7:
-the logits and dn, the row chain, dx and dW, the products on the FP64
-tensor cores); on a CPU tensor each runs its plain version.
+forward kernel (K6: the logits on the FP64 tensor cores, the row chain, and
+``n W`` over each row's nonzero weights, or on the FP64 tensor cores where
+a row has more than 512 of them or ``lam = 0``) and :func:`recon_backward`
+its backward kernels (K7: the logits and dn, the row chain, dx and dW, the
+products on the FP64 tensor cores); on a CPU tensor each runs its plain
+version.
 """
 
 import ctypes
@@ -45,7 +48,7 @@ _DELTA = 1e-12     # L1-renorm floor
 _PLAIN_ROWS = 8192     # rows per chunk of the plain versions (bounds memory)
 _MAX_C = 64
 _SMEM_LIMIT = 232448   # bytes of shared memory a block can have on sm_90
-_KERNEL_SMEM_FIXED = 64 * 65 * 8 + 16 * 64 * 8   # W chunk + row tiles (f64)
+_BWD_MAX_M = 3072      # memory rows K7's row chain holds (12 a thread, 256 threads)
 
 
 def _bf(t):
@@ -106,29 +109,44 @@ def _check(name, x, w, *more):
         raise ValueError(f'{name}: x {tuple(x.shape)}, W {tuple(w.shape)}')
     if not 1 <= c <= _MAX_C:
         raise ValueError(f'{name}: C={c} outside [1, {_MAX_C}]')
-    if 64 * m + _KERNEL_SMEM_FIXED > _SMEM_LIMIT:
-        raise ValueError(f'{name}: M={m} rows do not fit a block\'s shared memory')
+    if m < 1:
+        raise ValueError(f'{name}: the memory has no row')
     return r, m, c
+
+
+def _pad8(t):
+    """Zero channels up to a multiple of 8 (K6 stages 16-byte rows); a zero
+    channel adds exact zeros to every product."""
+    c = t.shape[1]
+    return t if c % 8 == 0 else torch.nn.functional.pad(t, (0, 8 - c % 8))
 
 
 def recon_forward(x, w, lam):
     """(R, C) f32 rows, (M, C) f32 memory -> (R, C) f32 reconstructions."""
     if not _kernels.use_kernel(x):
         return recon_forward_plain(x, w, lam)
-    xb = x.to(torch.bfloat16).contiguous()
-    wb = w.to(torch.bfloat16).contiguous()
-    r, m, c = _check('memory_recon', xb, wb)
-    y = torch.empty(r, c, dtype=torch.float32, device=x.device)
+    xb = _pad8(x.to(torch.bfloat16)).contiguous()
+    wb = _pad8(w.to(torch.bfloat16)).contiguous()
+    r, m, cp = _check('memory_recon', xb, wb)
+    c = x.shape[1]
+    lib = _kernels.library('memory_recon')
+    lib.hvpr_memory_recon_fwd_smem.argtypes = [ctypes.c_int]
+    lib.hvpr_memory_recon_fwd_smem.restype = ctypes.c_longlong
+    smem = lib.hvpr_memory_recon_fwd_smem(m)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f'memory_recon: M={m} needs {smem} B of shared memory per '
+                         f'block, above {_SMEM_LIMIT}')
+    y = torch.empty(r, cp, dtype=torch.float32, device=x.device)
     if r == 0:
-        return y
-    fn = _kernels.library('memory_recon').hvpr_memory_recon_fwd
+        return y[:, :c]
+    fn = lib.hvpr_memory_recon_fwd
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    err = fn(_kernels.ptr(xb), _kernels.ptr(wb), _kernels.ptr(y), r, m, c,
+    err = fn(_kernels.ptr(xb), _kernels.ptr(wb), _kernels.ptr(y), r, m, cp,
              float(lam), _kernels.stream_handle(x))
     _kernels.launched('memory_recon_fwd', err)
-    return y
+    return y if cp == c else y[:, :c].contiguous()
 
 
 def recon_backward(x, w, dy, lam):
@@ -139,6 +157,9 @@ def recon_backward(x, w, dy, lam):
     wb = w.to(torch.bfloat16).contiguous()
     dyb = dy.to(torch.bfloat16).contiguous()
     r, m, c = _check('memory_recon backward', xb, wb, dyb)
+    if m > _BWD_MAX_M:
+        raise ValueError(f'memory_recon backward: M={m} above the {_BWD_MAX_M} '
+                         f'memory rows its row chain holds')
     dev = x.device
     dx = torch.empty(r, c, dtype=torch.float32, device=dev)
     dw = torch.empty(m, c, dtype=torch.float32, device=dev)

@@ -24,7 +24,10 @@ the JAX package does.
 
 FPS rules (``_fps_kernel``): each chunk starts at its first valid row, or at
 its last row if none is valid; invalid rows score -BIG; each step takes the
-row of largest running minimum distance, ties to the lowest row.
+row of largest running minimum distance, ties to the lowest row. K5 holds a
+set of up to 8192 rows in shared memory; a longer set (exact FPS over a
+whole scan) takes its long path, which holds 16,384 rows on chip and
+streams the rest from device memory, so any set length runs.
 
 Both are selection machinery: their outputs are integer indices and carry no
 gradient.
@@ -39,7 +42,8 @@ from . import _kernels
 NUM_BUCKETS = 128
 _BIG = 1e30
 _INF = 1e10              # ops/pointnet2.INF, the masked 3-NN distance cap
-_FPS_MAX_ROWS = 8192     # rows of one chunk the FPS kernel holds in shared memory
+_FPS_MAX_ROWS = 8192     # rows of a set K5's shared-memory path holds; longer
+                         # sets take its long path
 
 
 def _round_up(x, m):
@@ -231,16 +235,27 @@ def fps_chunks(pts, valid, nsamp):
     if pts.shape[2] != 3 or valid.shape != (r, l) or valid.device != pts.device:
         raise ValueError(f'fps_chunks: pts {tuple(pts.shape)}, valid '
                          f'{tuple(valid.shape)}')
-    if not 1 <= l <= _FPS_MAX_ROWS:
-        raise ValueError(f'fps_chunks: {l} rows per set, the kernel holds '
-                         f'at most {_FPS_MAX_ROWS}')
+    if l < 1:
+        raise ValueError('fps_chunks: a set needs at least one row')
     out = torch.empty(r, nsamp, dtype=torch.int32, device=pts.device)
     if r * nsamp == 0:
         return out
-    fn = _kernels.library('fps_chunks').hvpr_fps_chunks
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(_kernels.ptr(pts), _kernels.ptr(valid), _kernels.ptr(out),
-             r, l, nsamp, _kernels.stream_handle(pts))
+    lib = _kernels.library('fps_chunks')
+    if l <= _FPS_MAX_ROWS:
+        fn = lib.hvpr_fps_chunks
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err = fn(_kernels.ptr(pts), _kernels.ptr(valid), _kernels.ptr(out),
+                 r, l, nsamp, _kernels.stream_handle(pts))
+    else:
+        lib.hvpr_fps_long_head.restype = ctypes.c_int
+        # the running minima of the rows past the on-chip head
+        tail = torch.empty(r, max(1, l - lib.hvpr_fps_long_head()),
+                           dtype=torch.float32, device=pts.device)
+        fn = lib.hvpr_fps_long
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err = fn(_kernels.ptr(pts), _kernels.ptr(valid), _kernels.ptr(tail),
+                 _kernels.ptr(out), r, l, nsamp, _kernels.stream_handle(pts))
     _kernels.launched('fps_chunks', err)
     return out

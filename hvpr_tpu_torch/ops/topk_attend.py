@@ -25,6 +25,14 @@ for padding):
   ``pillars`` and ``sel_table`` get none (the JAX package's custom VJP
   returns zeros for them).
 
+A call may be handed the selection of an earlier call over the same
+pillars, selection table, ``neg``, threshold and row mask (its count and
+``pair_idx``): the fused train step's second call, whose value table (the
+memory reconstructions) is all that differs from the first. It then selects
+the points listed there instead of recomputing the (V, N) scores, and
+recomputes only rows that listed none because they overflow (below); its
+outputs are the same bits.
+
 The forward also returns each row's selected pairs, which the backward
 reduces instead of recomputing the (V, N) scores: ``pair_idx`` (B, V, 128)
 int32 holds the row's selected points in index order and ``pair_w`` (B, V,
@@ -59,7 +67,8 @@ canvas scatter drops them and the memory loss multiplies by the mask). A
 row inside the mask may still select anything from 0 to N points.
 
 On a CUDA tensor each wrapper launches its kernel from
-``csrc/topk_attend.cu``; on a CPU tensor it runs the plain version.
+``csrc/topk_attend.cu`` (the forward: the dense sweep, or the pair pass when
+it is handed a selection); on a CPU tensor it runs the plain version.
 """
 
 import ctypes
@@ -159,11 +168,22 @@ def _pairs(sel, w):
     return idx, wts
 
 
+def _listed(pair_idx, n):
+    """(rows, N) bool: the points a chunk's pair slots list."""
+    sel = torch.zeros(pair_idx.shape[0], n + 1, dtype=torch.bool, device=pair_idx.device)
+    sel.scatter_(1, torch.where(pair_idx >= 0, pair_idx, n).long(), True)
+    return sel[:, :n]
+
+
 def masked_attend_fwd_plain(pillars, sel_table, val_table, neg, thresh, shared,
-                            row_mask):
+                            row_mask, selection=None):
     """(out (B, V, C), mx (B, V), den (B, V), selected count (B, V) int32,
-    pair_idx (B, V, 128) int32, pair_w (B, V, 128) bf16)."""
+    pair_idx (B, V, 128) int32, pair_w (B, V, 128) bf16). ``selection``:
+    an earlier call's (count, pair_idx) over the same pillars, sel_table,
+    neg, thresh and row_mask, whose listed points are selected again; rows
+    that overflowed recompute their selection."""
     b, v, c = pillars.shape
+    n = sel_table.shape[1]
     dev = pillars.device
     out = torch.zeros(b, v, c, dtype=torch.float32, device=dev)
     mx = torch.zeros(b, v, dtype=torch.float32, device=dev)
@@ -172,7 +192,16 @@ def masked_attend_fwd_plain(pillars, sel_table, val_table, neg, thresh, shared,
     pair_idx = torch.full((b, v, PAIR_CAP), -1, dtype=torch.int32, device=dev)
     pair_w = torch.zeros(b, v, PAIR_CAP, dtype=torch.bfloat16, device=dev)
     for bi, rows in _row_chunks(row_mask):
-        p, _, s, sel = _scan_rows(pillars, sel_table, neg, thresh, bi, rows)
+        if selection is None or shared:
+            # the shared call's logits are its scores
+            p, _, s, sel = _scan_rows(pillars, sel_table, neg, thresh, bi, rows)
+        else:
+            p, s = _bf(pillars[bi, rows]), None
+        if selection is not None:
+            over = selection[0][bi, rows] > PAIR_CAP
+            sel = _listed(selection[1][bi, rows], n)
+            if bool(over.any()):
+                sel[over] = _scan_rows(pillars, sel_table, neg, thresh, bi, rows[over])[3]
         val = _bf(val_table[bi])
         l = s if shared else (p @ val.t()).float()
         m = torch.where(sel, l, _NEG).amax(dim=-1)
@@ -296,19 +325,30 @@ def bucket_threshold(pillars, table, neg, k, row_mask):
 
 
 def masked_attend_fwd(pillars, sel_table, val_table, neg, thresh, shared,
-                      row_mask):
+                      row_mask, selection=None):
     """Forward of :func:`masked_attend` (kernel K9): (out (B, V, C), mx, den,
     selected count, pair_idx, pair_w) with mx, den and count (B, V) and the
-    pairs (B, V, 128) (see the module docstring)."""
+    pairs (B, V, 128) (see the module docstring). ``selection``: the (count,
+    pair_idx) of an earlier call over the same pillars, sel_table, neg,
+    thresh and row_mask; K9's pair pass then replaces its dense sweep."""
     if not _kernels.use_kernel(pillars):
         return masked_attend_fwd_plain(pillars, sel_table, val_table, neg,
-                                       thresh, shared, row_mask)
+                                       thresh, shared, row_mask, selection)
     pb, sb = _bf16(pillars), _bf16(sel_table)
     vb = sb if shared else _bf16(val_table)
     ng, th = neg.float().contiguous(), thresh.detach().float().contiguous()
     b, v, n, c = _check('masked_attend', pb, (sb, vb), ng,
                         ((th, (pillars.shape[0], pillars.shape[1])),), row_mask)
     dev = pillars.device
+    if selection is not None:
+        sel_cnt, sel_idx = (t.contiguous() for t in selection)
+        for name, t, shape in (('count', sel_cnt, (b, v)),
+                               ('pair_idx', sel_idx, (b, v, PAIR_CAP))):
+            _kernels.check_cuda_input(f'masked_attend selection {name}', t, torch.int32,
+                                      len(shape))
+            if t.shape != shape or t.device != dev:
+                raise ValueError(f'masked_attend: selection {name} {tuple(t.shape)}, '
+                                 f'expected {shape} on the pillars device')
     out = torch.empty(b, v, c, dtype=torch.float32, device=dev)
     mx = torch.empty(b, v, dtype=torch.float32, device=dev)
     den = torch.empty(b, v, dtype=torch.float32, device=dev)
@@ -317,15 +357,20 @@ def masked_attend_fwd(pillars, sel_table, val_table, neg, thresh, shared,
     pair_w = torch.empty(b, v, PAIR_CAP, dtype=torch.bfloat16, device=dev)
     if b * v == 0:
         return out, mx, den, cnt, pair_idx, pair_w
-    fn = _kernels.library('topk_attend').hvpr_masked_attend_fwd
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib = _kernels.library('topk_attend')
+    outs = [_kernels.ptr(t) for t in (out, mx, den, cnt, pair_idx, pair_w)]
+    ins = [_kernels.ptr(t) for t in (pb, sb, vb, ng, th, row_mask)]
+    if selection is None:
+        fn, name, extra = lib.hvpr_masked_attend_fwd, 'masked_attend_fwd', []
+    else:
+        fn, name = lib.hvpr_masked_attend_pairs, 'masked_attend_pairs'
+        extra = [_kernels.ptr(sel_cnt), _kernels.ptr(sel_idx)]
+    fn.argtypes = ([ctypes.c_void_p] * (12 + len(extra)) + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    err = fn(_kernels.ptr(pb), _kernels.ptr(sb), _kernels.ptr(vb),
-             _kernels.ptr(ng), _kernels.ptr(th), _kernels.ptr(row_mask),
-             _kernels.ptr(out), _kernels.ptr(mx), _kernels.ptr(den),
-             _kernels.ptr(cnt), _kernels.ptr(pair_idx), _kernels.ptr(pair_w),
-             b, v, n, c, int(bool(shared)), _kernels.stream_handle(pillars))
-    _kernels.launched('masked_attend_fwd', err)
+    err = fn(*ins, *extra, *outs, b, v, n, c, int(bool(shared)),
+             _kernels.stream_handle(pillars))
+    _kernels.launched(name, err)
     return out, mx, den, cnt, pair_idx, pair_w
 
 
@@ -380,16 +425,24 @@ def masked_attend_bwd(pillars, sel_table, val_table, neg, thresh, mx, den, dout,
 class _MaskedAttend(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, pillars, sel_table, val_table, neg, thresh, row_mask, shared):
+    def forward(ctx, pillars, sel_table, val_table, neg, thresh, row_mask, shared,
+                sel_cnt, sel_idx):
+        selection = None if sel_cnt is None else (sel_cnt, sel_idx)
         out, mx, den, cnt, pair_idx, pair_w = masked_attend_fwd(
-            pillars, sel_table, val_table, neg, thresh, shared, row_mask)
+            pillars, sel_table, val_table, neg, thresh, shared, row_mask, selection)
         ctx.save_for_backward(pillars, sel_table, val_table, neg, thresh,
                               row_mask, mx, den, cnt, pair_idx, pair_w)
         ctx.shared = shared
-        return out
+        ctx.mark_non_differentiable(cnt, pair_idx)
+        # the selection outputs carry no gradient: backward gets None for
+        # them (and for out when nothing used it), not tensors of zeros
+        ctx.set_materialize_grads(False)
+        return out, cnt, pair_idx
 
     @staticmethod
-    def backward(ctx, dout):
+    def backward(ctx, dout, _cnt, _pair_idx):
+        if dout is None:
+            return (None,) * 9
         (pillars, sel_table, val_table, neg, thresh, row_mask, mx, den, cnt,
          pair_idx, pair_w) = ctx.saved_tensors
         dval = masked_attend_bwd(pillars, sel_table, val_table, neg, thresh, mx,
@@ -397,10 +450,11 @@ class _MaskedAttend(torch.autograd.Function):
                                  cnt)
         # the gradient goes to the val slot only: when shared the same
         # tensor fills both table slots, and a gradient in both would double
-        return None, None, dval.to(val_table.dtype), None, None, None, None
+        return None, None, dval.to(val_table.dtype), None, None, None, None, None, None
 
 
-def masked_attend(pillars, sel_table, val_table, neg, thresh, row_mask):
+def masked_attend(pillars, sel_table, val_table, neg, thresh, row_mask,
+                  selection=None, return_selection=False):
     """Threshold-selected softmax aggregation of value rows per pillar.
 
     Args:
@@ -411,9 +465,19 @@ def masked_attend(pillars, sel_table, val_table, neg, thresh, row_mask):
         thresh: (B, V) f32 from :func:`bucket_threshold` over the same
             sel_table.
         row_mask: (B, V) bool; rows outside it output 0.
+        selection: optional, what ``return_selection`` returned from a call
+            over the same pillars, sel_table, neg, thresh and row_mask
+            (another val_table): its selected points are reused, not
+            recomputed.
+        return_selection: also return this call's selection.
     Returns:
-        (B, V, C) f32, differentiable in ``val_table`` only. A row whose
-        selected set is empty aggregates to exactly 0.
+        (B, V, C) f32, differentiable in ``val_table`` only (and, with
+        ``return_selection``, the selection: (count (B, V), pair_idx (B, V,
+        128)) int32). A row whose selected set is empty aggregates to
+        exactly 0.
     """
-    return _MaskedAttend.apply(pillars, sel_table, val_table, neg, thresh,
-                               row_mask, sel_table is val_table)
+    sel_cnt, sel_idx = (None, None) if selection is None else selection
+    out, cnt, pair_idx = _MaskedAttend.apply(pillars, sel_table, val_table, neg, thresh,
+                                             row_mask, sel_table is val_table, sel_cnt,
+                                             sel_idx)
+    return (out, (cnt, pair_idx)) if return_selection else out

@@ -123,6 +123,56 @@ def test_pairs_backward_equals_dense_oracle(shared, masked):
         tp, ts, tv, tn, th, mx, den, _t(dout), shared, tm, pidx, pw, no_ovf), got)
 
 
+@pytest.mark.parametrize('n', [100, 300])        # with an overflow row at 300
+@pytest.mark.parametrize('masked', [True, False])
+def test_split_call_given_the_shared_selection(n, masked):
+    """The fused step's second (split) call, handed the first (shared)
+    call's count and pairs, returns the same bits as when it recomputes the
+    selection: out, mx, den, count and pairs. Covers the zero row (it
+    overflows at n = 300 and recomputes), masked rows, a whole masked tile
+    of 32 rows, and a scan with no valid point."""
+    b, v, c, k = 3, 80, 16, 4
+    pillars, points, vals, neg, mask, _ = _inputs(n + masked, b, v, n, c)
+    if masked:
+        mask[:, 32:64] = False                     # a whole tile out
+    else:
+        mask[:] = True
+    tp, ts, tv, tn, tm = _t(pillars), _t(points), _t(vals), _t(neg), _t(mask)
+    th = port_ta.bucket_threshold(tp, ts, tn, k, tm)
+    first = port_ta.masked_attend_fwd(tp, ts, ts, tn, th, True, tm)
+    selection = (first[3], first[4])
+    assert (int(first[3][0, 1]) > CAP) == (n > CAP + 37)
+    assert (first[3][2] == 0).all()                # scan 2: no valid point
+    want = port_ta.masked_attend_fwd(tp, ts, tv, tn, th, False, tm)
+    got = port_ta.masked_attend_fwd(tp, ts, tv, tn, th, False, tm, selection)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    # the shared call given its own selection: the same bits too
+    for g, w in zip(port_ta.masked_attend_fwd(tp, ts, ts, tn, th, True, tm, selection),
+                    first):
+        assert torch.equal(g, w)
+
+
+def test_masked_attend_returns_and_reuses_its_selection():
+    """Through autograd: the selection a shared call returns, handed to the
+    split call, leaves its output and its gradient (to the value table
+    only) as they are without it."""
+    b, v, n, c, k = 3, 40, 300, 16, 4
+    pillars, points, vals, neg, mask, dout = _inputs(3, b, v, n, c)
+    tp, ts, tn, tm = _t(pillars), _t(points), _t(neg), _t(mask)
+    th = port_ta.bucket_threshold(tp, ts, tn, k, tm)
+    out1, selection = port_ta.masked_attend(tp, ts, ts, tn, th, tm, return_selection=True)
+    assert torch.equal(out1, port_ta.masked_attend(tp, ts, ts, tn, th, tm))
+    assert not any(t.requires_grad for t in selection)
+    grads = []
+    for sel in (None, selection):
+        val = _t(vals).requires_grad_()
+        out = port_ta.masked_attend(tp, ts, val, tn, th, tm, selection=sel)
+        (out * _t(dout)).sum().backward()
+        grads.append((out.detach(), val.grad))
+    assert torch.equal(grads[0][0], grads[1][0]) and torch.equal(grads[0][1], grads[1][1])
+
+
 def _jax_grad(pillars, points, vals, neg, dout, k, shared):
     """jax.grad of sum(masked_attend * dout) wrt the value table (with the
     selection table when shared), the JAX package's XLA twin."""

@@ -12,8 +12,10 @@ reconstruction) and K9/K10 (the masked attention) also accumulate exact
 products in f64, but a sum of f32 terms in f64 may round its last bit by
 order: their float outputs are held to 1e-5 of the output's largest
 magnitude; K8's thresholds and K9's selected counts, row maxima and pairs
-(indices and bf16 weights) are exact. K10 reduces K9's pairs; it is also held
-to the dense plain backward, which recomputes every row's weights.
+(indices and bf16 weights) are exact, in K9's dense sweep and in its pair
+pass (a call handed another call's selection). K10 reduces K9's pairs; it
+is also held to the dense plain backward, which recomputes every row's
+weights. K5's long path (sets above 8192 rows) is exact too.
 """
 
 import numpy as np
@@ -167,6 +169,40 @@ def test_fps_chunks_kernel(cuda, r, l, nsamp):
     assert _kernels.launch_counts()['fps_chunks'] == before + 1
 
 
+@pytest.mark.parametrize('r,l,nsamp', [(2, 16384, 512), (1, 20000, 300), (3, 8193, 64)])
+def test_fps_chunks_long_sets(cuda, r, l, nsamp):
+    """Sets longer than the shared-memory path holds: K5's long path (16,384
+    rows on chip, the rest streamed from device memory)."""
+    rng = np.random.default_rng(l)
+    pts = torch.from_numpy(rng.normal(size=(r, l, 3)).astype(np.float32))
+    pts[:, 100:120] = pts[:, 50:51]                          # exact ties
+    pts[:, -5:] = pts[:, 3:4]                                # ties across head and tail
+    valid = torch.from_numpy(rng.uniform(size=(r, l)) > 0.2)
+    valid[0, :9] = False                                     # starts past row 0
+    if r > 2:
+        valid[2] = False                                     # a set with no valid row
+    before = _kernels.launch_counts()['fps_chunks']
+    got, want = _both(fps_chunks, pts.to(cuda), valid.to(cuda), nsamp)
+    assert torch.equal(got, want)
+    assert int(got[0, 0]) == int(valid[0].int().argmax())
+    if r > 2:
+        assert int(got[2, 0]) == l - 1
+    assert _kernels.launch_counts()['fps_chunks'] == before + 1
+
+
+def test_exact_furthest_point_sample_on_a_scan(cuda):
+    """furthest_point_sample(num_chunks=1) over whole 16,384-point scans at
+    hvpr.yaml's SA1 npoint: one set a scan, on the card."""
+    from hvpr_tpu_torch.ops.pointnet2 import furthest_point_sample
+    rng = np.random.default_rng(4)
+    xyz = _scan(rng, 4, 16384).to(cuda)
+    mask = torch.ones(4, 16384, dtype=torch.bool, device=cuda)
+    mask[1, -2000:] = False
+    got, want = _both(furthest_point_sample, xyz, mask, 4096, num_chunks=1)
+    assert torch.equal(got, want) and got.shape == (4, 4096)
+    assert bool(torch.gather(mask, 1, got).all())
+
+
 @pytest.mark.parametrize('b,n,s', [(4, 4096, 1024), (4, 16384, 4096),   # hvpr.yaml FP
                                    (2, 300, 700), (2, 100, 50)])
 def test_three_nn_kernel(cuda, b, n, s):
@@ -201,7 +237,9 @@ def _close(got, want):
 
 @pytest.mark.parametrize('r,m,c,lam', [(1000, 64, 32, 0.0), (1003, 300, 64, 0.0025),
                                        (517, 2000, 30, 0.0025),   # ragged tiles, C < 64
-                                       (65536, 2000, 64, 0.0025)])
+                                       (65536, 2000, 64, 0.0025),
+                                       # lam = 0: K6's dense (DMMA) output path
+                                       (517, 2000, 30, 0.0), (65536, 2000, 64, 0.0)])
 def test_memory_recon_kernels(cuda, r, m, c, lam):
     rng = np.random.default_rng(r)
     x = torch.from_numpy(rng.normal(0, 1, (r, c)).astype(np.float32)).to(cuda)
@@ -221,6 +259,22 @@ def test_memory_recon_kernels(cuda, r, m, c, lam):
     assert after['memory_recon_bwd'] == before['memory_recon_bwd'] + 1
     _close(xr.grad, wdx)
     _close(wr.grad, wdw)
+
+
+def test_memory_recon_forward_over_the_list_cap(cuda):
+    """Rows with more nonzero weights than K6's per-row list holds (512):
+    their 16-row tiles take the dense DMMA output, the others the list."""
+    from hvpr_tpu_torch.ops.memory_recon import _attention
+    rng = np.random.default_rng(9)
+    r, m, c, lam = 4000, 2000, 64, 0.0004
+    x = torch.from_numpy(rng.normal(0, 6, (r, c)).astype(np.float32))
+    x[[5, 1000, 3999]] = 0.0             # a flat softmax: all 2000 weights > lam
+    w = torch.from_numpy(rng.uniform(-1, 1, (m, c)).astype(np.float32) / c ** 0.5)
+    nonzero = (_attention(x, w, lam)[3].to(torch.bfloat16) != 0).sum(dim=1)
+    assert int(nonzero[5]) == m and int((nonzero > 512).sum()) == 3
+    assert 0 < int(nonzero.min()) and int(nonzero.median()) < 512
+    got, want = _both(recon_forward, x.to(cuda), w.to(cuda), lam)
+    _close(got, want)
 
 
 def _attend_inputs(rng, b, v, n, c, cuda):
@@ -271,6 +325,34 @@ def test_topk_attend_kernels(cuda, b, v, n, c, k):
             # and the dense oracle, which recomputes every row's weights
             _close(dval, masked_attend_bwd_plain(pillars, points, val, neg, th, mx, den,
                                                  dout, shared, mask))
+
+
+@pytest.mark.parametrize('b,v,n,c,k', [(3, 300, 1000, 64, 20), (2, 100, 300, 16, 4),
+                                       (4, 16000, 16384, 64, 20)])   # hvpr.yaml batch 4
+def test_masked_attend_pair_pass(cuda, b, v, n, c, k):
+    """K9's pair pass: a call handed the shared call's selection (count and
+    pairs) against the plain version given the same selection, and against
+    the dense sweep that recomputes it; counts, row maxima and pairs exact."""
+    rng = np.random.default_rng(n + 1)
+    pillars, points, vals, neg, row_mask, _ = _attend_inputs(rng, b, v, n, c, cuda)
+    for mask in (torch.ones_like(row_mask), row_mask):
+        th = bucket_threshold(pillars, points, neg, k, mask)
+        first = masked_attend_fwd(pillars, points, points, neg, th, True, mask)
+        selection = (first[3], first[4])
+        for shared in (True, False):
+            val = points if shared else vals
+            before = _kernels.launch_counts()['masked_attend_pairs']
+            got, want = _both(masked_attend_fwd, pillars, points, val, neg, th, shared,
+                              mask, selection)
+            assert _kernels.launch_counts()['masked_attend_pairs'] == before + 1
+            dense = masked_attend_fwd(pillars, points, val, neg, th, shared, mask)
+            for ref in (want, dense):
+                out, mx, den, cnt, pidx, pw = got
+                assert torch.equal(cnt, ref[3]) and torch.equal(mx, ref[1])
+                assert torch.equal(pidx, ref[4]) and torch.equal(pw, ref[5])
+                _close(out, ref[0])
+                _close(den, ref[2])
+            assert int(got[3][0, 1]) == n - 37                # the zero row overflows
 
 
 @pytest.mark.parametrize('shared', [True, False])

@@ -111,6 +111,32 @@ def test_furthest_point_sample_matches_jax(num_chunks, npoint):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize('invalid', ['tail', 'scattered'])
+def test_exact_fps_over_a_whole_scan_matches_jax(invalid):
+    """Exact FPS (num_chunks=1) over one 16,384-point scan: a single set
+    twice as long as K5's shared-memory path holds (the card takes K5's long
+    path), with a duplicated point and invalid points, against the JAX
+    package's exact ``_fps_one``."""
+    rng = np.random.default_rng(16384)
+    n = 16384
+    xyz = rng.uniform(-40, 40, (1, n, 3)).astype(np.float32)
+    xyz[0, 9] = xyz[0, 4]                       # a duplicated point
+    mask = np.ones((1, n), bool)
+    if invalid == 'tail':
+        mask[0, -1000:] = False                 # padded scan
+    else:
+        mask[0, rng.choice(n, 3000, replace=False)] = False
+        mask[0, :3] = False                     # the first valid row is 3
+        mask[0, 3] = True
+    want = jax_pn2.furthest_point_sample(jnp.asarray(xyz), jnp.asarray(mask), 256,
+                                         num_chunks=1)
+    got = port_pn2.furthest_point_sample(torch.from_numpy(xyz), torch.from_numpy(mask),
+                                         256, num_chunks=1)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert mask[0, got.numpy()].all() and len(set(got[0].tolist())) == 256
+    assert int(got[0, 0]) == (0 if invalid == 'tail' else 3)
+
+
 def test_three_nn_and_interpolate_match_jax():
     rng = np.random.default_rng(3)
     unknown = rng.uniform(0, 40, (2, 300, 3)).astype(np.float32)
