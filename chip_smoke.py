@@ -19,7 +19,8 @@ scans with seeded random weights:
   stream, the VFE, the attentive scatter (bucket threshold, masked attention
   of the points and of their memory reconstructions), the dual-pass
   backbone, the dual heads with their losses, backward and the
-  adam_onecycle update. Each train kernel (K4 ball query, K5 FPS, K6/K7 the
+  adam_onecycle update. Each train kernel (K4 ball query, one sweep for
+  both radii of an SA level, K5 FPS, K6/K7 the
   memory reconstruction forward/backward, K8 the bucket threshold, K9/K10
   the masked attention forward/backward) is held against its plain version
   at the shapes of one step (K9's pairs, the selected points and bf16
@@ -44,13 +45,15 @@ scans with seeded random weights:
 - training in ``TRAIN_ATTEND_MODE: gather``: the kernel step must equal the
   plain step as above, and 2 timed steps must launch K4-K7 and never K8-K10.
 
-Device times by kernel (torch.profiler) are printed for K2, K3, K7, K9 (the
-dense sweep and the pair pass) and K10's parts, and for K6 run to the end
-of its sweep, of its row chain and whole; K6's count of nonzero weights a
-row, and the FP64-tensor-core (DMMA) bounds of K6, K7 and K9 beside their
-bf16 bounds. Yardsticks (timed, never called by the port): K2 beside
-``scaled_dot_product_attention`` over the selected sets, K3 beside
-``torch.zeros`` + ``index_put_``, K9 beside ``scaled_dot_product_attention``.
+Device times by kernel (torch.profiler) are printed for K2, K3, K4 (per
+SA level, and per level and radius the same kernel for that radius alone,
+each beside its bound), K7, K8, K9 (the dense sweep and the pair pass) and
+K10's parts, and for K6 run to the end of its sweep, of its row chain and
+whole; K6's count of nonzero weights a row, and the FP64-tensor-core
+(DMMA) bounds of K6-K9 beside their bf16 bounds. Yardsticks (timed, never
+called by the port): K2 beside ``scaled_dot_product_attention`` over the
+selected sets, K3 beside ``torch.zeros`` + ``index_put_``, K9 beside
+``scaled_dot_product_attention``.
 
 It prints a ``{"kernels": [...]}`` JSON line (times, bounds, launches,
 errors), the card's name and power limit as nvidia-smi reports them, and
@@ -79,12 +82,12 @@ BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
 F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
 F64_TC_FLOPS_PER_S = 67e12         # H100 SXM f64 on the tensor cores (DMMA)
 INFER_KERNELS = ('segment_sweep', 'memory_lookup', 'bev_canvas')
-# launches of each train kernel in one step of hvpr.yaml: 2 SA levels x 2
-# radii ball queries, one FPS per level, one reconstruction each way, one
-# threshold, and the masked attention of the points (K9's dense sweep) and
-# of their reconstructions (K9's pair pass, on the first call's selection),
-# and both backwards (the last four in fused mode only)
-STEP_LAUNCHES = {'ball_query': 4, 'fps_chunks': 2, 'memory_recon_fwd': 1,
+# launches of each train kernel in one step of hvpr.yaml: one ball query per
+# SA level (both radii in one sweep), one FPS per level, one reconstruction
+# each way, one threshold, and the masked attention of the points (K9's
+# dense sweep) and of their reconstructions (K9's pair pass, on the first
+# call's selection), and both backwards (the last four in fused mode only)
+STEP_LAUNCHES = {'ball_query': 2, 'fps_chunks': 2, 'memory_recon_fwd': 1,
                  'memory_recon_bwd': 1, 'bucket_threshold': 1,
                  'masked_attend_fwd': 1, 'masked_attend_pairs': 1, 'masked_attend_bwd': 2}
 ATTEND_KERNELS = ('bucket_threshold', 'masked_attend_fwd', 'masked_attend_pairs',
@@ -144,10 +147,10 @@ def cuda_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def device_breakdown(fn, reps=3):
-    """'name ms, ...': device milliseconds per call of each CUDA kernel (and
-    memset) that ``fn()`` launches, from torch.profiler; 'not measured' when
-    the profiler records no device time."""
+def device_times(fn, reps=3):
+    """{kernel name: device milliseconds per call of ``fn()``} of each CUDA
+    kernel (and memset) that ``fn()`` launches, from torch.profiler; empty
+    when the profiler records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -163,7 +166,14 @@ def device_breakdown(fn, reps=3):
             name = e.key.replace('(anonymous namespace)::', '')
             name = name.split('(')[0].split('<')[0].split()[-1].split('::')[-1]
             out[name] = out.get(name, 0.0) + us / 1e3 / reps
-    return ', '.join(f'{k} {v:.4f}' for k, v in out.items()) or 'not measured'
+    return out
+
+
+def device_breakdown(fn, reps=3):
+    """'name ms, ...' of :func:`device_times`; 'not measured' when the
+    profiler records no device time."""
+    return ', '.join(f'{k} {v:.4f}' for k, v in device_times(fn, reps).items()) \
+        or 'not measured'
 
 
 def seed_weights(module, seed):
@@ -194,6 +204,13 @@ def seed_weights(module, seed):
                 b.copy_(0.1 * torch.randn(b.shape, generator=gen))
             elif name.endswith('running_var'):
                 b.copy_(0.5 + 1.5 * torch.rand(b.shape, generator=gen))
+
+
+def flat(out):
+    """A wrapper's output as a flat tuple of tensors."""
+    if isinstance(out, (tuple, list)):
+        return tuple(t for o in out for t in flat(o))
+    return (out,)
 
 
 def capture_calls(modules_and_names, run):
@@ -524,6 +541,21 @@ def train_stage_ms(net, batch, reps=3):
     return {name: statistics.median(v) for name, v in times.items()}
 
 
+def ball_stop(idx, cnt, nsample, n):
+    """(B, S) points a centre's sweep for one radius needs: up to the first
+    hit of its nsample-th bucket, else all ``n``."""
+    import torch
+    return torch.where(cnt == nsample, idx[..., -1].long() + 1, n)
+
+
+def ball_bytes(xyz, new_xyz, mask, nsamples):
+    """Bytes a ball query moves: points, centres and mask in, idx and cnt
+    out for each nsample."""
+    b, s = new_xyz.shape[:2]
+    return (xyz.numel() + new_xyz.numel()) * 4 + mask.numel() + sum(
+        b * s * (ns + 1) * 4 for ns in nsamples)
+
+
 def _train_bounds(name, calls, plain_outs, selected, recon_nonzero):
     """(bound ms, bound_by, DMMA bound ms or None) of one step's calls of
     train kernel ``name``, from this run's inputs (and, for the ball query,
@@ -539,17 +571,16 @@ def _train_bounds(name, calls, plain_outs, selected, recon_nonzero):
     flops = F32_FLOPS_PER_S
     for (args, _), out in zip(calls, plain_outs):
         if name == 'ball_query':
-            # ~9 f32 operations per (centre, point) pair up to the point at
-            # which the centre has its nsample distinct buckets (else all N)
-            _, nsample, xyz, new_xyz, mask = args
-            idx, cnt = out
-            b, n, _ = xyz.shape
-            s = new_xyz.shape[1]
-            stop = idx[..., -1].long() + 1
-            visited = float(((cnt == nsample) * stop + (cnt < nsample) * n).sum())
-            ops += 9.0 * visited
-            nbytes += (xyz.numel() + new_xyz.numel()) * 4 + mask.numel() \
-                + b * s * (nsample + 1) * 4
+            # one call a level, both radii: ~8 f32 operations for the
+            # distance and a compare a radius, per (centre, point) pair up
+            # to the point at which the centre has both radii's nsample
+            # distinct buckets (else all N)
+            radii, nsamples, xyz, new_xyz, mask = args
+            visited = float(torch.stack([ball_stop(idx, cnt, ns, xyz.shape[1])
+                                         for (idx, cnt), ns in zip(out, nsamples)])
+                            .amax(dim=0).sum())
+            ops += (8.0 + len(radii)) * visited
+            nbytes += ball_bytes(xyz, new_xyz, mask, nsamples)
         elif name == 'fps_chunks':
             # ~10 f32 operations per row and step (3 sub, 3 mul, 2 add,
             # min, compare)
@@ -591,6 +622,7 @@ def _train_bounds(name, calls, plain_outs, selected, recon_nonzero):
             outs = b * v * c * 4 + 3 * b * v * 4 + b * v * PAIR_CAP * 6
             if name == 'bucket_threshold':
                 ops += 2.0 * r * n * c
+                dmma_ops = (dmma_ops or 0.0) + 2.0 * r * n * c
                 nbytes += io * 4 + b * v + b * v * 4
                 flops = BF16_FLOPS_PER_S
             elif name == 'masked_attend_fwd':         # + out, mx, den, count, pairs
@@ -624,6 +656,55 @@ def _train_bounds(name, calls, plain_outs, selected, recon_nonzero):
                 flops = F32_FLOPS_PER_S
     b_ms, b_by = bound(ops, flops, nbytes)
     return b_ms, b_by, None if dmma_ops is None else dmma_ops / F64_TC_FLOPS_PER_S * 1e3
+
+
+def _kernel_device_ms(fn, kernel):
+    """Device milliseconds a call of ``fn()`` spends in the CUDA kernels
+    whose names start with ``kernel`` (torch.profiler); nan when the
+    profiler records none."""
+    ms = [v for k, v in device_times(fn).items() if k.startswith(kernel)]
+    return sum(ms) if ms else float('nan')
+
+
+def _ball_query_detail(calls, plain_outs):
+    """K4 per SA level (one call, both radii) and per (level, radius): the
+    call's CUDA-event and device times beside its bound, and each radius's
+    own bound beside the time of the same kernel for that radius alone
+    (``ball_query_bucket``, one radius a sweep; timed only). Returns
+    {'device_ms': of the step's calls, 'calls': [per level]}."""
+    import torch
+    from hvpr_tpu_torch.ops import pn2_select
+    levels = []
+    for level, ((args, _), out) in enumerate(zip(calls, plain_outs), 1):
+        radii, nsamples, xyz, new_xyz, mask = args
+        n = xyz.shape[1]
+        stops = [ball_stop(idx, cnt, ns, n) for (idx, cnt), ns in zip(out, nsamples)]
+        both = float(torch.stack(stops).amax(dim=0).sum())
+        b_ms, b_by = bound((8.0 + len(radii)) * both, F32_FLOPS_PER_S,
+                           ball_bytes(xyz, new_xyz, mask, nsamples))
+        ms = cuda_ms(lambda: pn2_select.ball_query_bucket2(*args))
+        dev = _kernel_device_ms(lambda: pn2_select.ball_query_bucket2(*args),
+                                'ball_query_kernel')
+        print(f'ball_query level {level}: {tuple(xyz.shape)} points, {tuple(new_xyz.shape)} '
+              f'centres, radii {radii}, nsample {nsamples}: one call {ms:.4f} ms, device '
+              f'{dev:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {both:.4g} pairs needed)')
+        per_radius = []
+        for r, ns, stop, (_, cnt) in zip(radii, nsamples, stops, out):
+            r_ms, r_by = bound(9.0 * float(stop.sum()), F32_FLOPS_PER_S,
+                               ball_bytes(xyz, new_xyz, mask, (ns,)))
+            alone = cuda_ms(lambda: pn2_select.ball_query_bucket(r, ns, xyz, new_xyz, mask))
+            alone_dev = _kernel_device_ms(
+                lambda: pn2_select.ball_query_bucket(r, ns, xyz, new_xyz, mask),
+                'ball_query_kernel')
+            full = float((cnt == ns).float().mean())
+            print(f'  level {level}, radius {r}, nsample {ns}: bound {r_ms:.4f} ms ({r_by}; '
+                  f'{float(stop.sum()):.4g} pairs needed, {full:.4f} of the centres fill '
+                  f'their nsample); this radius alone {alone:.4f} ms, device {alone_dev:.4f}')
+            per_radius.append({'radius': r, 'nsample': ns, 'bound_ms': r_ms,
+                               'alone_ms': alone, 'alone_device_ms': alone_dev})
+        levels.append({'level': level, 'ms': ms, 'device_ms': dev, 'bound_ms': b_ms,
+                       'radii': per_radius})
+    return {'device_ms': sum(lv['device_ms'] for lv in levels), 'calls': levels}
 
 
 def _recon_nonzero(calls):
@@ -774,7 +855,7 @@ def train_phase(smi, mode):
     state0 = {k: v.clone() for k, v in net.module.state_dict().items()}
     n_params = sum(p.numel() for p in net.module.parameters())
     step_launches = {k: n for k, n in STEP_LAUNCHES.items() if fused or k not in ATTEND_KERNELS}
-    wrappers = {'ball_query': (pointnet2, 'ball_query_bucket', pn2_select.ball_query_bucket),
+    wrappers = {'ball_query': (pointnet2, 'ball_query_bucket2', pn2_select.ball_query_bucket2),
                 'fps_chunks': (pointnet2, 'fps_chunks', pn2_select.fps_chunks),
                 'memory_recon_fwd': (memory_recon, 'recon_forward', memory_recon.recon_forward),
                 'memory_recon_bwd': (memory_recon, 'recon_backward',
@@ -884,9 +965,9 @@ def train_phase(smi, mode):
                 with _kernels.plain_versions():
                     want = fn(*args, **kwargs)
                 torch.cuda.synchronize()
-                got = got if isinstance(got, tuple) else (got,)
-                want = want if isinstance(want, tuple) else (want,)
-                plain_outs.append(want if len(want) > 1 else want[0])
+                plain_outs.append(want)
+                # K4's two radii: ((idx, cnt), (idx, cnt))
+                got, want = flat(got), flat(want)
                 for i, (g, w) in enumerate(zip(got, want)):
                     if g.shape != w.shape or g.dtype != w.dtype:
                         fail(f'{name}: {g.shape}/{g.dtype} vs plain {w.shape}/{w.dtype}')
@@ -986,6 +1067,15 @@ def train_phase(smi, mode):
             print(f'{name}: bound {b_ms:.4f} ms ({b_by}){on_dmma}')
             if dmma_ms is not None:
                 entries[name]['dmma_bound_ms'] = dmma_ms
+        entries['ball_query'].update(_ball_query_detail(calls['ball_query'],
+                                                        outs['ball_query']))
+        k8 = calls['bucket_threshold']
+        entries['bucket_threshold']['device_ms'] = _kernel_device_ms(
+            lambda: [topk_attend.bucket_threshold(*a, **kw) for a, kw in k8],
+            'bucket_threshold_kernel')
+        print(f'bucket_threshold: {len(k8)} call(s) a step, CUDA events '
+              f'{entries["bucket_threshold"]["ms"]:.4f} ms, device '
+              f'{entries["bucket_threshold"]["device_ms"]:.4f} ms (torch.profiler)')
         for name in ('masked_attend_fwd', 'masked_attend_pairs'):
             entries[name]['library_ms'] = _attend_library_ms(calls[name])
             print(f'{name}: scaled_dot_product_attention over the same valid rows and '
@@ -1220,8 +1310,9 @@ def main():
                         'max_abs_err': e['max_abs_err'], 'ms': e['ms'],
                         'plain_ms': e['plain_ms'], 'bound_ms': e['bound_ms'],
                         'bound_by': e['bound_by'], 'library_ms': e['library_ms']})
-        if 'dmma_bound_ms' in e:
-            kernels[-1]['dmma_bound_ms'] = e['dmma_bound_ms']
+        for extra in ('dmma_bound_ms', 'device_ms', 'calls'):
+            if extra in e:
+                kernels[-1][extra] = e[extra]
         if name == 'fps_chunks':
             kernels[-1]['exact_fps'] = exact_fps
     print(json.dumps({'kernels': kernels}))

@@ -1,6 +1,6 @@
 // Helpers shared by the kernels that run their products on the FP64 tensor
-// cores (K2 memory_lookup.cu, K6/K7 memory_recon.cu, K9 topk_attend.cu):
-// the DMMA instruction, bf16 widening and rounding, and cp.async staging of
+// cores (K2 memory_lookup.cu, K6/K7 memory_recon.cu, K8/K9 topk_attend.cu):
+// the DMMA instructions, bf16 widening and rounding, and cp.async staging of
 // bf16 rows into shared memory. Included by each source; ops/_kernels.py
 // hashes every header of csrc/ into each library's name, so an edit here
 // rebuilds all of them.
@@ -21,8 +21,60 @@ __device__ __forceinline__ void dmma(double& d0, double& d1, double a, double b)
                : "d"(a), "d"(b));
 }
 
+// D (16 x 8) += A (16 x K) B (K x 8) on the FP64 tensor cores, K = 4, 8 or
+// 16 (the m16n8k* shapes of sm_90). Per lane, g = lane / 4, q = lane % 4:
+// a[i] = A[g + 8 (i % 2)][q + 4 (i / 2)] (i < K / 2), b[i] = B[q + 4 i][g]
+// (i < K / 4), and d = D[g][2q], D[g][2q + 1], D[g + 8][2q], D[g + 8][2q + 1].
+__device__ __forceinline__ void dmma16(double (&d)[4], const double (&a)[2],
+                                       const double (&b)[1]) {
+  asm volatile("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+               "{%4, %5}, {%6}, {%0, %1, %2, %3};"
+               : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+               : "d"(a[0]), "d"(a[1]), "d"(b[0]));
+}
+
+__device__ __forceinline__ void dmma16(double (&d)[4], const double (&a)[4],
+                                       const double (&b)[2]) {
+  asm volatile("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+               "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+               : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+               : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
+__device__ __forceinline__ void dmma16(double (&d)[4], const double (&a)[8],
+                                       const double (&b)[4]) {
+  asm volatile("mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+               "{%4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, %14, %15}, "
+               "{%0, %1, %2, %3};"
+               : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+               : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]),
+                 "d"(a[6]), "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
+}
+
 // a bf16 value widened to f64 (exact)
 __device__ __forceinline__ double widen(__nv_bfloat16 v) { return (double)__bfloat162float(v); }
+
+// K / 4 consecutive bf16 values at p (aligned to K / 2 bytes) widened to
+// f64, K = 4, 8 or 16: one 2, 4 or 8-byte load
+template <int K>
+__device__ __forceinline__ void widen_run(const __nv_bfloat16* p, double (&v)[K / 4]) {
+  if constexpr (K == 4) {
+    v[0] = widen(p[0]);
+  } else if constexpr (K == 8) {
+    const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(p);
+    v[0] = widen(x.x);
+    v[1] = widen(x.y);
+  } else {
+    static_assert(K == 16, "K = 4, 8 or 16");
+    const uint2 x = *reinterpret_cast<const uint2*>(p);
+    const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&x.x);
+    const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&x.y);
+    v[0] = widen(lo.x);
+    v[1] = widen(lo.y);
+    v[2] = widen(hi.x);
+    v[3] = widen(hi.y);
+  }
+}
 
 // an f32 value rounded to bf16 and back
 __device__ __forceinline__ float bf16_round(float v) {

@@ -20,31 +20,36 @@
 // What bounds them. K8 and K9 make the dense (rows, N) score product of
 // the rows they process, 2*R*N*C flops (8.0e10 at hvpr.yaml batch 4: R =
 // 38,047 valid rows, N = 16,384, C = 64), against ~25 MB of inputs: bound
-// by operations. K8 runs them as f64 multiply-adds on the CUDA cores (for
-// the exact sums above); K9 on the FP64 tensor cores (mma.sync m8n8k4 .f64,
-// DMMA, 67 TFLOP/s: 1.19 ms for that product, against 0.08 ms on bf16
-// tensor cores). K10 touches only the selected pairs (~825k a call at
-// hvpr.yaml), 2*C flops each, against the valid rows of dout (9.7 MB), the
-// pairs (~5 MB) and dval (16.8 MB): bound by bytes, ~0.01 ms a call at
-// 3.35 TB/s.
+// by operations. K8 and K9 run them on the FP64 tensor cores (mma.sync
+// m16n8k16 .f64, DMMA, 67 TFLOP/s: 1.19 ms for that product, against 0.08
+// ms on bf16 tensor cores), for the exact sums above. (The m8n8k4 shape
+// that K2, K6 and K7 use took 3.4 ms for K9's sweep, m16n8k4 2.5 and
+// m16n8k8 or m16n8k16 2.4 on an H100: PERF.md, K8 and K9;
+// tools/torch_port/k4_k8_versions.py.) K10 touches only the selected pairs
+// (~825k a call at hvpr.yaml), 2*C flops each, against the valid rows of
+// dout (9.7 MB), the pairs (~5 MB) and dval (16.8 MB): bound by bytes,
+// ~0.01 ms a call at 3.35 TB/s.
 //
 // Design.
-//   K8  a tile is 32 pillar rows of one scan, held in shared memory as f64,
-//       channel-major; the scan's table streams through shared memory in
-//       128-point chunks (f64, channel-major, 64 KB), so a chunk holds
-//       exactly one point of each bucket. Warp w owns rows 4w..4w+3 and
-//       lane t columns t, t+32, t+64, t+96 of a chunk: 16 f64 sums a
-//       thread. It keeps each thread's 16 bucket maxima in registers over
-//       the chunks; a warp then finds each row's k-th largest of 128 maxima
-//       by counting (greater / greater-or-equal), as K2 does.
+//   K8 and K9's dense sweep share one sweep body (dmma_sweep): a tile of 16
+//       pillar rows of one scan, the scan's table streamed through shared
+//       memory in 128-point chunks, the scores on DMMA, and a callback given
+//       each chunk's scores. A chunk holds exactly one point of each bucket.
+//   K8  keeps, in each lane's registers, the running bucket maxima of the
+//       scores it holds: its 2 rows x 8 points of a chunk are the same 8
+//       buckets in every chunk, so no barrier is needed beyond the double
+//       buffer's. After the sweep the tile's 16 x 128 maxima go to shared
+//       memory, and a warp finds each row's k-th largest of 128 maxima by
+//       counting (greater / greater-or-equal), as K2 does.
 //   K9  two kernels. The dense sweep (masked_attend_fwd_kernel): a tile of
 //       16 rows, 4 warps, 4 blocks an SM, the table streamed as bf16 by
-//       cp.async, the scores on DMMA with K2's bf16 -> f64 fragments. The
+//       cp.async, the scores on DMMA (the sweep body K8 shares). The
 //       table (2 MB a scan) is read from L2 once a tile: 2,378 tiles of 16
 //       rows read 4.9 GB a call at hvpr.yaml batch 4, 600 of 64 rows 1.2
-//       GB. Yet on the same inputs 64-row tiles (one block an SM, 16
-//       warps) took 3.93 ms, 32-row 3.62 and 16-row 3.41 on an H100
-//       (PERF.md, K9; tools/torch_port/k9_tile_sizes.py): four blocks an
+//       GB. Yet on the same inputs, with the earlier m8n8k4 sweep,
+//       64-row tiles (one block an SM, 16 warps) took 3.93 ms, 32-row 3.62
+//       and 16-row 3.41 on an H100 (PERF.md, K9;
+//       tools/torch_port/k9_tile_sizes.py): four blocks an
 //       SM overlap one block's barriers with another's DMMA, and L2
 //       serves the 4.9 GB at ~1.4 TB/s, well inside its rate. K8's
 //       threshold is known before the sweep, so no score is kept: each row
@@ -96,12 +101,11 @@
 
 namespace {
 
-constexpr int kRows = 32;                    // pillar rows per tile
+constexpr int kRows = 32;                    // K9's pair pass: pillar rows per tile
 constexpr int kChunk = 128;                  // points per chunk == buckets
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRowsPerWarp = kRows / kWarps;     // 4
-constexpr int kColsPerLane = kChunk / 32;        // 4
 constexpr int kMaxC = 64;
 constexpr int kCap = 128;                    // K9: selected points a row's list holds
 constexpr int kScanThreads = 1024;           // K10 (b), (e): one block
@@ -114,8 +118,6 @@ constexpr int kLongBlocks = 132;             // K10 (d'), (f'): blocks over the 
 constexpr int kAhead = 8;                    // K10 (f): rows whose dout loads are in flight
 constexpr float kNeg = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
-
-static_assert(kRowsPerWarp == 4 && kColsPerLane == 4, "tile mapping");
 
 using hvpr::bf16_round;
 
@@ -153,59 +155,6 @@ __device__ void load_pillars(const __nv_bfloat16* __restrict__ pill, double* ps,
     double x = 0.0;
     if (v0 + r < V && c < C) x = (double)__bfloat162float(pill[((size_t)b * V + v0 + r) * C + c]);
     ps[c * ROWS + r] = x;
-  }
-}
-
-// points [n0, n0 + kChunk) of a scan's (N, C) bf16 table as f64,
-// channel-major: ts[c * kChunk + j] (zeros past N). C % 8 == 0; 16-byte
-// loads, all in flight before the first store; a warp writes 32 consecutive
-// points of one channel (no bank conflict).
-__device__ void load_chunk(const __nv_bfloat16* __restrict__ tab, double* ts, int n0,
-                           int N, int C) {
-  constexpr int kMaxVec = kChunk * kMaxC / 8 / kThreads;   // 4
-  const int vpr = C / 8;                                   // vectors per point
-  uint4 v[kMaxVec];
-#pragma unroll
-  for (int u = 0; u < kMaxVec; ++u) {
-    const int i = threadIdx.x + u * kThreads;
-    const int j = i % kChunk, q = i / kChunk;
-    v[u] = make_uint4(0u, 0u, 0u, 0u);
-    if (q < vpr && n0 + j < N)
-      v[u] = *reinterpret_cast<const uint4*>(tab + (size_t)(n0 + j) * C + q * 8);
-  }
-#pragma unroll
-  for (int u = 0; u < kMaxVec; ++u) {
-    const int i = threadIdx.x + u * kThreads;
-    const int j = i % kChunk, q = i / kChunk;
-    if (q < vpr) {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v[u]);
-#pragma unroll
-      for (int t = 0; t < 8; ++t) ts[(q * 8 + t) * kChunk + j] = (double)__bfloat162float(e[t]);
-    }
-  }
-}
-
-// acc[i][j] = sum over c of ps[c][4 warp + i] * ts[c][lane + 32 j], in f64
-__device__ __forceinline__ void tile_dot(const double* ps, const double* ts, int C,
-                                         double (&acc)[kRowsPerWarp][kColsPerLane]) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i)
-#pragma unroll
-    for (int j = 0; j < kColsPerLane; ++j) acc[i][j] = 0.0;
-  const double* pr = ps + warp * kRowsPerWarp;
-  const double* tr = ts + lane;
-#pragma unroll 4
-  for (int c = 0; c < C; ++c) {
-    const double2 p01 = *reinterpret_cast<const double2*>(pr + c * kRows);
-    const double2 p23 = *reinterpret_cast<const double2*>(pr + c * kRows + 2);
-    const double p[kRowsPerWarp] = {p01.x, p01.y, p23.x, p23.y};
-#pragma unroll
-    for (int j = 0; j < kColsPerLane; ++j) {
-      const double t = tr[c * kChunk + 32 * j];
-#pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) acc[i][j] = fma(p[i], t, acc[i][j]);
-    }
   }
 }
 
@@ -247,70 +196,6 @@ __device__ float kth_largest(const float* bm, int k, int lane) {
   for (int q = 0; q < 4; ++q)
     if (gt[q] < k && k <= ge[q]) th = fmaxf(th, v[q]);
   return warp_max(th);
-}
-
-// ----------------------------------------------------------------- K8
-
-__global__ void __launch_bounds__(kThreads, 2)
-bucket_threshold_kernel(const __nv_bfloat16* __restrict__ pill,
-                        const __nv_bfloat16* __restrict__ tab,
-                        const float* __restrict__ neg, const bool* __restrict__ row_mask,
-                        float* __restrict__ th_out, int V, int N, int C, int k) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  double* ps = reinterpret_cast<double*>(smem);            // kMaxC x kRows
-  double* ts = ps + kMaxC * kRows;                          // kMaxC x kChunk
-  float* bm = reinterpret_cast<float*>(ts);                 // kRows x kChunk, at the end
-  const int b = blockIdx.y, v0 = blockIdx.x * kRows;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  if (!tile_has_valid(row_mask, b, v0, V)) {
-    const int t = threadIdx.x;
-    if (t < kRows && v0 + t < V) th_out[(size_t)b * V + v0 + t] = 0.f;
-    return;
-  }
-  load_pillars(pill, ps, b, v0, V, C);
-  const __nv_bfloat16* tb = tab + (size_t)b * N * C;
-  const float* nb = neg + (size_t)b * N;
-
-  // bucket maxima of rows 4 warp + i, buckets lane + 32 j
-  float bmax[kRowsPerWarp][kColsPerLane];
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i)
-#pragma unroll
-    for (int j = 0; j < kColsPerLane; ++j) bmax[i][j] = -CUDART_INF_F;
-
-  const int n_chunks = (N + kChunk - 1) / kChunk;
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    __syncthreads();
-    load_chunk(tb, ts, ch * kChunk, N, C);
-    __syncthreads();
-    double acc[kRowsPerWarp][kColsPerLane];
-    tile_dot(ps, ts, C, acc);
-#pragma unroll
-    for (int j = 0; j < kColsPerLane; ++j) {
-      const int n = ch * kChunk + lane + 32 * j;
-      const float ng = n < N ? nb[n] : 0.f;
-#pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        // padded points score exactly -1e30, as the twin's zero rows + neg
-        const float s = n < N ? __fadd_rn(__double2float_rn(acc[i][j]), ng) : kNeg;
-        bmax[i][j] = fmaxf(bmax[i][j], s);
-      }
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i)
-#pragma unroll
-    for (int j = 0; j < kColsPerLane; ++j)
-      bm[(warp * kRowsPerWarp + i) * kChunk + lane + 32 * j] = bmax[i][j];
-  __syncthreads();
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int r = warp * kRowsPerWarp + i;
-    const float th = kth_largest(bm + r * kChunk, k, lane);
-    const int v = v0 + r;
-    if (lane == 0 && v < V) th_out[(size_t)b * V + v] = row_valid(row_mask, b, v, V) ? th : 0.f;
-  }
 }
 
 // ----------------------------------------------------------------- K9
@@ -475,28 +360,161 @@ __device__ void empty_tile(const AttendOut& o, size_t row0, int rows, int thread
   }
 }
 
-// K9's dense sweep: a tile of kARows = 16 pillar rows of one scan, 4 warps
-// (the tile size is this one constant; 64 rows take 16 warps). The scan's
-// selection table streams through shared memory in 128-point chunks as
-// bf16 (rows padded to 144 B), double-buffered with cp.async; warp w owns
-// rows 16 (w % (kARows / 16)).. and points 32 (w / (kARows / 16)).. of each
-// chunk (2 x 4 mma tiles), its pillar fragments widened to f64 in registers
-// for the whole sweep and each table fragment widened as it is loaded, the
-// scores on DMMA. A chunk's picks enter each row's list in index order: a
-// row's picks within a warp are one 32-bit mask (OR of its 4 lanes), and
-// the 4 warps over a row's points add in point order by their counts in
-// shared memory. Then a warp finishes kARows / kAWarps = 4 rows.
+// The dense sweep of K8 and K9: a tile of kARows = 16 pillar rows of one
+// scan, 4 warps (the tile size is this one constant; 64 rows take 16
+// warps). The scan's table streams through shared memory in 128-point
+// chunks as bf16 (rows padded to 144 B), double-buffered with cp.async, one
+// barrier a chunk; warp w owns rows 16 (w % (kARows / 16)).. and points
+// 32 (w / (kARows / 16)).. of each chunk (4 tiles of 16 x 8), its pillar
+// fragments widened to f64 in registers for the whole sweep and each table
+// fragment widened as it is loaded, the scores on DMMA of depth kDK
+// (mma.sync m16n8k{4,8,16} .f64). Within a DMMA's kDK channels, lane q
+// takes the kDK / 4 consecutive channels from (kDK / 4) q, so its table
+// fragment is one load; the sums are exact in any order. A lane holds the
+// exact f64 dots of rows rb + g + 8 (e / 2) with points nc + 8 j + 2 q +
+// e % 2 (j < 4, e < 4), g = lane / 4, q = lane % 4, nc the chunk's first
+// point plus the warp's 32 cb. They go to on_chunk(nc, j0, acc) in JW
+// columns (acc[j - j0][e], j0 <= j < j0 + JW) at a time: JW = 2 halves the
+// accumulators a lane holds.
 constexpr int kARows = 16;
 constexpr int kARowGroups = kARows / 16;        // warps over a chunk's rows
 constexpr int kAWarps = 4 * kARowGroups;        // and 4 over its points
 constexpr int kAThreads = 32 * kAWarps;
 constexpr int kABlocks = 512 / kAThreads;       // blocks an SM (the registers)
-constexpr int kAKSteps = kMaxC / 4;
+constexpr int kDK = 16;                         // the depth of a DMMA: 4, 8 or 16
+constexpr int kAKSteps = kMaxC / kDK;
 constexpr int kACS = kMaxC + 8;                 // bf16 row stride of a chunk (144 B)
 constexpr int kAChunkElems = kChunk * kACS;
 static_assert(kARows % 16 == 0 && kChunk == 4 * 32, "warp w: 16 rows x 32 points");
 static_assert(2 * kAChunkElems * 2 >= kMaxC * kARows * 8, "the pillar tile fits the chunks");
+static_assert(2 * kAChunkElems * 2 >= kARows * kChunk * 4, "K8's maxima fit the chunks");
 
+template <int JW, class OnChunk>
+__device__ __forceinline__ void dmma_sweep(const __nv_bfloat16* __restrict__ pill,
+                                           const __nv_bfloat16* __restrict__ tab,
+                                           __nv_bfloat16* chunks, int b, int v0, int V,
+                                           int N, int C, OnChunk&& on_chunk) {
+  static_assert(4 % JW == 0, "JW columns of 4");
+  constexpr int kRun = kDK / 4;                 // consecutive channels a lane holds
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const int rb = (warp % kARowGroups) * 16, cb = (warp / kARowGroups) * 32;
+  hvpr::stage_rows<kChunk, kACS, kAThreads>(tab, chunks, 0, N, C);
+  // a[ks][i]: row rb + g + 8 (i % 2), channel ks kDK + kRun q + i / 2; C % 8
+  // == 0, so a lane's run of channels is all inside C or all past it
+  double a[kAKSteps][kDK / 2];
+#pragma unroll
+  for (int ks = 0; ks < kAKSteps; ++ks)
+#pragma unroll
+    for (int i = 0; i < kDK / 2; ++i) {
+      const int v = v0 + rb + g + 8 * (i % 2), c = ks * kDK + kRun * q + i / 2;
+      a[ks][i] = v < V && c < C ? hvpr::widen(pill[((size_t)b * V + v) * C + c]) : 0.0;
+    }
+  const int n_chunks = (N + kChunk - 1) / kChunk;
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    hvpr::cp_async_wait<0>();
+    __syncthreads();                    // chunk ch is in; no warp reads chunk ch - 1
+    if (ch + 1 < n_chunks)
+      hvpr::stage_rows<kChunk, kACS, kAThreads>(
+          tab, chunks + ((ch + 1) & 1) * kAChunkElems, (ch + 1) * kChunk, N, C);
+    const __nv_bfloat16* tb = chunks + (ch & 1) * kAChunkElems;
+#pragma unroll
+    for (int j0 = 0; j0 < 4; j0 += JW) {
+      double acc[JW][4];
+#pragma unroll
+      for (int j = 0; j < JW; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0;
+#pragma unroll
+      for (int ks = 0; ks < kAKSteps; ++ks) {
+        if (ks * kDK < C) {
+          const int c = ks * kDK + kRun * q;
+#pragma unroll
+          for (int j = 0; j < JW; ++j) {
+            double bf[kRun];
+            if (c < C) {
+              hvpr::widen_run<kDK>(tb + (cb + 8 * (j0 + j) + g) * kACS + c, bf);
+            } else {
+#pragma unroll
+              for (int i = 0; i < kRun; ++i) bf[i] = 0.0;
+            }
+            hvpr::dmma16(acc[j], a[ks], bf);
+          }
+        }
+      }
+      on_chunk(ch * kChunk + cb, j0, acc);
+    }
+  }
+}
+
+// ----------------------------------------------------------------- K8
+
+// A tile's thresholds. Lane (g, q) of warp w keeps the bucket maxima of
+// rows rb + 8 i + g and buckets cb + 8 j + 2 q + h: the buckets of the
+// points it holds in every chunk. Each score is f32(dot) + neg, masked
+// points included (neg ~ -1e30); points past N score exactly -1e30, as the
+// plain version's padding. kTJW: the columns of scores a lane holds at once
+// (of 4); 2 leaves registers for the maxima without a spill at 4 blocks an
+// SM, and measured as fast as 4 (tools/torch_port/k4_k8_versions.py).
+constexpr int kTJW = 2;
+
+__global__ void __launch_bounds__(kAThreads, kABlocks)
+bucket_threshold_kernel(const __nv_bfloat16* __restrict__ pill,
+                        const __nv_bfloat16* __restrict__ tab,
+                        const float* __restrict__ neg, const bool* __restrict__ row_mask,
+                        float* __restrict__ th_out, int V, int N, int C, int k) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* chunks = reinterpret_cast<__nv_bfloat16*>(smem);    // 2 x kAChunkElems
+  float* bm = reinterpret_cast<float*>(smem);           // kARows x kChunk, after the sweep
+  const int b = blockIdx.y, v0 = blockIdx.x * kARows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+
+  if (!tile_has_valid<kARows>(row_mask, b, v0, V)) {
+    const int t = threadIdx.x;
+    if (t < kARows && v0 + t < V) th_out[(size_t)b * V + v0 + t] = 0.f;
+    return;
+  }
+  const float* nb = neg + (size_t)b * N;
+  float bmax[2][4][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bmax[i][j][0] = bmax[i][j][1] = -CUDART_INF_F;
+
+  dmma_sweep<kTJW>(pill, tab + (size_t)b * N * C, chunks, b, v0, V, N, C,
+                   [&](int nc, int j0, const double (&acc)[kTJW][4]) {
+#pragma unroll
+    for (int j = 0; j < kTJW; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = nc + 8 * (j0 + j) + 2 * q + h;
+        const float ng = n < N ? __ldg(nb + n) : 0.f;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float s = n < N ? __fadd_rn(__double2float_rn(acc[j][2 * i + h]), ng) : kNeg;
+          bmax[i][j0 + j][h] = fmaxf(bmax[i][j0 + j][h], s);
+        }
+      }
+  });
+  __syncthreads();                      // no warp reads the last chunk
+  const int rb = (warp % kARowGroups) * 16, cb = (warp / kARowGroups) * 32;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        bm[(rb + 8 * i + g) * kChunk + cb + 8 * j + 2 * q + h] = bmax[i][j][h];
+  __syncthreads();
+  for (int r = warp; r < kARows; r += kAWarps) {
+    const float th = kth_largest(bm + r * kChunk, k, lane);
+    const int v = v0 + r;
+    if (lane == 0 && v < V) th_out[(size_t)b * V + v] = row_valid(row_mask, b, v, V) ? th : 0.f;
+  }
+}
+
+// K9's dense sweep over a tile (dmma_sweep). A chunk's picks enter each
+// row's list in index order: a row's picks within a warp are one 32-bit
+// mask (OR of its 4 lanes), and the 4 warps over a row's points add in
+// point order by their counts in shared memory. Then a warp finishes
+// kARows / kAWarps = 4 rows.
 __global__ void __launch_bounds__(kAThreads, kABlocks)
 masked_attend_fwd_kernel(const __nv_bfloat16* __restrict__ pill,
                          const __nv_bfloat16* __restrict__ sel,
@@ -526,56 +544,20 @@ masked_attend_fwd_kernel(const __nv_bfloat16* __restrict__ pill,
     empty_tile(o, row0, min(kARows, V - v0), kAThreads);
     return;
   }
-  hvpr::stage_rows<kChunk, kACS, kAThreads>(selb, chunks, 0, N, C);
   if (threadIdx.x < kARows) total[threadIdx.x] = 0;
 
-  // the warp's rows rb + 8 i + g (i < 2) and points cb + 8 j + 2 q + h
-  // (j < 4, h < 2) of a chunk; a row outside the mask selects nothing
-  const int rb = (warp % kARowGroups) * 16, cg = warp / kARowGroups, cb = cg * 32;
-  const int ksteps = C / 4;
-  double a[2][kAKSteps];
+  // the warp's rows rb + 8 i + g; a row outside the mask selects nothing
+  const int rb = (warp % kARowGroups) * 16, cg = warp / kARowGroups;
   float thr[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int v = v0 + rb + 8 * i + g;
-    const bool ok = row_valid(row_mask, b, v, V);
-    thr[i] = ok ? th[(size_t)b * V + v] : CUDART_INF_F;
-#pragma unroll
-    for (int ks = 0; ks < kAKSteps; ++ks)
-      a[i][ks] = v < V && ks < ksteps
-          ? hvpr::widen(pill[((size_t)b * V + v) * C + ks * 4 + q]) : 0.0;
+    thr[i] = row_valid(row_mask, b, v, V) ? th[(size_t)b * V + v] : CUDART_INF_F;
   }
 
-  const int n_chunks = (N + kChunk - 1) / kChunk;
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    if (ch + 1 < n_chunks) {
-      hvpr::stage_rows<kChunk, kACS, kAThreads>(
-          selb, chunks + ((ch + 1) & 1) * kAChunkElems, (ch + 1) * kChunk, N, C);
-      hvpr::cp_async_wait<1>();
-    } else {
-      hvpr::cp_async_wait<0>();
-    }
-    __syncthreads();                    // the chunk is in; last chunk's totals done
-    const __nv_bfloat16* tb = chunks + (ch & 1) * kAChunkElems;
-    double acc[2][4][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = 0.0;
-#pragma unroll
-    for (int ks = 0; ks < kAKSteps; ++ks) {
-      if (ks < ksteps) {
-        double bf[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bf[j] = hvpr::widen(tb[(cb + 8 * j + g) * kACS + ks * 4 + q]);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) hvpr::dmma(acc[i][j][0], acc[i][j][1], a[i][ks], bf[j]);
-      }
-    }
+  dmma_sweep<4>(pill, selb, chunks, b, v0, V, N, C,
+                [&](int nc, int, const double (&acc)[4][4]) {
     // scores, picks, and each row's mask of picks over the warp's 32 points
-    const int nc = ch * kChunk + cb;
     float sc[2][4][2];
     unsigned mask[2] = {0u, 0u};
 #pragma unroll
@@ -587,7 +569,7 @@ masked_attend_fwd_kernel(const __nv_bfloat16* __restrict__ pill,
         const bool ok = n < N && ng == 0.f;
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
-          const float s = __fadd_rn(__double2float_rn(acc[i][j][h]), ng);
+          const float s = __fadd_rn(__double2float_rn(acc[j][2 * i + h]), ng);
           sc[i][j][h] = s;
           if (ok && s >= thr[i]) mask[i] |= 1u << (8 * j + 2 * q + h);
         }
@@ -599,7 +581,7 @@ masked_attend_fwd_kernel(const __nv_bfloat16* __restrict__ pill,
       mask[i] |= __shfl_xor_sync(kFull, mask[i], 2);
       if (q == 0) part[(rb + 8 * i + g) * 4 + cg] = __popc(mask[i]);
     }
-    __syncthreads();                    // every warp's counts
+    __syncthreads();                    // every warp's counts; last chunk's totals
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       if (mask[i] == 0u) continue;
@@ -625,7 +607,7 @@ masked_attend_fwd_kernel(const __nv_bfloat16* __restrict__ pill,
       const int* pr = part + threadIdx.x * 4;
       total[threadIdx.x] += pr[0] + pr[1] + pr[2] + pr[3];
     }
-  }
+  });
   __syncthreads();                      // the totals; the chunk buffers are free
   load_pillars<kARows, kAThreads>(pill, ps, b, v0, V, C);
   __syncthreads();
@@ -905,8 +887,8 @@ overflow_rows_kernel(const int* __restrict__ cnt, int* __restrict__ ovf,
   if (threadIdx.x == 0) n_ovf[b] = total;
 }
 
-// bf16(a) . bf16(x) over C channels, f64 in channel order (as tile_dot and
-// dot_row), rounded to f32
+// bf16(a) . bf16(x) over C channels, f64 in channel order (as dot_row),
+// rounded to f32
 __device__ __forceinline__ float dot_bf16(const __nv_bfloat16* __restrict__ a,
                                           const __nv_bfloat16* __restrict__ x, int C) {
   double acc = 0.0;
@@ -1126,7 +1108,7 @@ long_reduce_kernel(const int* __restrict__ offsets, const int* __restrict__ sort
   }
 }
 
-constexpr size_t kThreshSmem = sizeof(double) * (kMaxC * kRows + kMaxC * kChunk);
+constexpr size_t kThreshSmem = 2 * kAChunkElems * 2;
 constexpr size_t kFwdSmem = 2 * kAChunkElems * 2 + (sizeof(int) + sizeof(float)) * kARows * kCap
                             + sizeof(int) * kARows * 5;
 constexpr size_t kPairsSmem = sizeof(double) * kMaxC * kRows
@@ -1144,8 +1126,8 @@ extern "C" int hvpr_bucket_threshold(const void* pill, const void* tab, const fl
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)kThreshSmem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((V + kRows - 1) / kRows, B);
-  bucket_threshold_kernel<<<grid, kThreads, kThreshSmem, (cudaStream_t)stream>>>(
+  const dim3 grid((V + kARows - 1) / kARows, B);
+  bucket_threshold_kernel<<<grid, kAThreads, kThreshSmem, (cudaStream_t)stream>>>(
       static_cast<const __nv_bfloat16*>(pill), static_cast<const __nv_bfloat16*>(tab), neg,
       static_cast<const bool*>(row_mask), th, V, N, C, k);
   return (int)cudaGetLastError();

@@ -92,9 +92,9 @@ class SAModuleMSG(nn.Module):
         # radius-bounded offsets are cast
         src = xyz if features is None else torch.cat([xyz, features.float()], dim=-1)
         outs = []
-        for radius, nsample, mlp in zip(self.radii, self.nsamples, self.mlps):
-            nbr_idx, cnt = pn2.ball_query(radius, nsample, xyz, new_xyz, mask,
-                                          semantics=self.semantics)
+        neighbours = pn2.ball_query_msg(self.radii, self.nsamples, xyz, new_xyz, mask,
+                                        semantics=self.semantics)
+        for (nbr_idx, cnt), nsample, mlp in zip(neighbours, self.nsamples, self.mlps):
             grouped = pn2.group_points(src, nbr_idx)                      # (B, S, ns, C)
             grouped_xyz = (grouped[..., :3] - new_xyz[:, :, None, :]).to(cd)
             if features is not None:

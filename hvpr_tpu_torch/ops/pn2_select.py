@@ -3,7 +3,8 @@ chunk-parallel FPS (kernel K5).
 
 Port of ``hvpr_tpu/ops/pn2_select.py`` ``ball_query_bucket``,
 ``three_nn_bucket`` and ``fps_chunks_pallas``. On a CUDA tensor
-:func:`ball_query_bucket` launches ``csrc/ball_query.cu``,
+:func:`ball_query_bucket` launches ``csrc/ball_query.cu`` (and
+:func:`ball_query_bucket2` the same kernel for two radii in one sweep),
 :func:`three_nn_bucket` ``csrc/three_nn.cu`` and :func:`fps_chunks`
 ``csrc/fps_chunks.cu``; on a CPU tensor each runs its plain version.
 
@@ -83,6 +84,39 @@ def ball_query_bucket_plain(radius, nsample, xyz, new_xyz, mask, chunk=512):
     return idx, cnt
 
 
+def _check_nsamples(*nsamples):
+    for nsample in nsamples:
+        if not 1 <= nsample <= NUM_BUCKETS:
+            raise ValueError(f'ball_query: nsample {nsample} outside [1, 128]')
+
+
+def _ball_query_inputs(xyz, new_xyz, mask):
+    """Check a kernel call's inputs; returns them contiguous with (B, N, S)."""
+    xyz = xyz.detach().float().contiguous()
+    new_xyz = new_xyz.detach().float().contiguous()
+    mask = mask.contiguous()
+    _kernels.check_cuda_input('ball_query xyz', xyz, torch.float32, 3)
+    _kernels.check_cuda_input('ball_query new_xyz', new_xyz, torch.float32, 3)
+    _kernels.check_cuda_input('ball_query mask', mask, torch.bool, 2)
+    b, n, _ = xyz.shape
+    if (xyz.shape[2] != 3 or new_xyz.shape[0] != b or new_xyz.shape[2] != 3
+            or mask.shape != (b, n) or len({xyz.device, new_xyz.device,
+                                            mask.device}) != 1):
+        raise ValueError(f'ball_query: xyz {tuple(xyz.shape)}, new_xyz '
+                         f'{tuple(new_xyz.shape)}, mask {tuple(mask.shape)}')
+    return xyz, new_xyz, mask, (b, n, new_xyz.shape[1])
+
+
+def _ball_query_outputs(nsample, b, s, device):
+    return (torch.empty(b, s, nsample, dtype=torch.int32, device=device),
+            torch.empty(b, s, dtype=torch.int32, device=device))
+
+
+def _r2(radius):
+    """f32(radius * radius), the bound the plain version compares with."""
+    return ctypes.c_float(float(radius) * float(radius))
+
+
 def ball_query_bucket(radius, nsample, xyz, new_xyz, mask):
     """Bucketed ball query.
 
@@ -93,39 +127,55 @@ def ball_query_bucket(radius, nsample, xyz, new_xyz, mask):
     Returns:
         idx (B, S, nsample) int32, cnt (B, S) int32.
     """
-    if not 1 <= nsample <= NUM_BUCKETS:
-        raise ValueError(f'ball_query: nsample {nsample} outside [1, 128]')
-    xyz = xyz.detach()
-    new_xyz = new_xyz.detach()
+    _check_nsamples(nsample)
     if not _kernels.use_kernel(xyz):
-        return ball_query_bucket_plain(radius, nsample, xyz, new_xyz, mask)
-    xyz = xyz.float().contiguous()
-    new_xyz = new_xyz.float().contiguous()
-    mask = mask.contiguous()
-    _kernels.check_cuda_input('ball_query xyz', xyz, torch.float32, 3)
-    _kernels.check_cuda_input('ball_query new_xyz', new_xyz, torch.float32, 3)
-    _kernels.check_cuda_input('ball_query mask', mask, torch.bool, 2)
-    b, n, _ = xyz.shape
-    s = new_xyz.shape[1]
-    if (xyz.shape[2] != 3 or new_xyz.shape[0] != b or new_xyz.shape[2] != 3
-            or mask.shape != (b, n) or len({xyz.device, new_xyz.device,
-                                            mask.device}) != 1):
-        raise ValueError(f'ball_query: xyz {tuple(xyz.shape)}, new_xyz '
-                         f'{tuple(new_xyz.shape)}, mask {tuple(mask.shape)}')
-    idx = torch.empty(b, s, nsample, dtype=torch.int32, device=xyz.device)
-    cnt = torch.empty(b, s, dtype=torch.int32, device=xyz.device)
+        return ball_query_bucket_plain(radius, nsample, xyz.detach(), new_xyz.detach(), mask)
+    xyz, new_xyz, mask, (b, n, s) = _ball_query_inputs(xyz, new_xyz, mask)
+    idx, cnt = _ball_query_outputs(nsample, b, s, xyz.device)
     if b * s == 0:
         return idx, cnt
-    r2 = ctypes.c_float(float(radius) * float(radius))
     fn = _kernels.library('ball_query').hvpr_ball_query
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_float]
                    + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     err = fn(_kernels.ptr(xyz), _kernels.ptr(new_xyz), _kernels.ptr(mask),
-             _kernels.ptr(idx), _kernels.ptr(cnt), r2, b, n, s, nsample,
+             _kernels.ptr(idx), _kernels.ptr(cnt), _r2(radius), b, n, s, nsample,
              _kernels.stream_handle(xyz))
     _kernels.launched('ball_query', err)
     return idx, cnt
+
+
+def ball_query_bucket2(radii, nsamples, xyz, new_xyz, mask):
+    """Both radii of a multi-scale grouping level in one sweep (one launch of
+    K4): the same outputs as ``ball_query_bucket`` called once per radius.
+
+    Args:
+        radii, nsamples: two floats and two ints (each <= 128); the rest as
+            :func:`ball_query_bucket`.
+    Returns:
+        ((idx, cnt) of radii[0], (idx, cnt) of radii[1]).
+    """
+    (r0, r1), (ns0, ns1) = radii, nsamples
+    _check_nsamples(ns0, ns1)
+    if not _kernels.use_kernel(xyz):
+        return tuple(ball_query_bucket_plain(r, ns, xyz.detach(), new_xyz.detach(), mask)
+                     for r, ns in ((r0, ns0), (r1, ns1)))
+    xyz, new_xyz, mask, (b, n, s) = _ball_query_inputs(xyz, new_xyz, mask)
+    out0 = _ball_query_outputs(ns0, b, s, xyz.device)
+    out1 = _ball_query_outputs(ns1, b, s, xyz.device)
+    if b * s == 0:
+        return out0, out1
+    fn = _kernels.library('ball_query').hvpr_ball_query2
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_int]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_float] + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    err = fn(_kernels.ptr(xyz), _kernels.ptr(new_xyz), _kernels.ptr(mask),
+             _kernels.ptr(out0[0]), _kernels.ptr(out0[1]), _r2(r0), ns0,
+             _kernels.ptr(out1[0]), _kernels.ptr(out1[1]), _r2(r1), ns1, b, n, s,
+             _kernels.stream_handle(xyz))
+    _kernels.launched('ball_query', err)
+    return out0, out1
 
 
 def three_nn_bucket_plain(unknown, known, known_mask, chunk=512):

@@ -3,8 +3,9 @@
 Port of ``hvpr_tpu/ops/pointnet2.py``: furthest point sampling (exact, or
 Morton-chunked through :func:`ops.pn2_select.fps_chunks`, kernel K5 on the
 card), ball query (the lane-bucket rule through
-:func:`ops.pn2_select.ball_query_bucket`, kernel K4 on the card, or the
-reference's first-by-index rule in plain torch), grouping, and the 3-NN
+:func:`ops.pn2_select.ball_query_bucket`, kernel K4 on the card, both radii
+of a multi-scale level in one sweep, or the reference's first-by-index rule
+in plain torch), grouping, and the 3-NN
 feature propagation (plain torch: it is XLA in the JAX package on every
 backend, not a TPU kernel).
 
@@ -15,7 +16,7 @@ weights are computed from detached coordinates.
 
 import torch
 
-from .pn2_select import _sq_dist, ball_query_bucket, fps_chunks
+from .pn2_select import _sq_dist, ball_query_bucket, ball_query_bucket2, fps_chunks
 
 INF = 1e10
 
@@ -107,6 +108,21 @@ def ball_query(radius, nsample, xyz, new_xyz, mask, semantics='auto'):
     cnt = found.sum(dim=-1).to(torch.int32)
     idx = torch.where(found, key, key[..., 0:1])
     return torch.where(found[..., 0:1], idx, 0), cnt
+
+
+def ball_query_msg(radii, nsamples, xyz, new_xyz, mask, semantics='auto'):
+    """:func:`ball_query` for each (radius, nsample) of a multi-scale
+    grouping level, over the same points and centres: [(idx, cnt), ...].
+    Under the lane-bucket rule a level of two radii is one sweep
+    (:func:`ops.pn2_select.ball_query_bucket2`, one launch of K4 on the
+    card), with the outputs of one call per radius."""
+    if semantics not in ('auto', 'first', 'bucket'):
+        raise ValueError(semantics)
+    if semantics != 'first' and len(radii) == 2:
+        return [(idx.long(), cnt)
+                for idx, cnt in ball_query_bucket2(radii, nsamples, xyz, new_xyz, mask)]
+    return [ball_query(r, ns, xyz, new_xyz, mask, semantics=semantics)
+            for r, ns in zip(radii, nsamples)]
 
 
 def group_points(features, idx):

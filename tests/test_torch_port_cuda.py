@@ -11,7 +11,8 @@ distances. K6/K7 (the memory
 reconstruction) and K9/K10 (the masked attention) also accumulate exact
 products in f64, but a sum of f32 terms in f64 may round its last bit by
 order: their float outputs are held to 1e-5 of the output's largest
-magnitude; K8's thresholds and K9's selected counts, row maxima and pairs
+magnitude; K8's thresholds (its score product on DMMA, as K9's) and K9's
+selected counts, row maxima and pairs
 (indices and bf16 weights) are exact, in K9's dense sweep and in its pair
 pass (a call handed another call's selection). K10 reduces K9's pairs; it
 is also held to the dense plain backward, which recomputes every row's
@@ -152,6 +153,57 @@ def test_ball_query_kernel(cuda, b, n, s, radius, nsample):
     assert torch.equal(gi, wi) and torch.equal(gc, wc)
     assert int(gc[0, 0]) == 0 and int(gc.max()) > 1
     assert _kernels.launch_counts()['ball_query'] == before + 1
+
+
+def _ball_edge_inputs(rng, radius):
+    """Three scans of 1000 points (1000 % 32 != 0) and 64 centres each:
+    scan 0 a cube of side radius / 2, so every valid point is in reach of
+    every centre (neighbourhoods that fill early, ~950 hits colliding in 128
+    buckets), scan 1 all invalid, scan 2 sparse with points placed on each
+    centre's sphere of the radius (3-4-5 offsets and axis offsets, which
+    round to either side of f32(r * r))."""
+    n, s = 1000, 64
+    xyz = rng.uniform(0, 1, (3, n, 3)).astype(np.float32)
+    xyz[0] *= radius * 0.5
+    xyz[2] *= 40.0
+    centres = xyz[:, rng.choice(n, s, replace=False)].copy()
+    ring = np.array([[0.6, 0.8, 0.0], [0.0, 0.6, 0.8], [1.0, 0.0, 0.0],
+                     [0.0, 0.0, -1.0], [0.8, 0.0, 0.6]], np.float32) * radius
+    for i in range(s):
+        slots = 300 + 5 * i + np.arange(5)
+        xyz[2, slots] = centres[2, i] + ring
+    mask = rng.uniform(size=(3, n)) > 0.05
+    mask[1] = False
+    mask[2, 300:] = True
+    return (torch.from_numpy(xyz), torch.from_numpy(centres), torch.from_numpy(mask))
+
+
+@pytest.mark.parametrize('nsample', [1, 16, 32, 128])
+@pytest.mark.parametrize('radius', [0.5, 0.25])
+def test_ball_query_kernel_edges(cuda, radius, nsample):
+    """K4 (a warp a centre) against its plain version, bit for bit: ragged
+    groups of 32, every nsample up to the 128 buckets, points on the radius,
+    an all-invalid scan, dense neighbourhoods, and the two-radius sweep
+    against one plain call per radius."""
+    from hvpr_tpu_torch.ops.pn2_select import ball_query_bucket2
+    rng = np.random.default_rng(int(radius * 100) + nsample)
+    xyz, centres, mask = (t.to(cuda) for t in _ball_edge_inputs(rng, radius))
+    before = _kernels.launch_counts()['ball_query']
+    (gi, gc), (wi, wc) = _both(ball_query_bucket, radius, nsample, xyz, centres, mask)
+    assert torch.equal(gi, wi) and torch.equal(gc, wc)
+    assert int(gc[1].max()) == 0 and int(gi[1].abs().max()) == 0     # all invalid
+    assert int(gc[0].min()) == nsample                               # filled early
+    assert _kernels.launch_counts()['ball_query'] == before + 1
+    if nsample == 128:
+        hits = (((xyz[0, None] - centres[0, :, None]) ** 2).sum(-1) < radius ** 2)
+        assert int((hits & mask[0]).sum(-1).min()) > 128             # buckets collide
+    other = (radius * 2.0, 32)
+    got, want = _both(ball_query_bucket2, (radius, other[0]), (nsample, other[1]),
+                      xyz, centres, mask)
+    assert _kernels.launch_counts()['ball_query'] == before + 2
+    for (gi2, gc2), (wi2, wc2) in zip(got, want):
+        assert torch.equal(gi2, wi2) and torch.equal(gc2, wc2)
+    assert torch.equal(got[0][0], gi) and torch.equal(got[0][1], gc)
 
 
 @pytest.mark.parametrize('r,l,nsamp', [(3, 100, 20), (64, 1024, 256), (64, 256, 64)])
@@ -325,6 +377,39 @@ def test_topk_attend_kernels(cuda, b, v, n, c, k):
             # and the dense oracle, which recomputes every row's weights
             _close(dval, masked_attend_bwd_plain(pillars, points, val, neg, th, mx, den,
                                                  dout, shared, mask))
+
+
+@pytest.mark.parametrize('k', [1, 20, 128])
+@pytest.mark.parametrize('c', [8, 32, 64])
+@pytest.mark.parametrize('quantized', [False, True])
+def test_bucket_threshold_kernel(cuda, quantized, c, k):
+    """K8 (the DMMA sweep) against its plain version, bit for bit: N % 128
+    != 0 and a scan of fewer points than buckets (padded buckets), masked
+    points scored -1e30 + dot, quantized inputs whose scores tie, masked
+    rows and a 16-row tile without a valid row."""
+    rng = np.random.default_rng(c * 1000 + k + quantized)
+    b, v = 3, 100
+    for n in (1000, 100):
+        if quantized:       # dots of small integers / 2: many equal scores
+            pillars = rng.integers(-2, 3, (b, v, c)) / 2.0
+            table = rng.integers(-2, 3, (b, n, c)) / 2.0
+        else:
+            pillars, table = rng.normal(size=(b, v, c)), rng.normal(size=(b, n, c))
+        neg = np.where(rng.uniform(size=(b, n)) < 0.2, -1e30, 0.0)
+        neg[0, -37:] = -1e30
+        neg[2] = -1e30                                       # every point masked
+        row_mask = rng.uniform(size=(b, v)) > 0.3
+        row_mask[:, 16:32] = False                           # a tile without a valid row
+        args = [torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(cuda)
+                for x in (pillars, table, neg)]
+        mask = torch.from_numpy(row_mask).to(cuda)
+        before = _kernels.launch_counts()['bucket_threshold']
+        th, th_p = _both(bucket_threshold, *args, k, mask)
+        assert torch.equal(th, th_p)
+        assert _kernels.launch_counts()['bucket_threshold'] == before + 1
+        assert float(th[~mask].abs().max()) == 0.0
+        if n < k:
+            assert bool((th[mask] == -1e30).all())            # a padded bucket's maximum
 
 
 @pytest.mark.parametrize('b,v,n,c,k', [(3, 300, 1000, 64, 20), (2, 100, 300, 16, 4),

@@ -69,6 +69,36 @@ def test_ball_query_bucket_matches_jax(n, s, radius, nsample, invalid):
     assert (int(got_cnt.max()) == nsample) == (radius > 0.5)
 
 
+@pytest.mark.parametrize('n,s,radii,nsamples,invalid', [
+    (700, 64, (0.3, 1.0), (16, 32), 37),      # hvpr.yaml SA1's nsample, collisions
+    (1000, 50, (0.5, 7.0), (16, 128), 200),   # every bucket at the large radius
+    (100, 40, (1.2, 0.2), (8, 4), 0),         # N < 128, the small radius second
+])
+def test_ball_query_two_radii_matches_jax(n, s, radii, nsamples, invalid):
+    """Both radii of a multi-scale level in one call (one sweep of K4 on the
+    card) against two calls of the JAX package's ball_query_bucket_xla, and
+    the model's ball_query_msg against JAX's ball_query per radius."""
+    rng = np.random.default_rng(n + 1)
+    xyz, mask = _cloud(rng, 2, n, invalid=invalid)
+    centres = xyz[:, rng.choice(n - invalid, s, replace=False)]
+    centres[0, 0] = [9.0, 9.0, 9.0]             # a centre with no hit
+    args = (torch.from_numpy(xyz), torch.from_numpy(centres), torch.from_numpy(mask))
+    got = port_sel.ball_query_bucket2(radii, nsamples, *args)
+    msg = port_pn2.ball_query_msg(radii, nsamples, *args)
+    for (idx, cnt), (midx, mcnt), r, ns in zip(got, msg, radii, nsamples):
+        want_idx, want_cnt = jax_sel.ball_query_bucket_xla(
+            r, ns, jnp.asarray(xyz), jnp.asarray(centres), jnp.asarray(mask))
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(want_idx))
+        np.testing.assert_array_equal(cnt.numpy(), np.asarray(want_cnt))
+        assert midx.dtype == torch.int64
+        np.testing.assert_array_equal(midx.numpy(), np.asarray(want_idx))
+        np.testing.assert_array_equal(mcnt.numpy(), np.asarray(want_cnt))
+        assert int(cnt[0, 0]) == 0
+    # the larger radius fills its slots at some centre
+    large = int(np.argmax(radii))
+    assert int(got[large][1].max()) == nsamples[large]
+
+
 @pytest.mark.parametrize('semantics', ['first', 'bucket'])
 def test_ball_query_semantics_match_jax(semantics):
     rng = np.random.default_rng(7)
