@@ -350,7 +350,7 @@ def inference_phase(smi):
         entries[name] = {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms}
         print(f'{name}: {len(calls[name])} call(s) per forward, max_abs_err {err}, '
               f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms')
-        if name in ('memory_lookup', 'bev_canvas'):
+        if name in ('segment_sweep', 'memory_lookup', 'bev_canvas'):
             print(f'{name}: device ms per forward by kernel (torch.profiler): '
                   + device_breakdown(lambda: [fn(*a, **kw) for a, kw in calls[name]]))
         # the kernels repeat the plain versions' arithmetic: bit-identical

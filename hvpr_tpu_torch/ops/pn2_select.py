@@ -25,10 +25,11 @@ the JAX package does.
 
 FPS rules (``_fps_kernel``): each chunk starts at its first valid row, or at
 its last row if none is valid; invalid rows score -BIG; each step takes the
-row of largest running minimum distance, ties to the lowest row. K5 holds a
-set of up to 8192 rows in shared memory; a longer set (exact FPS over a
-whole scan) takes its long path, which holds 16,384 rows on chip and
-streams the rest from device memory, so any set length runs.
+row of largest running minimum distance, ties to the lowest row. K5 gives a
+set of up to 8192 rows one block (up to 256 rows, one warp), its rows in
+registers; a longer set (exact FPS over a whole scan) takes its long path,
+a cluster of 8 blocks that holds 32,768 rows in registers and streams the
+rest from device memory, so any set length runs.
 
 Both are selection machinery: their outputs are integer indices and carry no
 gradient.
@@ -43,7 +44,7 @@ from . import _kernels
 NUM_BUCKETS = 128
 _BIG = 1e30
 _INF = 1e10              # ops/pointnet2.INF, the masked 3-NN distance cap
-_FPS_MAX_ROWS = 8192     # rows of a set K5's shared-memory path holds; longer
+_FPS_MAX_ROWS = 8192     # rows of a set K5's one-block path holds; longer
                          # sets take its long path
 
 

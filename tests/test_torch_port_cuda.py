@@ -69,6 +69,56 @@ def test_segment_sweep_kernel(cuda, op, c):
     assert _kernels.launch_counts()['segment_sweep'] == before + 1
 
 
+def _sweep_layout(rng, r, max_seg):
+    """Slots of contiguous segments of 1..max_seg rows (every fourth exactly
+    max_seg), sentinel rows at the start, between segments and at the end,
+    and a max_seg segment across each window edge of the kernel (its output
+    windows hold 512 - 2 * halo rows) and across a 16-row lane strip."""
+    sentinel = r + 1000
+    slot = np.full(r, sentinel, np.int32)
+    pos, sid = int(rng.integers(1, 5)), 0
+    while pos < r - 3:
+        pos += int(rng.integers(0, 3))
+        seg = max_seg if sid % 4 == 0 else int(rng.integers(1, max_seg + 1))
+        end = min(pos + seg, r - 3)
+        slot[pos:end] = sid
+        pos, sid = end, sid + 1
+    steps = int(np.ceil(np.log2(max_seg))) if max_seg > 1 else 0
+    halo = ((1 << steps) - 1 + 3) // 4 * 4
+    out_rows = 512 - 2 * halo
+    for k, edge in enumerate([out_rows * i for i in range(1, 4)] + [16 * 7]):
+        a = edge - max_seg // 2
+        if a >= 1 and a + max_seg <= r - 3:
+            slot[a:a + max_seg] = r + k
+    return slot
+
+
+@pytest.mark.parametrize('r', [37, 5003, 6144])          # below one window, R % 4 != 0
+@pytest.mark.parametrize('c', [1, 4, 16, 64])
+@pytest.mark.parametrize('max_seg', [8, 20, 32, 64])
+@pytest.mark.parametrize('op', ['max', 'sum'])
+def test_segment_sweep_kernel_edges(cuda, op, max_seg, c, r):
+    """K1 equals the plain sweeps bit for bit at every max_seg the wrapper
+    takes, at ragged and tiny R, with segments across window and strip
+    edges, and a max segment mixing -0.0 and +0.0."""
+    rng = np.random.default_rng(max_seg * 1000 + c + r)
+    slot = _sweep_layout(rng, r, max_seg)
+    x = rng.normal(size=(c, r)).astype(np.float32)
+    x[:, slot > r + 100] = -1e9 if op == 'max' else 0.0     # sentinel rows
+    # a segment of signed zeros: the first run of 2 rows or more from 2R/3 on
+    cuts = np.flatnonzero(np.diff(slot)) + 1
+    runs = [(a, e) for a, e in zip(np.r_[0, cuts], np.r_[cuts, r])
+            if e - a >= 2 and slot[a] <= r + 100]
+    a, e = next(((a, e) for a, e in runs if a >= 2 * r // 3), runs[-1])
+    x[:, a:e] = np.where(np.arange(e - a) % 2, 0.0, -0.0)
+    before = _kernels.launch_counts()['segment_sweep']
+    got, want = _both(segment_sweep, torch.from_numpy(x).to(cuda),
+                      torch.from_numpy(slot).to(cuda), max_seg, op)
+    assert torch.equal(got, want)
+    assert np.array_equal(got.cpu().numpy().view(np.int32), want.cpu().numpy().view(np.int32))
+    assert _kernels.launch_counts()['segment_sweep'] == before + 1
+
+
 @pytest.mark.parametrize('m,c,k', [(2000, 64, 20), (64, 32, 4), (300, 16, 128)])
 def test_memory_lookup_kernel(cuda, m, c, k):
     rng = np.random.default_rng(m)
@@ -223,8 +273,9 @@ def test_fps_chunks_kernel(cuda, r, l, nsamp):
 
 @pytest.mark.parametrize('r,l,nsamp', [(2, 16384, 512), (1, 20000, 300), (3, 8193, 64)])
 def test_fps_chunks_long_sets(cuda, r, l, nsamp):
-    """Sets longer than the shared-memory path holds: K5's long path (16,384
-    rows on chip, the rest streamed from device memory)."""
+    """Sets longer than the one-block path holds: K5's long path (a cluster
+    of 8 blocks, 32,768 rows in registers, the rest streamed from device
+    memory: see the 40,000-row case of test_fps_chunks_kernel_edges)."""
     rng = np.random.default_rng(l)
     pts = torch.from_numpy(rng.normal(size=(r, l, 3)).astype(np.float32))
     pts[:, 100:120] = pts[:, 50:51]                          # exact ties
@@ -240,6 +291,41 @@ def test_fps_chunks_long_sets(cuda, r, l, nsamp):
     if r > 2:
         assert int(got[2, 0]) == l - 1
     assert _kernels.launch_counts()['fps_chunks'] == before + 1
+
+
+def _fps_case(name):
+    """(pts, valid, nsamp) of one K5 edge case."""
+    rng = np.random.default_rng(len(name))
+    r, l, nsamp = {'one-block limit': (2, 8192, 200), 'long path at 8193': (2, 8193, 200),
+                   'nsamp = L': (3, 300, 300), 'nsamp = L, one warp': (4, 32, 32),
+                   'all tied': (3, 1024, 64), 'only the last row valid': (3, 256, 8),
+                   'one warp': (5, 7, 5), 'nsamp = L, long': (1, 9000, 9000),
+                   'long path with a tail': (2, 40000, 100)}[name]
+    pts = torch.from_numpy(rng.normal(size=(r, l, 3)).astype(np.float32))
+    valid = torch.from_numpy(rng.uniform(size=(r, l)) > 0.1)
+    if name == 'all tied':
+        pts[:] = pts[:, :1]
+    if name == 'only the last row valid':
+        valid[:] = False
+        valid[:, -1] = True
+    return pts, valid, nsamp
+
+
+@pytest.mark.parametrize('name', ['one-block limit', 'long path at 8193', 'nsamp = L',
+                                  'nsamp = L, one warp', 'all tied',
+                                  'only the last row valid', 'one warp', 'nsamp = L, long',
+                                  'long path with a tail'])
+def test_fps_chunks_kernel_edges(cuda, name):
+    """K5 equals the plain FPS at the one-block path's limit and just past
+    it, with nsamp = L, with every point tied, with only the last row valid,
+    at one-warp sets, and past the long path's 32,768 rows on chip."""
+    pts, valid, nsamp = _fps_case(name)
+    before = _kernels.launch_counts()['fps_chunks']
+    got, want = _both(fps_chunks, pts.to(cuda), valid.to(cuda), nsamp)
+    assert torch.equal(got, want)
+    assert _kernels.launch_counts()['fps_chunks'] == before + 1
+    if name == 'only the last row valid':
+        assert bool((got == pts.shape[1] - 1).all())
 
 
 def test_exact_furthest_point_sample_on_a_scan(cuda):

@@ -144,7 +144,7 @@ def test_furthest_point_sample_matches_jax(num_chunks, npoint):
 @pytest.mark.parametrize('invalid', ['tail', 'scattered'])
 def test_exact_fps_over_a_whole_scan_matches_jax(invalid):
     """Exact FPS (num_chunks=1) over one 16,384-point scan: a single set
-    twice as long as K5's shared-memory path holds (the card takes K5's long
+    twice as long as K5's one-block path holds (the card takes K5's long
     path), with a duplicated point and invalid points, against the JAX
     package's exact ``_fps_one``."""
     rng = np.random.default_rng(16384)
