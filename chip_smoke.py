@@ -15,6 +15,17 @@ scans with seeded random weights:
   is held against its plain PyTorch version at the shapes the path gives
   it, the path must launch each of them, and its detections must equal
   those of the same pipeline through the plain versions.
+- eval_cli: the evaluation entry point ``python -m hvpr_tpu_torch.tools.test``
+  (its ``main``) at batch 8 on a synthetic KITTI tree of 16 val scenes with
+  its infos and a ``.pth`` of seeded random weights, all written by the
+  port: host-voxelized padded pillars, 2 batches, ``result.pkl``, KITTI
+  ``.txt`` files and the official AP. It must launch K2 once a batch and no
+  other kernel, give the same annos through the plain versions, and on the
+  first batch detections that agree with the flat device path's on the
+  same points (scores 2e-4, boxes 2e-3); the loop's scans/s and DataLoader
+  wait share (whole, and past the first batch), forward median and
+  evaluator seconds are printed. ``tools/torch_port/eval_times.py`` times
+  the loop over more scenes and the two layouts' stages.
 - training, batch 4, as shipped (``TRAIN_ATTEND_MODE: fused``): the point
   stream, the VFE, the attentive scatter (bucket threshold, masked attention
   of the points and of their memory reconstructions), the dual-pass
@@ -1242,6 +1253,186 @@ def exact_fps_phase(smi):
     return {'ms': ms, 'plain_ms': plain_ms, 'bound_ms': b_ms, 'launches': 1}, launches
 
 
+EVAL_VAL_SCENES = 16               # the eval_cli phase's KITTI tree: 16 val scenes,
+EVAL_TRAIN_SCENES = 4              # 4 train scenes (2 batches of 8 in val)
+EVAL_WORKERS = 4
+
+
+def _eval_result(root_dir, extra_tag):
+    """The annos of ``result.pkl`` that the test CLI wrote for ``extra_tag``."""
+    import pickle
+    from pathlib import Path
+    found = sorted(Path(root_dir).glob(f'output/**/{extra_tag}/eval/**/result.pkl'))
+    if len(found) != 1:
+        fail(f'eval_cli: expected one result.pkl for {extra_tag}, found {found}')
+    with open(found[0], 'rb') as f:
+        return pickle.load(f), found[0]
+
+
+def _annos_equal(a, b):
+    import numpy as np
+    return len(a) == len(b) and all(
+        x.keys() == y.keys() and all(np.array_equal(np.asarray(x[k]), np.asarray(y[k]))
+                                     for k in x)
+        for x, y in zip(a, b))
+
+
+def write_eval_tree(tmp, cfg, n_val):
+    """A synthetic KITTI tree of ``n_val`` val and EVAL_TRAIN_SCENES train
+    scenes under ``tmp`` (the port's writer), its infos
+    (``create_kitti_infos``) and a ``.pth`` of seeded random weights (the
+    port's checkpoint writer): (data root, checkpoint path)."""
+    from hvpr_tpu_torch.datasets.kitti.kitti_dataset import create_kitti_infos
+    from hvpr_tpu_torch.models import DatasetMeta, build_network
+    from hvpr_tpu_torch.utils.checkpoint import save_checkpoint
+    from hvpr_tpu_torch.utils.scans import build_kitti_root
+
+    root, _ = build_kitti_root(tmp / 'kitti', n_scenes=n_val + EVAL_TRAIN_SCENES,
+                               n_train=EVAL_TRAIN_SCENES)
+    create_kitti_infos(root, root)
+    meta = DatasetMeta(cfg.DATA_CONFIG, cfg.CLASS_NAMES)
+    writer = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), meta, device='cpu')
+    seed_weights(writer.module, seed=0)
+    ckpt = tmp / 'checkpoint_epoch_1.pth'
+    save_checkpoint(writer.module, ckpt, epoch=1)
+    return root, ckpt
+
+
+def run_test_cli(tmp, root, ckpt, tag, workers):
+    """``hvpr_tpu_torch.tools.test.main`` on the card: hvpr.yaml, batch 8,
+    --save_to_file, its output tree under ``tmp``; the result dict."""
+    from hvpr_tpu_torch import config
+    from hvpr_tpu_torch.tools import test as test_cli
+
+    config.cfg.ROOT_DIR = tmp
+    return test_cli.main([
+        '--cfg_file', CFG, '--ckpt', str(ckpt), '--batch_size', str(BATCH),
+        '--workers', str(workers), '--extra_tag', tag, '--save_to_file',
+        '--set', 'DATA_CONFIG.DATA_PATH', str(root)])
+
+
+def eval_cli_phase(smi):
+    """The evaluation entry point: a synthetic KITTI tree (16 val scenes, 4
+    train) written by the port's writer, its infos by ``create_kitti_infos``,
+    a ``.pth`` of seeded random weights by the port's checkpoint writer, then
+    ``hvpr_tpu_torch.tools.test.main`` on the card (hvpr.yaml, batch 8,
+    --save_to_file, host-voxelized padded pillars from 4 DataLoader
+    workers). Checks: 16 annos with the Car AP keys; K2 launched once a
+    batch and no other kernel; the same run under the plain versions gives
+    the same annos; and the padded path's detections on the first batch
+    agree with those of the flat device path on the same sampled points
+    within the JAX package's limits for its two layouts (scores 2e-4,
+    boxes 2e-3, the same labels, on the detections both keep). Returns that
+    path's launch counts."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    from hvpr_tpu_torch.datasets import build_dataloader
+    from hvpr_tpu_torch.models import build_network, load_data_to_gpu
+    from hvpr_tpu_torch.ops import _kernels
+    from hvpr_tpu_torch.utils.checkpoint import load_params_from_file
+
+    cfg = load_cfg()
+    build_dir = Path(ROOT) / 'build'
+    build_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        t0 = time.perf_counter()
+        root, ckpt = write_eval_tree(Path(tmp), cfg, EVAL_VAL_SCENES)
+        print(f'eval_cli: KITTI tree, infos and checkpoint written in '
+              f'{time.perf_counter() - t0:.2f} s')
+
+        def run(tag):
+            return run_test_cli(Path(tmp), root, ckpt, tag, EVAL_WORKERS)
+
+        # the main path, counts from zero
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        ret = run('kernels')
+        wall_s = time.perf_counter() - t0
+        launches = _kernels.launch_counts()
+        print(f'eval_cli path launches: {launches}')
+        n_batches = -(-EVAL_VAL_SCENES // BATCH)
+        for name, n in launches.items():
+            want = n_batches if name == 'memory_lookup' else 0
+            if n != want:
+                fail(f'the eval_cli path launched {name} {n} times, expected {want}')
+        annos, result_pkl = _eval_result(tmp, 'kernels')
+        if len(annos) != EVAL_VAL_SCENES:
+            fail(f'eval_cli: result.pkl holds {len(annos)} annos, expected {EVAL_VAL_SCENES}')
+        txt = sorted(result_pkl.parent.glob('final_result/data/*.txt'))
+        if len(txt) != EVAL_VAL_SCENES:
+            fail(f'eval_cli: {len(txt)} KITTI .txt files, expected {EVAL_VAL_SCENES}')
+        want_keys = {f'Car_{m}/{d}{r}' for m in ('3d', 'bev', 'image')
+                     for d in ('easy', 'moderate', 'hard') for r in ('', '_R40')}
+        if not want_keys <= set(ret):
+            fail(f'eval_cli: AP keys missing: {sorted(want_keys - set(ret))}')
+        if not all(np.isfinite(float(ret[k])) for k in want_keys):
+            fail('eval_cli: non-finite AP')
+        per_scan = [len(a['name']) for a in annos]
+        boxes = np.concatenate([a['boxes_lidar'] for a in annos])
+        if not np.isfinite(boxes).all():
+            fail('eval_cli: non-finite boxes')
+        print(f'eval_cli: {len(annos)} annos, detections per scan {per_scan}, '
+              f'Car 3d AP moderate {float(ret["Car_3d/moderate"]):.4f}, R40 '
+              f'{float(ret["Car_3d/moderate_R40"]):.4f} (random weights)')
+
+        # the same run through the plain versions: the same annos
+        with _kernels.plain_versions():
+            run('plain')
+        plain_annos, _ = _eval_result(tmp, 'plain')
+        if not _annos_equal(annos, plain_annos):
+            fail('eval_cli: annos differ from the run through the plain versions')
+        print('eval_cli: annos equal to those of the run through the plain versions')
+
+        # padded vs flat on the first batch's sampled points
+        np.random.seed(0)
+        test_set, _, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, BATCH,
+                                          root_path=root, workers=0)
+        batch = test_set.collate_batch([test_set[i] for i in range(BATCH)])
+        net = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), test_set, device='cuda')
+        load_params_from_file(net.module, ckpt)
+        dev_batch = load_data_to_gpu(batch, net.device)
+        padded = net.eval_forward(dev_batch)
+        flat = net.pipeline(dev_batch['points'], dev_batch['point_valid_mask'])
+        torch.cuda.synchronize()
+        # the same batch as the CLI's first (its worker 0 seeds numpy with 0)
+        for i in range(BATCH):
+            kept = padded['pred_boxes'][i][padded['pred_mask'][i]].cpu().numpy()
+            if not np.array_equal(kept, annos[i]['boxes_lidar']):
+                fail(f'eval_cli: the first batch rebuilt in process differs from the '
+                     f'CLI\'s at scan {i}')
+        if not torch.equal(padded['pred_mask'].sum(1), flat['pred_mask'].sum(1)):
+            fail(f'eval_cli: kept per scan padded {padded["pred_mask"].sum(1).tolist()} '
+                 f'vs flat {flat["pred_mask"].sum(1).tolist()}')
+        m = padded['pred_mask'] & flat['pred_mask']
+        score_err = float((padded['pred_scores'][m] - flat['pred_scores'][m]).abs().max())
+        box_err = float((padded['pred_boxes'][m] - flat['pred_boxes'][m]).abs().max())
+        pillars = int(dev_batch['voxel_mask'].sum())
+        print(f'eval_cli: padded vs flat path on the first batch ({pillars} pillars, '
+              f'{int(dev_batch["point_valid_mask"].sum())} points): kept per scan '
+              f'{padded["pred_mask"].sum(1).tolist()}, max score diff {score_err}, '
+              f'max box diff {box_err}')
+        if score_err > 2e-4 or box_err > 2e-3 or not torch.equal(
+                padded['pred_labels'][m], flat['pred_labels'][m]):
+            fail('eval_cli: padded and flat detections differ')
+
+        del net, dev_batch, padded, flat
+
+    print(f'eval_cli: {float(ret["eval_time/scans_per_s"]):.3f} scans/s over the eval loop, '
+          f'{float(ret["eval_time/loader_wait_share"]):.4f} of the loop waiting on the '
+          f'DataLoader (start-up-dominated: {EVAL_WORKERS} spawned workers start for the '
+          f'{n_batches} batches); past the first batch '
+          f'{float(ret["eval_time/steady_scans_per_s"]):.3f} scans/s, wait share '
+          f'{float(ret["eval_time/steady_loader_wait_share"]):.4f} (one batch); '
+          f'Network.eval_forward (detector and post-processing) median '
+          f'{float(ret["eval_time/forward_median_ms"]):.3f} ms a batch of {BATCH}, '
+          f'evaluator {float(ret["eval_time/evaluator_s"]):.3f} s, main() {wall_s:.2f} s; '
+          f'random weights put the NMS at its NMS_PRE_MAXSIZE cap; on {smi}')
+    return launches
+
+
 def main():
     import torch
 
@@ -1281,6 +1472,9 @@ def main():
     entries, launches = inference_phase(smi)
     print(f'inference phase: {time.perf_counter() - t0:.1f} s')
     t0 = time.perf_counter()
+    eval_launches = eval_cli_phase(smi)
+    print(f'eval_cli phase: {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
     train_entries, train_launches, fused_metrics, nn_calls = train_phase(smi, 'fused')
     print(f'train phase (fused, as shipped): {time.perf_counter() - t0:.1f} s')
     t0 = time.perf_counter()
@@ -1315,6 +1509,8 @@ def main():
                 kernels[-1][extra] = e[extra]
         if name == 'fps_chunks':
             kernels[-1]['exact_fps'] = exact_fps
+        if name == 'memory_lookup':
+            kernels[-1]['eval_cli_launches'] = eval_launches[name]
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -1,9 +1,16 @@
-"""YAML configs with ``_BASE_CONFIG_`` inheritance and attribute access.
+"""YAML configs with ``_BASE_CONFIG_`` inheritance, attribute access and
+dotted-key overrides.
 
-The port's own copy of ``hvpr_tpu/config.py`` (``ConfigDict``,
-``merge_new_config``, ``cfg_from_yaml_file``): it reads the same files under
-``tools/cfgs/`` and yields the same nested dicts.
+The port's own copy of ``hvpr_tpu/config.py`` (``ConfigDict``, the global
+``cfg`` with ``ROOT_DIR`` from ``HVPR_ROOT_DIR`` or the repository root,
+``merge_new_config``, ``cfg_from_yaml_file``, ``cfg_from_list``,
+``log_config_to_file``): it reads the same files under ``tools/cfgs/`` and
+yields the same nested dicts.
 """
+
+import ast
+import os
+from pathlib import Path
 
 import yaml
 
@@ -50,6 +57,21 @@ class ConfigDict(dict):
 
 
 cfg = ConfigDict()
+cfg.ROOT_DIR = Path(os.environ.get('HVPR_ROOT_DIR',
+                                   Path(__file__).resolve().parent.parent))
+cfg.LOCAL_RANK = 0
+
+
+def log_config_to_file(cfg_=None, pre='cfg', logger=None):
+    """Log every key of ``cfg_`` (the global ``cfg`` by default), one line
+    each, nested sections under a header."""
+    cfg_ = cfg if cfg_ is None else cfg_
+    for key, val in cfg_.items():
+        if isinstance(val, ConfigDict):
+            logger.info('----------- %s.%s -----------', pre, key)
+            log_config_to_file(val, pre=f'{pre}.{key}', logger=logger)
+        else:
+            logger.info('%s.%s: %s', pre, key, val)
 
 
 def merge_new_config(config, new_config):
@@ -81,4 +103,40 @@ def cfg_from_yaml_file(cfg_file, config=None):
     with open(cfg_file, 'r') as f:
         new_config = yaml.safe_load(f)
     merge_new_config(config=config, new_config=new_config)
+    return config
+
+
+def cfg_from_list(cfg_list, config=None):
+    """Set config keys from a ``[key, value, key, value, ...]`` list of
+    dotted keys. Values are parsed as Python literals where they parse
+    (else kept as strings) and must match the type of the entry they
+    replace (an int may replace a float); a dict merges into the subtree.
+    """
+    config = cfg if config is None else config
+    if len(cfg_list) % 2:
+        raise ValueError(f'--set takes key value pairs, got {cfg_list}')
+    for full_key, v in zip(cfg_list[0::2], cfg_list[1::2]):
+        key_list = full_key.split('.')
+        d = config
+        for subkey in key_list[:-1]:
+            if subkey not in d:
+                raise KeyError(f'NotFoundKey: {subkey}')
+            d = d[subkey]
+        subkey = key_list[-1]
+        if subkey not in d:
+            raise KeyError(f'NotFoundKey: {subkey}')
+        try:
+            value = ast.literal_eval(v)
+        except (ValueError, SyntaxError):
+            value = v
+
+        if isinstance(value, dict):
+            merge_new_config(d[subkey], ConfigDict(value))
+            continue
+        old = d[subkey]
+        if old is not None and not isinstance(value, type(old)) \
+                and not (isinstance(old, float) and isinstance(value, int)):
+            raise TypeError(f'{full_key}: type {type(value)} does not match '
+                            f'original type {type(old)}')
+        d[subkey] = value
     return config

@@ -1,8 +1,10 @@
 """Network factory and the inference and training entry points.
 
-Port of ``hvpr_tpu/models/__init__.py`` (``build_network``, ``Network``):
-:meth:`Network.eval_forward` runs the detector and post-processing on a
-voxelized batch, :meth:`Network.pipeline` adds the device voxelizer in front
+Port of ``hvpr_tpu/models/__init__.py`` (``build_network``, ``Network``,
+``load_data_to_gpu``): :meth:`Network.eval_forward` runs the detector and
+post-processing on a voxelized batch, either the host-voxelized padded one
+of the data layer (``load_data_to_gpu`` moves it to the card) or the flat
+one of the device voxelizer, which :meth:`Network.pipeline` puts in front
 (the counterpart of ``bench.py``'s timed pipeline). A network built with
 ``train=True`` also has the point stream; :meth:`Network.init_training`
 gives it an optimizer and :meth:`Network.train_step` runs one step (forward
@@ -22,9 +24,34 @@ from .detectors import build_detector
 from .detectors.detector3d_template import post_processing
 
 
+_ARRAY_KEYS = (
+    'points', 'point_valid_mask', 'voxels', 'voxel_num_points', 'voxel_coords',
+    'voxel_mask', 'gt_boxes',
+)
+
+
+def load_data_to_gpu(batch_dict, device='cuda'):
+    """The batch with its array keys (points, voxels and their masks and
+    counts, gt boxes) as tensors on ``device``, copied through pinned
+    memory to a CUDA device; the other keys (frame ids, calibrations,
+    image shapes) stay as they are on the host."""
+    device = resolve_device(device)
+    out = dict(batch_dict)
+    for k in _ARRAY_KEYS:
+        v = batch_dict.get(k)
+        if isinstance(v, np.ndarray):
+            t = torch.from_numpy(v)
+            if device.type == 'cuda':
+                t = t.pin_memory().to(device, non_blocking=True)
+            out[k] = t
+    return out
+
+
 class DatasetMeta:
     """What the network needs from a dataset: class names, point-cloud
-    range, voxel size, grid, per-pillar and per-sample caps."""
+    range, voxel size, grid, per-pillar and per-sample caps and the point
+    feature count (the data layer's ``DatasetTemplate`` has the same
+    attributes)."""
 
     def __init__(self, data_cfg, class_names, mode='test'):
         self.class_names = list(class_names)
@@ -38,7 +65,9 @@ class DatasetMeta:
                                   / self.voxel_size).astype(np.int64)
         self.max_points_per_voxel = int(vox['MAX_POINTS_PER_VOXEL'])
         self.max_voxels = int(vox['MAX_NUMBER_OF_VOXELS'][mode])
-        self.num_point_features = 4
+        enc = data_cfg['POINT_FEATURE_ENCODING']
+        self.num_point_features = 3 + sum(
+            1 for name in enc['used_feature_list'] if name not in ('x', 'y', 'z'))
 
 
 class Network:
@@ -112,7 +141,8 @@ class Network:
 
 def build_network(model_cfg, num_class, dataset, device='cuda', train=False):
     """Build the network of ``model_cfg`` on ``device``: eval mode, or with
-    ``train=True`` training mode with the point stream."""
+    ``train=True`` training mode with the point stream. ``dataset`` is a
+    :class:`DatasetMeta` or a dataset of :mod:`hvpr_tpu_torch.datasets`."""
     device = resolve_device(device)
     module = build_detector(model_cfg, num_class, dataset,
                             point_stream=train).to(device).train(train)

@@ -5,9 +5,12 @@ Port of ``PointPillarScatterAggMemory1Scale`` in
 
 Eval: the memory reconstructs every pillar, and two canvases are written,
 [pillar | memory] (``spatial_features``) and the scale stream
-(``spatial_scale_features``), NHWC, through
-:func:`ops.bev_canvas.canvas_from_sorted` (kernel K3 on the card). The
-device voxelizer's cells are unique per sample, which is all K3 needs.
+(``spatial_scale_features``), NHWC. A batch of the device voxelizer
+(``flat_points``: pillar slots in cell order) goes through
+:func:`ops.bev_canvas.canvas_from_sorted` (kernel K3 on the card); a
+host-voxelized batch (pillars in first-seen order) through the plain
+``scatter_to_bev``, as the JAX package's ``_build_canvas`` picks its
+generic scatter for it.
 
 Training selects for each pillar a set of points by ``pillar . point``,
 aggregates the points (``point_positive_features``) and their memory
@@ -41,6 +44,14 @@ def _canvas_dtype(model_cfg):
     """MAP_TO_BEV.CANVAS_DTYPE: 'bf16' emits the canvases in bfloat16."""
     name = str(model_cfg.get('CANVAS_DTYPE', 'fp32')).lower()
     return torch.bfloat16 if name in ('bf16', 'bfloat16') else torch.float32
+
+
+def _build_canvas(features, coords, mask, ny, nx, cells_sorted, out_dtype):
+    """NHWC canvas of (B, V, C) pillars: K3 for cell-sorted slots, else the
+    plain scatter (cells unique per sample in both)."""
+    if cells_sorted:
+        return canvas_from_sorted(features, coords, mask, ny, nx, out_dtype)
+    return scatter_to_bev(features.to(out_dtype), coords, mask, ny, nx)
 
 
 def attentive_point_pooling(points, point_mask, pillars, k, chunk=2048):
@@ -110,11 +121,12 @@ class PointPillarScatterAggMemory1Scale(nn.Module):
         mem = self.memory.eval_forward(pillars, self.k, mode=self.topk_mode,
                                        vmask=vmask)
         fused = torch.cat([pillars, mem['output']], dim=-1)
-        batch_dict['spatial_features'] = canvas_from_sorted(
-            fused, coords, vmask, self.ny, self.nx, self.out_dtype)
-        batch_dict['spatial_scale_features'] = canvas_from_sorted(
+        cells_sorted = 'flat_points' in batch_dict
+        batch_dict['spatial_features'] = _build_canvas(
+            fused, coords, vmask, self.ny, self.nx, cells_sorted, self.out_dtype)
+        batch_dict['spatial_scale_features'] = _build_canvas(
             batch_dict['pillar_scale_features'], coords, vmask, self.ny,
-            self.nx, self.out_dtype)
+            self.nx, cells_sorted, self.out_dtype)
         return batch_dict
 
     def _train_forward(self, batch_dict, pillars, coords, vmask):

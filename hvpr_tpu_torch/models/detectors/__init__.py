@@ -19,7 +19,7 @@ def build_detector(model_cfg, num_class, dataset, point_stream=True):
         grid_size=tuple(int(g) for g in dataset.grid_size),
         point_cloud_range=tuple(float(v) for v in dataset.point_cloud_range),
         voxel_size=tuple(float(v) for v in dataset.voxel_size),
-        num_point_features=getattr(dataset, 'num_point_features', 4),
-        max_points_per_voxel=int(getattr(dataset, 'max_points_per_voxel', 32)),
+        num_point_features=int(dataset.num_point_features),
+        max_points_per_voxel=int(dataset.max_points_per_voxel),
         point_stream=point_stream,
     )

@@ -12,8 +12,12 @@ The JAX version sorts on two int32 keys to stay clear of int32 overflow; an
 int64 key ``batch * (num_cells + 1) + pid`` has no such limit, so one sort
 suffices. ``index_add_``/``index_copy_`` into an extra dump row stand in for
 ``.at[...]`` with ``mode='drop'``.
+
+:class:`VoxelGeneratorNumpy` is the host voxelizer of the data layer
+(``tools/test.py``'s padded batches), the port of the JAX package's.
 """
 
+import numpy as np
 import torch
 
 
@@ -99,3 +103,60 @@ def voxelize_batch_flat(points, point_mask, point_cloud_range, voxel_size,
         'voxel_num_points': counts,
         'voxel_mask': counts > 0,
     }
+
+
+class VoxelGeneratorNumpy:
+    """Host voxelizer with spconv ``VoxelGenerator`` semantics (numpy).
+
+    Voxels in first-seen order, the first ``max_num_points`` points of each
+    voxel in point order, and a voxel cap that keeps the earliest voxels.
+    The data layer's ``transform_points_to_voxels`` runs it per scan.
+    """
+
+    def __init__(self, voxel_size, point_cloud_range, max_num_points, max_voxels):
+        self.voxel_size = np.asarray(voxel_size, dtype=np.float32)
+        self.point_cloud_range = np.asarray(point_cloud_range, dtype=np.float32)
+        self.max_num_points = max_num_points
+        self.max_voxels = max_voxels
+        grid_size = (self.point_cloud_range[3:6] - self.point_cloud_range[0:3]) / self.voxel_size
+        self.grid_size = np.round(grid_size).astype(np.int64)  # (nx, ny, nz)
+
+    def generate(self, points):
+        """points (N, C) -> (voxels (V', P, C), coords (V', 3) zyx, num_points (V',))."""
+        nx, ny, nz = self.grid_size
+        gi = np.floor((points[:, 0:3] - self.point_cloud_range[0:3]) / self.voxel_size).astype(np.int64)
+        valid = ((gi[:, 0] >= 0) & (gi[:, 0] < nx)
+                 & (gi[:, 1] >= 0) & (gi[:, 1] < ny)
+                 & (gi[:, 2] >= 0) & (gi[:, 2] < nz))
+        points = points[valid]
+        gi = gi[valid]
+        pid = gi[:, 2] * (ny * nx) + gi[:, 1] * nx + gi[:, 0]
+
+        uniq, first_index, inverse = np.unique(pid, return_index=True, return_inverse=True)
+        # first-occurrence ordering of voxels
+        occ_order = np.argsort(first_index, kind='stable')
+        rank_of_uniq = np.empty_like(occ_order)
+        rank_of_uniq[occ_order] = np.arange(len(uniq))
+        voxel_rank = rank_of_uniq[inverse]  # (N,) voxel slot per point
+
+        num_voxels = min(len(uniq), self.max_voxels)
+        voxels = np.zeros((num_voxels, self.max_num_points, points.shape[1]), dtype=points.dtype)
+        coords = np.zeros((num_voxels, 3), dtype=np.int32)
+        num_points = np.zeros((num_voxels,), dtype=np.int32)
+
+        kept_uniq = uniq[occ_order[:num_voxels]]
+        coords[:, 0] = kept_uniq // (ny * nx)
+        coords[:, 1] = (kept_uniq // nx) % ny
+        coords[:, 2] = kept_uniq % nx
+
+        # vectorized segment compaction (as in voxelize_batch_flat)
+        order = np.argsort(voxel_rank, kind='stable')
+        sr = voxel_rank[order]
+        head = np.concatenate([[True], sr[1:] != sr[:-1]]) if len(sr) else np.zeros(0, bool)
+        seg_start = np.maximum.accumulate(np.where(head, np.arange(len(sr)), -1)) if len(sr) else sr
+        pos = np.arange(len(sr)) - seg_start
+        write = (pos < self.max_num_points) & (sr < num_voxels)
+        voxels[sr[write], pos[write]] = points[order][write]
+        if write.any():
+            num_points = np.bincount(sr[write], minlength=num_voxels).astype(np.int32)
+        return voxels, coords, num_points

@@ -1,12 +1,23 @@
-"""Seeded synthetic lidar scans (numpy only).
+"""Seeded synthetic lidar scans and KITTI trees (numpy only).
 
 The port's copy of ``bench.py``'s ``synthetic_scans``/``realistic_scans`` and
-of ``make_scene`` from ``tests/kitti_fixture.py``: the draws come from the
-same generator in the same order, so a seed gives the same scans as the JAX
-package's benchmark.
+of ``make_scene`` and ``build_kitti_root`` from ``tests/kitti_fixture.py``:
+the draws come from the same generator in the same order, so a seed gives
+the same scans as the JAX package's benchmark, and the same KITTI files as
+its test fixture (the images are black PNGs written with zlib and struct,
+no image library).
 """
 
+import struct
+import zlib
+from pathlib import Path
+
 import numpy as np
+
+from .box_utils import boxes3d_kitti_camera_to_imageboxes, boxes3d_lidar_to_kitti_camera
+from .calibration_kitti import Calibration
+
+IMG_W, IMG_H = 1242, 375
 
 
 def make_scene(rng, n_cars=49):
@@ -77,3 +88,101 @@ def realistic_scans_with_boxes(rng, batch, n, pcr):
         pts[b, :, :3] = xyz
         pts[b, :, 3] = rng.uniform(0, 1, n)
     return pts, gt
+
+
+def make_calib_file(path):
+    """A KITTI calib file: one camera 720 px focal length, the velodyne
+    frame rotated into the camera frame (x_cam = -y, y_cam = -z, z_cam = x)."""
+    P2 = np.array([[720.0, 0.0, 620.0, 44.9],
+                   [0.0, 720.0, 187.0, 0.1],
+                   [0.0, 0.0, 1.0, 0.003]])
+    R0 = np.eye(3)
+    V2C = np.array([[0.0, -1.0, 0.0, 0.0],
+                    [0.0, 0.0, -1.0, 0.08],
+                    [1.0, 0.0, 0.0, -0.27]])
+    lines = []
+    for name, mat in [('P0', P2), ('P1', P2), ('P2', P2), ('P3', P2)]:
+        lines.append(f'{name}: ' + ' '.join(f'{v:.12e}' for v in mat.reshape(-1)))
+    lines.append('R0_rect: ' + ' '.join(f'{v:.12e}' for v in R0.reshape(-1)))
+    lines.append('Tr_velo_to_cam: ' + ' '.join(f'{v:.12e}' for v in V2C.reshape(-1)))
+    lines.append('Tr_imu_to_velo: ' + ' '.join(f'{v:.12e}' for v in V2C.reshape(-1)))
+    path.write_text('\n'.join(lines) + '\n')
+
+
+def lidar_box_to_label_line(box, calib):
+    """The KITTI label line of a lidar-frame Car box."""
+    cam = boxes3d_lidar_to_kitti_camera(box[None], calib)[0]
+    x, y, z, l, h, w, ry = cam
+    img_boxes = boxes3d_kitti_camera_to_imageboxes(
+        cam[None], calib, image_shape=(IMG_H, IMG_W))[0]
+    alpha = -np.arctan2(-box[1], box[0]) + ry
+    return ('Car 0.00 0 %.2f %.2f %.2f %.2f %.2f %.2f %.2f %.2f %.2f %.2f %.2f %.2f'
+            % (alpha, img_boxes[0], img_boxes[1], img_boxes[2], img_boxes[3],
+               h, w, l, x, y, z, ry))
+
+
+def write_black_png(path, width, height):
+    """An 8-bit RGB PNG of zeros: signature, IHDR, one IDAT, IEND."""
+    def chunk(kind, data):
+        return (struct.pack('>I', len(data)) + kind + data
+                + struct.pack('>I', zlib.crc32(kind + data) & 0xffffffff))
+    raw = bytes(height * (1 + 3 * width))   # filter byte 0, then the row
+    path.write_bytes(b'\x89PNG\r\n\x1a\n'
+                     + chunk(b'IHDR', struct.pack('>IIBBBBB', width, height, 8, 2, 0, 0, 0))
+                     + chunk(b'IDAT', zlib.compress(raw))
+                     + chunk(b'IEND', b''))
+
+
+def build_kitti_root(root, n_scenes=4, n_train=None):
+    """Write a synthetic KITTI tree under ``root``: per scene a velodyne
+    scan (4000 ground points and 200 points in each of 49 cars), calib,
+    Car labels, road plane and image; ImageSets with the first ``n_train``
+    scenes (half by default) in train, the rest in val, an empty test.
+    Returns (root, {frame id: (49, 7) lidar boxes})."""
+    root = Path(root)
+    training = root / 'training'
+    for sub in ['velodyne', 'calib', 'label_2', 'image_2', 'planes']:
+        (training / sub).mkdir(parents=True, exist_ok=True)
+    (root / 'ImageSets').mkdir(exist_ok=True)
+
+    rng = np.random.default_rng(7)
+    ids = [f'{i:06d}' for i in range(n_scenes)]
+    scenes = {}
+    for sid in ids:
+        make_calib_file(training / 'calib' / f'{sid}.txt')
+        calib = Calibration(str(training / 'calib' / f'{sid}.txt'))
+
+        boxes = make_scene(rng)
+        n_bg = 4000
+        pts = np.zeros((n_bg, 4), dtype=np.float32)
+        pts[:, 0] = rng.uniform(2, 45, n_bg)
+        pts[:, 1] = rng.uniform(-18, 18, n_bg)
+        pts[:, 2] = rng.uniform(-1.6, 0.2, n_bg)
+        pts[:, 3] = rng.uniform(0, 1, n_bg)
+        clusters = []
+        for b in boxes:
+            n_obj = 200
+            local = rng.uniform(-0.4, 0.4, (n_obj, 3)) * b[3:6]
+            c, s = np.cos(b[6]), np.sin(b[6])
+            world = np.stack([
+                local[:, 0] * c - local[:, 1] * s + b[0],
+                local[:, 0] * s + local[:, 1] * c + b[1],
+                local[:, 2] + b[2],
+            ], axis=1)
+            clusters.append(np.concatenate(
+                [world, rng.uniform(0, 1, (n_obj, 1))], axis=1).astype(np.float32))
+        pts = np.concatenate([pts] + clusters, axis=0)
+        pts.tofile(training / 'velodyne' / f'{sid}.bin')
+
+        lines = [lidar_box_to_label_line(b, calib) for b in boxes]
+        (training / 'label_2' / f'{sid}.txt').write_text('\n'.join(lines) + '\n')
+        (training / 'planes' / f'{sid}.txt').write_text(
+            '# Plane\nWidth 4\nHeight 1\n0.0 -1.0 0.0 1.68\n')
+        write_black_png(training / 'image_2' / f'{sid}.png', IMG_W, IMG_H)
+        scenes[sid] = boxes
+
+    half = max(1, n_scenes // 2) if n_train is None else n_train
+    (root / 'ImageSets' / 'train.txt').write_text('\n'.join(ids[:half]) + '\n')
+    (root / 'ImageSets' / 'val.txt').write_text('\n'.join(ids[half:]) + '\n')
+    (root / 'ImageSets' / 'test.txt').write_text('')
+    return root, scenes

@@ -578,3 +578,48 @@ def test_masked_attend_bwd_long_points(cuda, v):
         again = masked_attend_bwd(pillars, points, val, neg, th, mx, den, dout, shared,
                                   row_mask, pidx, pw, cnt)
         assert torch.equal(again, dval)                    # the same bits every run
+
+
+def test_padded_eval_path_launches_k2_only(cuda):
+    """hvpr_mini.yaml on the card: a host-voxelized padded batch launches
+    K2 once and neither K1 nor K3, and its detections equal the flat
+    device path's on the same points."""
+    from pathlib import Path
+
+    from hvpr_tpu_torch.config import ConfigDict, cfg_from_yaml_file
+    from hvpr_tpu_torch.models import DatasetMeta, build_network
+    from hvpr_tpu_torch.ops.voxelizer import VoxelGeneratorNumpy
+
+    cfg = cfg_from_yaml_file(str(Path(__file__).resolve().parent.parent / 'tools' / 'cfgs'
+                                 / 'kitti_models' / 'hvpr_mini.yaml'), ConfigDict())
+    meta = DatasetMeta(cfg.DATA_CONFIG, cfg.CLASS_NAMES)
+    torch.manual_seed(0)
+    net = build_network(cfg.MODEL, 1, meta, device='cuda')
+    with torch.no_grad():       # logits near 0, so that anchors clear SCORE_THRESH
+        net.module.dense_head.conv_cls.bias.zero_()
+    rng = np.random.default_rng(0)
+    pcr = meta.point_cloud_range
+    pts = rng.uniform(pcr[:3], pcr[3:], (2, 256, 3))
+    pts = np.concatenate([pts, rng.uniform(0, 1, (2, 256, 1))], axis=2).astype(np.float32)
+    gen = VoxelGeneratorNumpy(meta.voxel_size, pcr, meta.max_points_per_voxel, meta.max_voxels)
+    v, p = meta.max_voxels, meta.max_points_per_voxel
+    batch = {'voxels': np.zeros((2, v, p, 4), np.float32),
+             'voxel_coords': np.zeros((2, v, 3), np.int32),
+             'voxel_num_points': np.zeros((2, v), np.int32)}
+    for i in range(2):
+        vox, coords, cnt = gen.generate(pts[i])
+        batch['voxels'][i, :len(vox)] = vox
+        batch['voxel_coords'][i, :len(vox)] = coords
+        batch['voxel_num_points'][i, :len(vox)] = cnt
+    batch['voxel_mask'] = batch['voxel_num_points'] > 0
+    _kernels.reset_launch_counts()
+    padded = net.eval_forward({k: torch.from_numpy(a).to(cuda) for k, a in batch.items()})
+    torch.cuda.synchronize()
+    launches = _kernels.launch_counts()
+    assert launches['memory_lookup'] == 1
+    assert launches['segment_sweep'] == 0 and launches['bev_canvas'] == 0
+    flat = net.pipeline(torch.from_numpy(pts).to(cuda),
+                        torch.ones(2, 256, dtype=torch.bool, device=cuda))
+    assert bool(padded['pred_mask'].any())
+    for k in ('pred_mask', 'pred_boxes', 'pred_scores', 'pred_labels'):
+        assert torch.equal(padded[k], flat[k]), k
