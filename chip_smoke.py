@@ -55,6 +55,22 @@ scans with seeded random weights:
   its plain version, timed, one launch.
 - training in ``TRAIN_ATTEND_MODE: gather``: the kernel step must equal the
   plain step as above, and 2 timed steps must launch K4-K7 and never K8-K10.
+- train_cli: the training entry point ``python -m hvpr_tpu_torch.tools.train``
+  (its ``main``) at batch 4 with ``--fix_random_seed`` on a synthetic KITTI
+  tree of 16 train and 8 val scenes with its infos and gt database, all
+  written by the port (hvpr.yaml's gt sampling names no class of
+  CLASS_NAMES, so nothing is pasted, as in the JAX package): 2 epochs of
+  augmented, host-voxelized padded batches and the post-train evaluation
+  of the last checkpoints, then ``--epochs 3`` with the same tag, which
+  must resume from ``checkpoint_epoch_2.pth`` (epoch 2, it 8, the OneCycle
+  lr of step 8), then the 2 epochs again through the plain versions. Each
+  step must launch K4-K10 as above and the evaluation K2 once a batch,
+  never K1, K3 or K11; the checkpoints must hold the optimizer state and
+  it = 4, 8, 12; the kernel run's ``checkpoint_epoch_2.pth`` must equal the
+  plain run's bit for bit (weights, BN statistics, AdamW state, count);
+  the evaluation must write 8 annos with the Car AP keys. The loop's
+  scans/s and DataLoader wait share (whole, and past the first batch), the
+  step's median (CUDA events) and the peak device memory are printed.
 
 Device times by kernel (torch.profiler) are printed for K2, K3, K4 (per
 SA level, and per level and radius the same kernel for that radius alone,
@@ -69,12 +85,17 @@ selected sets, K3 beside ``torch.zeros`` + ``index_put_``, K9 beside
 It prints a ``{"kernels": [...]}`` JSON line (times, bounds, launches,
 errors), the card's name and power limit as nvidia-smi reports them, and
 last ``{"ok": true, "device": {...}}``. Any failed check exits nonzero.
-Without a CUDA device it exits 2 at once.
+Without a CUDA device it exits 2 at once. It leaves no process running:
+the DataLoader's fork server and resource tracker are stopped after the
+last phase, and whatever still runs below the script when it ends, as
+after a failed check, is killed and reaped.
 """
 
 import contextlib
+import glob
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -1422,7 +1443,7 @@ def eval_cli_phase(smi):
 
     print(f'eval_cli: {float(ret["eval_time/scans_per_s"]):.3f} scans/s over the eval loop, '
           f'{float(ret["eval_time/loader_wait_share"]):.4f} of the loop waiting on the '
-          f'DataLoader (start-up-dominated: {EVAL_WORKERS} spawned workers start for the '
+          f'DataLoader ({EVAL_WORKERS} workers start for the '
           f'{n_batches} batches); past the first batch '
           f'{float(ret["eval_time/steady_scans_per_s"]):.3f} scans/s, wait share '
           f'{float(ret["eval_time/steady_loader_wait_share"]):.4f} (one batch); '
@@ -1433,12 +1454,273 @@ def eval_cli_phase(smi):
     return launches
 
 
+TRAIN_CLI_TRAIN_SCENES = 16        # the train_cli phase's KITTI tree: 16 train scenes
+TRAIN_CLI_VAL_SCENES = 8           # (4 steps an epoch at batch 4) and 8 val scenes
+TRAIN_CLI_WORKERS = 4
+TRAIN_CLI_EPOCHS = 2               # the kernel and the plain run; the resumed run adds one
+
+
+def _differ(a, b, where=''):
+    """Where two checkpoint payloads (nested dicts, lists, tensors, numbers)
+    differ: tensors by dtype, shape and every bit, the rest by equality."""
+    import torch
+    if isinstance(a, torch.Tensor):
+        same = isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b)
+        return [] if same else [where]
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or a.keys() != b.keys():
+            return [where]
+        return [d for k in a for d in _differ(a[k], b[k], f'{where}.{k}')]
+    if isinstance(a, (list, tuple)):
+        if not isinstance(b, (list, tuple)) or len(a) != len(b):
+            return [where]
+        return [d for i, (x, y) in enumerate(zip(a, b)) for d in _differ(x, y, f'{where}[{i}]')]
+    return [] if a == b else [where]
+
+
+def train_cli_phase(smi):
+    """The training entry point: a synthetic KITTI tree (16 train scenes, 8
+    val) written by the port's writer, its infos and gt database by
+    ``create_kitti_infos``, then ``hvpr_tpu_torch.tools.train.main`` on the
+    card: hvpr.yaml at full width, batch 4 (4 steps an epoch of augmented,
+    host-voxelized padded batches of 16,384 points a scan from 4
+    DataLoader workers), --fix_random_seed (deterministic algorithms), the
+    model's own initialization, 2 epochs with the post-train evaluation of
+    the last checkpoints; then --epochs 3 with the same tag, which resumes
+    from checkpoint_epoch_2.pth; then the 2 epochs again through the plain
+    versions. Checks: every run ends; checkpoints 1-3 hold the optimizer
+    state and it = 4, 8, 12; the resumed run starts at epoch 2, it 8, with
+    the OneCycle lr of step 8; the kernel runs launch K4-K10 their
+    STEP_LAUNCHES a step and K2 once an evaluated batch, never K1, K3 or
+    K11; the kernel run's checkpoint_epoch_2.pth equals the plain run's bit
+    for bit (weights, BN statistics, AdamW moments and steps, count); the
+    evaluation writes 8 annos with the Car AP keys. Returns the kernel
+    runs' launch counts."""
+    import pickle
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    from hvpr_tpu_torch import config
+    from hvpr_tpu_torch.datasets.kitti.kitti_dataset import create_kitti_infos
+    from hvpr_tpu_torch.ops import _kernels
+    from hvpr_tpu_torch.optimization import one_cycle_schedules
+    from hvpr_tpu_torch.tools import train
+    from hvpr_tpu_torch.utils.scans import build_kitti_root
+
+    cfg = load_cfg()
+    steps_per_epoch = TRAIN_CLI_TRAIN_SCENES // TRAIN_BATCH
+    val_batches = -(-TRAIN_CLI_VAL_SCENES // TRAIN_BATCH)
+    build_dir = Path(ROOT) / 'build'
+    build_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        root, _ = build_kitti_root(tmp / 'kitti',
+                                   n_scenes=TRAIN_CLI_TRAIN_SCENES + TRAIN_CLI_VAL_SCENES,
+                                   n_train=TRAIN_CLI_TRAIN_SCENES)
+        create_kitti_infos(root, root)
+        with open(root / 'kitti_dbinfos_train.pkl', 'rb') as f:
+            db = {str(k): len(v) for k, v in pickle.load(f).items()}
+        n_crops = len(list((root / 'gt_database').glob('*.bin')))
+        gt_cfg = [a for a in cfg.DATA_CONFIG.DATA_AUGMENTOR.AUG_CONFIG_LIST
+                  if a['NAME'] == 'gt_sampling'][0]
+        print(f'train_cli: KITTI tree, infos and gt database ({n_crops} crops, {db}) '
+              f'written in {time.perf_counter() - t0:.2f} s; hvpr.yaml samples '
+              f'{list(gt_cfg["SAMPLE_GROUPS"])} for CLASS_NAMES {list(cfg.CLASS_NAMES)}, so '
+              f'the sampler loads and filters the database and pastes nothing, as in the '
+              f'JAX package (the paste is held on the CPU against the JAX package)')
+        if n_crops != 49 * TRAIN_CLI_TRAIN_SCENES or db.get('Car') != n_crops:
+            fail(f'train_cli: gt database of {n_crops} crops, {db}')
+
+        config.cfg.ROOT_DIR = tmp
+        common = ['--cfg_file', CFG, '--batch_size', str(TRAIN_BATCH),
+                  '--workers', str(TRAIN_CLI_WORKERS), '--fix_random_seed',
+                  '--num_epochs_to_eval', '1', '--set', 'DATA_CONFIG.DATA_PATH', str(root)]
+        out = tmp / 'output' / 'cfgs' / 'kitti_models' / 'hvpr'
+
+        def run(tag, epochs):
+            _kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            ret = train.main(['--epochs', str(epochs), '--extra_tag', tag] + common)
+            torch.cuda.synchronize()
+            return ret, _kernels.launch_counts(), time.perf_counter() - t0
+
+        def evaluated(tag):
+            return (out / tag / 'eval' / 'eval_with_train' / 'eval_list_val.txt'
+                    ).read_text().split()
+
+        # the main path, counts from zero before each run
+        torch.cuda.reset_peak_memory_stats()
+        first, launches1, wall1 = run('kernels', TRAIN_CLI_EPOCHS)
+        peak = torch.cuda.max_memory_allocated()
+        evals1 = evaluated('kernels')
+        resumed, launches2, wall2 = run('kernels', TRAIN_CLI_EPOCHS + 1)
+        evals2 = evaluated('kernels')[len(evals1):]
+        print(f'train_cli path launches: {launches1} (epochs 1-2, evaluated {evals1}); '
+              f'{launches2} (resumed, epoch 3, evaluated {evals2})')
+        for launches, steps, evals in ((launches1, TRAIN_CLI_EPOCHS * steps_per_epoch, evals1),
+                                       (launches2, steps_per_epoch, evals2)):
+            for name, n in launches.items():
+                want = STEP_LAUNCHES.get(name, 0) * steps
+                if name == 'memory_lookup':
+                    want = len(evals) * val_batches
+                if n != want:
+                    fail(f'the train_cli path launched {name} {n} times, expected {want}')
+        if evals1 != ['1', '2'] or evals2 != ['3']:
+            fail(f'train_cli: evaluated {evals1}, then {evals2}')
+
+        with _kernels.plain_versions():
+            plain, _, wall_plain = run('plain', TRAIN_CLI_EPOCHS)
+
+        blobs = {}
+        for tag, epoch in (('kernels', 1), ('kernels', 2), ('kernels', 3), ('plain', 2)):
+            path = out / tag / 'ckpt' / f'checkpoint_epoch_{epoch}.pth'
+            if not path.exists():
+                fail(f'train_cli: {path.name} of the {tag} run is missing')
+            blobs[tag, epoch] = torch.load(path, map_location='cpu', weights_only=True)
+            blob = blobs[tag, epoch]
+            if blob['epoch'] != epoch or blob['it'] != epoch * steps_per_epoch \
+                    or blob['optimizer_state'] is None \
+                    or blob['optimizer_state']['count'] != epoch * steps_per_epoch:
+                fail(f'train_cli: {tag} checkpoint_epoch_{epoch}.pth holds epoch '
+                     f'{blob["epoch"]}, it {blob["it"]}')
+        print(f'train_cli: checkpoint_epoch_{{1,2,3}}.pth hold it 4, 8, 12 and the optimizer '
+              f'state ({len(blobs["kernels", 2]["model_state"])} weight and statistic tensors)')
+
+        oc = cfg.OPTIMIZATION
+        lr_fn, _ = one_cycle_schedules(
+            float(oc.LR), steps_per_epoch * (TRAIN_CLI_EPOCHS + 1), moms=tuple(oc.MOMS),
+            div_factor=float(oc.DIV_FACTOR), pct_start=float(oc.PCT_START))
+        logs = ''.join(p.read_text() for p in (out / 'kernels').glob('log_train_*.txt'))
+        if (resumed['start_epoch'], resumed['start_it']) != (2, 8) \
+                or resumed['first_lr'] != lr_fn(8) or '(epoch 2, it 8)' not in logs:
+            fail(f'train_cli: the resumed run started at epoch {resumed["start_epoch"]}, '
+                 f'it {resumed["start_it"]}, lr {resumed["first_lr"]!r} (want 2, 8, '
+                 f'{lr_fn(8)!r})')
+        print(f'train_cli: the resumed run started from checkpoint_epoch_2.pth at epoch 2, '
+              f'it 8, OneCycle lr {resumed["first_lr"]!r} = lr_fn(8)')
+
+        differ = _differ(blobs['kernels', 2], blobs['plain', 2])
+        if differ:
+            fail(f'train_cli: the kernel run\'s checkpoint_epoch_2.pth differs from the plain '
+                 f'run\'s in {differ[:5]}')
+        n_opt = len(blobs['kernels', 2]['optimizer_state']['adamw']['state'])
+        print(f'train_cli: checkpoint_epoch_2.pth of the kernel run equals the plain run\'s '
+              f'bit for bit (weights, BN statistics, the AdamW state of {n_opt} parameters, '
+              f'count {blobs["kernels", 2]["optimizer_state"]["count"]}), over '
+              f'{TRAIN_CLI_EPOCHS * steps_per_epoch} steps')
+
+        want_keys = {f'Car_{m}/{d}{r}' for m in ('3d', 'bev', 'image')
+                     for d in ('easy', 'moderate', 'hard') for r in ('', '_R40')}
+        for ret in (first, resumed, plain):
+            if not want_keys <= set(ret['eval'] or {}):
+                fail('train_cli: the post-train evaluation lacks the Car AP keys')
+        with open(out / 'kernels' / 'eval' / 'eval_with_train' / 'epoch_2' / 'val'
+                  / 'result.pkl', 'rb') as f:
+            annos = pickle.load(f)
+        if len(annos) != TRAIN_CLI_VAL_SCENES:
+            fail(f'train_cli: result.pkl holds {len(annos)} annos')
+        boxes = np.concatenate([a['boxes_lidar'] for a in annos])
+        if not np.isfinite(boxes).all():
+            fail('train_cli: non-finite boxes')
+        per_scan = [len(a['name']) for a in annos]
+        losses = [json.loads(x) for x in (out / 'kernels' / 'train_log.jsonl').read_text()
+                  .splitlines()]
+
+    def t(ret):
+        return (f'{ret["train_time/scans_per_s"]:.3f} scans/s over the loop, '
+                f'{ret["train_time/steady_scans_per_s"]:.3f} past its first batch; '
+                f'DataLoader wait share {ret["train_time/loader_wait_share"]:.4f}, '
+                f'{ret["train_time/steady_loader_wait_share"]:.4f} past its first batch; '
+                f'Network.train_step median {ret["train_time/step_median_ms"]:.3f} ms '
+                f'(CUDA events, {ret["train_time/steps"]} steps)')
+    print(f'train_cli: epochs 1-2 through the kernels: {t(first)}; main() {wall1:.2f} s; '
+          f'peak device memory {peak / 2**30:.3f} GiB (training and evaluation); on {smi}')
+    print(f'train_cli: resumed epoch 3: {t(resumed)}; main() {wall2:.2f} s; on {smi}')
+    print(f'train_cli: epochs 1-2 through the plain versions: {t(plain)}; main() '
+          f'{wall_plain:.2f} s; on {smi}')
+    print('train_cli: train_log.jsonl: ' + '; '.join(
+        f'it {x["it"]} loss {x["loss"]:.6g} lr {x["lr"]:.6g} grad_norm {x["grad_norm"]:.6g}'
+        for x in losses))
+    print(f'train_cli: post-train evaluation of checkpoint_epoch_2.pth: {len(annos)} annos, '
+          f'detections per scan {per_scan}, Car 3d AP moderate '
+          f'{float(first["eval"]["Car_3d/moderate"]):.4f} (8 steps from the model\'s '
+          f'initialization), eval loop {float(first["eval"]["eval_time/scans_per_s"]):.3f} '
+          f'scans/s; on {smi}')
+    return {k: launches1[k] + launches2[k] for k in launches1}
+
+
+def _descendants(pid):
+    """{pid: parent pid} of every process below ``pid``."""
+    parents = {}
+    for stat in glob.glob('/proc/[0-9]*/stat'):
+        try:
+            with open(stat) as f:
+                parents[int(stat.split('/')[2])] = int(f.read().rsplit(')', 1)[1].split()[1])
+        except (OSError, IndexError, ValueError):
+            continue
+    below, frontier = {}, {pid}
+    while frontier:
+        frontier = {p: pp for p, pp in parents.items() if pp in frontier and p not in below}
+        below.update(frontier)
+    return below
+
+
+def stop_descendants():
+    """Kill and reap every process below this one that still runs. After a
+    failed check a build's nvcc, a DataLoader's workers, their fork server
+    and its resource tracker may be left: the workers go first, then the
+    server and the tracker are stopped as they would be after a run that
+    passed (the train_cli phase stops them), then the rest. After a run
+    that passed this finds nothing."""
+    # the DataLoader's SIGCHLD handler raises when one of its workers dies
+    signal.signal(signal.SIGCHLD, signal.SIG_DFL)
+    me = os.getpid()
+    stopped = set()
+
+    def kill(children_too):
+        for _ in range(100):
+            below = {p: pp for p, pp in _descendants(me).items()
+                     if children_too or pp != me}
+            if not below:
+                return
+            for pid in below:
+                with contextlib.suppress(ProcessLookupError):
+                    os.kill(pid, signal.SIGKILL)
+            for pid, parent in below.items():
+                if parent == me:
+                    with contextlib.suppress(ChildProcessError):
+                        os.waitpid(pid, 0)
+            stopped.update(below)
+            time.sleep(0.1)
+
+    kill(children_too=False)
+    datasets = sys.modules.get('hvpr_tpu_torch.datasets')
+    if datasets is not None:
+        datasets.stop_worker_server()
+    kill(children_too=True)
+    if stopped:
+        print(f'chip_smoke: stopped {len(stopped)} processes left running',
+              file=sys.stderr)
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         print('chip_smoke: torch sees no CUDA device', file=sys.stderr)
         return 2
+    try:
+        return run_phases()
+    finally:
+        stop_descendants()
+
+
+def run_phases():
+    import torch
+
     # cuBLAS is deterministic only with a fixed workspace, set before its
     # first use (the train phase compares steps under deterministic mode)
     os.environ.setdefault('CUBLAS_WORKSPACE_CONFIG', ':4096:8')
@@ -1489,6 +1771,11 @@ def main():
     print(f'train phase (gather): {time.perf_counter() - t0:.1f} s')
     # for information: the fused selection is a superset of the exact top-k,
     # so the two modes' losses differ from the same state
+    t0 = time.perf_counter()
+    train_cli_launches = train_cli_phase(smi)
+    print(f'train_cli phase: {time.perf_counter() - t0:.1f} s')
+    from hvpr_tpu_torch.datasets import stop_worker_server
+    stop_worker_server()    # no loader runs from here on
     print('step 1 from the same state, fused - gather: ' + ', '.join(
         f'{k} {fused_metrics[k] - gather_metrics[k]:.6g}' for k in sorted(fused_metrics)))
     entries.update(train_entries)
@@ -1511,6 +1798,7 @@ def main():
             kernels[-1]['exact_fps'] = exact_fps
         if name == 'memory_lookup':
             kernels[-1]['eval_cli_launches'] = eval_launches[name]
+        kernels[-1]['train_cli_launches'] = train_cli_launches[name]
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -4,9 +4,10 @@ Mirrors the JAX package's layout (``config``, ``ops``, ``models``, ``utils``)
 and its batch-dict keys and tensor layouts, so the two can be held against
 each other on the same inputs. The port imports ``torch`` and numpy/yaml
 only. It runs HVPR inference and the train step (``TRAIN_ATTEND_MODE``
-fused, the shipped default, and gather), and evaluates ``.pth``
+fused, the shipped default, and gather), evaluates ``.pth``
 checkpoints on KITTI trees (``tools/test.py``, the data layer of
-``datasets/``, the official AP); every TPU kernel of the JAX
+``datasets/``, the official AP) and trains on them (``tools/train.py``,
+the augmentor of ``datasets/augmentor/``); every TPU kernel of the JAX
 package is hand-written CUDA (``csrc/``: K1-K3 for inference, K4-K10 for
 training, and K11, the bucketed 3-NN, which no path calls, as in the JAX
 package), built with nvcc at first use and loaded with ctypes

@@ -1,12 +1,14 @@
 """Dataset template: the per-scan pipeline and fixed-shape batch collation.
 
 The port's copy of ``hvpr_tpu/datasets/dataset.py`` (``DatasetTemplate``):
+augmentation (train mode: gt sampling, world flip, rotation and scaling,
+with a scene left without gt boxes replaced by a random other one) ->
 class filter -> class-id column -> point features -> processor queue per
 scan, and a collation that pads every sample to fixed sizes: points
 (B, N, C) with ``point_valid_mask``, host-voxelized pillars (B, V, P, C)
 with ``voxel_num_points``, ``voxel_coords`` and ``voxel_mask``, gt boxes to
-``MAX_GT_BOXES``. Test mode only for now: the augmentor of the train mode
-is not ported yet, so ``training=True`` raises.
+``MAX_GT_BOXES``. ``merge_all_iters_to_one_epoch`` makes one epoch of
+``total_epochs`` passes over the scenes.
 """
 
 from collections import defaultdict
@@ -15,6 +17,7 @@ from pathlib import Path
 import numpy as np
 
 from ..utils import common_utils
+from .augmentor.data_augmentor import DataAugmentor
 from .processor.data_processor import DataProcessor
 from .processor.point_feature_encoder import PointFeatureEncoder
 
@@ -22,11 +25,6 @@ from .processor.point_feature_encoder import PointFeatureEncoder
 class DatasetTemplate:
     def __init__(self, dataset_cfg=None, class_names=None, training=True,
                  root_path=None, logger=None):
-        if training:
-            raise NotImplementedError(
-                'the train mode needs the data augmentor (gt sampling, world '
-                'flip / rotation / scaling), which the port does not have '
-                'yet; build the dataset with training=False')
         self.dataset_cfg = dataset_cfg
         self.training = training
         self.class_names = class_names
@@ -41,6 +39,9 @@ class DatasetTemplate:
         self.point_feature_encoder = PointFeatureEncoder(
             self.dataset_cfg['POINT_FEATURE_ENCODING'],
             point_cloud_range=self.point_cloud_range)
+        self.data_augmentor = DataAugmentor(
+            self.root_path, self.dataset_cfg['DATA_AUGMENTOR'], self.class_names,
+            logger=self.logger) if self.training else None
         self.data_processor = DataProcessor(
             self.dataset_cfg['DATA_PROCESSOR'],
             point_cloud_range=self.point_cloud_range, training=self.training)
@@ -54,6 +55,8 @@ class DatasetTemplate:
         # fixed gt pad (the reference pads to the per-batch max, which would
         # retrigger XLA compilation; 128 covers KITTI scenes + gt-paste)
         self.max_gt_boxes = int(self.dataset_cfg.get('MAX_GT_BOXES', 128))
+        self.total_epochs = 0
+        self._merge_all_iters_to_one_epoch = False
 
     @property
     def mode(self):
@@ -68,6 +71,10 @@ class DatasetTemplate:
         self.__dict__.update(d)
         self.logger = None
 
+    def merge_all_iters_to_one_epoch(self, merge=True, epochs=None):
+        self._merge_all_iters_to_one_epoch = merge
+        self.total_epochs = epochs
+
     def __len__(self):
         raise NotImplementedError
 
@@ -75,7 +82,20 @@ class DatasetTemplate:
         raise NotImplementedError
 
     def prepare_data(self, data_dict):
-        """Filter classes -> encode class ids -> features -> process."""
+        """Augment -> filter classes -> encode class ids -> features ->
+        process. In training, a scene that the augmentation leaves without
+        gt boxes is replaced by a random other one."""
+        if self.training:
+            assert 'gt_boxes' in data_dict, 'gt_boxes required for training'
+            gt_boxes_mask = np.array(
+                [n in self.class_names for n in data_dict['gt_names']], dtype=np.bool_)
+            data_dict = self.data_augmentor.forward({
+                **data_dict, 'gt_boxes_mask': gt_boxes_mask,
+            })
+            if len(data_dict['gt_boxes']) == 0:
+                new_index = np.random.randint(self.__len__())
+                return self.__getitem__(new_index)
+
         if data_dict.get('gt_boxes', None) is not None:
             selected = common_utils.keep_arrays_by_name(
                 data_dict['gt_names'], self.class_names)

@@ -1,11 +1,14 @@
-"""KITTI evaluation dataset and prediction export.
+"""KITTI dataset (train and test mode) and prediction export.
 
-The port's copy of the test mode of ``hvpr_tpu/datasets/kitti/kitti_dataset.py``:
-info-pickle loading, ``__getitem__``, lidar -> camera prediction export
-(vectorized per sample), official-AP evaluation and the info writer
-``create_kitti_infos``. Raw-file IO and info building live in
+The port's copy of ``hvpr_tpu/datasets/kitti/kitti_dataset.py``:
+info-pickle loading, ``__getitem__`` (under ``merge_all_iters_to_one_epoch``
+over ``total_epochs`` passes of the infos), lidar -> camera prediction
+export (vectorized per sample), official-AP evaluation and the offline
+writer ``create_kitti_infos`` of the info pickles and the train split's gt
+database. Raw-file IO, info building and the gt database live in
 :mod:`.kitti_io`. Pickle schemas are those of the reference's
-``kitti_infos_*.pkl``. Write the infos of a KITTI tree with
+``kitti_infos_*.pkl`` and ``kitti_dbinfos_*.pkl``. Write the infos and the
+gt database of a KITTI tree with
 
     python -m hvpr_tpu_torch.datasets.kitti.kitti_dataset create_kitti_infos [DATA_PATH]
 
@@ -75,11 +78,20 @@ class KittiDataset(DatasetTemplate):
             self.io, workers=num_workers, has_label=has_label,
             count_inside_pts=count_inside_pts, frame_ids=sample_id_list)
 
+    def create_groundtruth_database(self, info_path=None, used_classes=None,
+                                    split='train'):
+        kitti_io.create_gt_database(
+            self.io, info_path, Path(self.root_path),
+            used_classes=used_classes, split=split)
+
     # -- sample pipeline ----------------------------------------------------
     def __len__(self):
-        return len(self.kitti_infos)
+        n = len(self.kitti_infos)
+        return n * self.total_epochs if self._merge_all_iters_to_one_epoch else n
 
     def __getitem__(self, index):
+        if self._merge_all_iters_to_one_epoch:
+            index = index % len(self.kitti_infos)
         info = self.kitti_infos[index]
         fid = info['point_cloud']['lidar_idx']
         img_shape = info['image']['image_shape']
@@ -187,7 +199,9 @@ def _write_kitti_txt(path, anno):
 def create_kitti_infos(data_path, save_path, workers=4):
     """Write ``kitti_infos_{train,val,test}.pkl`` (each split whose
     ImageSets file exists) and ``kitti_infos_trainval.pkl`` under
-    ``save_path``. The gt database of the train mode is not written."""
+    ``save_path``, then the train split's gt database (``gt_database/`` and
+    ``kitti_dbinfos_train.pkl``) when there is a train split. Returns the
+    infos by split."""
     data_path, save_path = Path(data_path), Path(save_path)
     infos_by_split = {}
     for split, has_label in (('train', True), ('val', True), ('test', False)):
@@ -205,6 +219,12 @@ def create_kitti_infos(data_path, save_path, workers=4):
     if 'train' in infos_by_split and 'val' in infos_by_split:
         with open(save_path / 'kitti_infos_trainval.pkl', 'wb') as f:
             pickle.dump(infos_by_split['train'] + infos_by_split['val'], f)
+
+    if 'train' in infos_by_split:
+        print('------------Start create groundtruth database for data augmentation------------')
+        kitti_io.create_gt_database(
+            kitti_io.KittiSplitIO(data_path, 'train'),
+            save_path / 'kitti_infos_train.pkl', save_path, split='train')
     return infos_by_split
 
 

@@ -1,15 +1,17 @@
 """KITTI raw-file IO and info building (host side).
 
-The port's copy of the info half of ``hvpr_tpu/datasets/kitti/kitti_io.py``:
+The port's copy of ``hvpr_tpu/datasets/kitti/kitti_io.py``:
 ``KittiSplitIO`` owns the on-disk layout of a split, label files arrive as
 vectorized ``LabelTable`` columns, and one rotated-box test per scene counts
-the points inside each gt box. The ``kitti_infos_*.pkl`` entries keep the
-reference schema, so either package reads the other's pickles. Image sizes
-come from the PNG header (no image library). Writing the gt database
-belongs to the train mode, which is not ported yet.
+the points inside each gt box. ``create_gt_database`` crops each gt box's
+points into ``gt_database/`` for the train mode's gt sampling. The
+``kitti_infos_*.pkl`` and ``kitti_dbinfos_*.pkl`` entries and the crop
+files keep the reference schema, so either package reads the other's.
+Image sizes come from the PNG header (no image library).
 """
 
 import concurrent.futures
+import pickle
 import struct
 
 import numpy as np
@@ -159,3 +161,55 @@ def build_split_infos(io, workers=4, has_label=True, count_inside_pts=True,
         return list(pool.map(
             lambda fid: build_frame_info(io, fid, has_label, count_inside_pts),
             frame_ids))
+
+
+def create_gt_database(io, info_path, save_root, used_classes=None,
+                       split='train'):
+    """Crop each gt box's points into ``gt_database/`` (centred on the box)
+    and write ``kitti_dbinfos_{split}.pkl``; returns that pickle's path.
+
+    The crop files and the pickle's entries have the reference's schema,
+    so gt sampling reads a database written by either package.
+    """
+    db_dir = save_root / ('gt_database' if split == 'train'
+                          else f'gt_database_{split}')
+    db_dir.mkdir(parents=True, exist_ok=True)
+
+    with open(info_path, 'rb') as f:
+        infos = pickle.load(f)
+
+    db_infos = {}
+    for k, info in enumerate(infos):
+        print(f'gt_database sample: {k + 1}/{len(infos)}')
+        fid = info['point_cloud']['lidar_idx']
+        annos = info['annos']
+        boxes = annos['gt_boxes_lidar']
+        points = io.lidar(fid)
+        membership = points_in_boxes_cpu(points[:, :3], boxes)
+
+        for i in range(boxes.shape[0]):
+            name = annos['name'][i]
+            crop = points[membership[i] > 0].copy()
+            crop[:, :3] -= boxes[i, :3]
+            crop_file = db_dir / f'{fid}_{name}_{i}.bin'
+            crop.tofile(str(crop_file))
+            if used_classes is not None and name not in used_classes:
+                continue
+            db_infos.setdefault(name, []).append({
+                'name': name,
+                'path': str(crop_file.relative_to(save_root)),
+                'image_idx': fid,
+                'gt_idx': i,
+                'box3d_lidar': boxes[i],
+                'num_points_in_gt': crop.shape[0],
+                'difficulty': annos['difficulty'][i],
+                'bbox': annos['bbox'][i],
+                'score': annos['score'][i],
+            })
+
+    for name, entries in db_infos.items():
+        print(f'Database {name}: {len(entries)}')
+    db_info_path = save_root / f'kitti_dbinfos_{split}.pkl'
+    with open(db_info_path, 'wb') as f:
+        pickle.dump(db_infos, f)
+    return db_info_path

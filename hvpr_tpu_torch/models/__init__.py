@@ -8,8 +8,9 @@ one of the device voxelizer, which :meth:`Network.pipeline` puts in front
 (the counterpart of ``bench.py``'s timed pipeline). A network built with
 ``train=True`` also has the point stream; :meth:`Network.init_training`
 gives it an optimizer and :meth:`Network.train_step` runs one step (forward
-with the losses, backward, update) on a batch from :meth:`Network.voxelize`
-plus ``gt_boxes``. Entry points run on the card unless the caller passes
+with the losses, backward, update) on a batch with ``gt_boxes``: the data
+layer's padded one (the train CLI's) or one from :meth:`Network.voxelize`.
+Entry points run on the card unless the caller passes
 ``device='cpu'``.
 """
 
@@ -130,9 +131,10 @@ class Network:
             self.module, build_optimizer(self.module, optim_cfg, total_steps))
 
     def train_step(self, batch_dict):
-        """One step on a batch (``voxelize`` output plus ``gt_boxes``
-        (B, M, 8)): returns the metrics (loss terms, ``loss``,
-        ``grad_norm``) as detached tensors."""
+        """One step on a batch with ``gt_boxes`` (B, M, 8): a padded batch
+        of the data layer on the network's device, or ``voxelize`` output.
+        Returns the metrics (loss terms, ``loss``, ``grad_norm``) as
+        detached tensors."""
         if self.train_state is None:
             raise RuntimeError('call init_training first')
         self.train_state, metrics = train_step(self.train_state, batch_dict)

@@ -104,6 +104,16 @@ class AdamOneCycle:
         self.count += 1
         return norm
 
+    def state_dict(self):
+        """The AdamW state (moments, step, groups) and ``count``, the
+        OneCycle position: what a resumed run needs to make the next update
+        the uninterrupted run would make."""
+        return {'adamw': self.adamw.state_dict(), 'count': self.count}
+
+    def load_state_dict(self, state):
+        self.adamw.load_state_dict(state['adamw'])
+        self.count = int(state['count'])
+
 
 def build_optimizer(module, optim_cfg, total_steps):
     """The optimizer of ``optim_cfg`` over ``module`` (adam_onecycle only)."""

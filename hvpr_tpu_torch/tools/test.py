@@ -32,7 +32,7 @@ from pathlib import Path
 
 from .. import config as config_module
 from ..config import ConfigDict, cfg_from_list, cfg_from_yaml_file, log_config_to_file
-from ..datasets import build_dataloader
+from ..datasets import build_dataloader, stop_worker_server
 from ..models import build_network
 from ..utils import common_utils
 from ..utils.checkpoint import load_params_from_file
@@ -91,6 +91,10 @@ def get_no_evaluated_ckpt(ckpt_dir, ckpt_record_file, args):
 
 
 def repeat_eval_ckpt(cfg, net, test_loader, args, eval_output_dir, logger, ckpt_dir):
+    """Evaluate each checkpoint of ``ckpt_dir`` from epoch
+    ``args.start_epoch`` on that is not evaluated yet, waiting up to
+    ``args.max_waiting_mins`` for new ones; returns the result dict of the
+    last one evaluated (None if none was)."""
     ckpt_record_file = eval_output_dir / ('eval_list_%s.txt' % cfg.DATA_CONFIG.DATA_SPLIT['test'])
     with open(ckpt_record_file, 'a'):
         pass
@@ -98,6 +102,7 @@ def repeat_eval_ckpt(cfg, net, test_loader, args, eval_output_dir, logger, ckpt_
 
     total_time = 0
     first_eval = True
+    ret_dict = None
     while True:
         cur_epoch_id, cur_ckpt = get_no_evaluated_ckpt(ckpt_dir, ckpt_record_file, args)
         if cur_epoch_id == -1 or int(float(cur_epoch_id)) < args.start_epoch:
@@ -125,6 +130,7 @@ def repeat_eval_ckpt(cfg, net, test_loader, args, eval_output_dir, logger, ckpt_
         with open(ckpt_record_file, 'a') as f:
             print(f'{cur_epoch_id}', file=f)
         logger.info('Epoch %s has been evaluated', cur_epoch_id)
+    return ret_dict
 
 
 def main(argv=None):
@@ -178,3 +184,4 @@ def main(argv=None):
 
 if __name__ == '__main__':
     main()
+    stop_worker_server()

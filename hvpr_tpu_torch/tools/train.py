@@ -1,0 +1,215 @@
+"""Training CLI of the port: a KITTI tree in, ``.pth`` checkpoints and the
+post-train evaluation of the last ones out.
+
+The counterpart of the JAX package's ``tools/train.py``, for one process,
+run from the repository root:
+
+    python -m hvpr_tpu_torch.tools.train --cfg_file tools/cfgs/kitti_models/hvpr.yaml \\
+        --batch_size 4 --epochs 80 [--fix_random_seed] \\
+        --set DATA_CONFIG.DATA_PATH /path/to/kitti
+
+The KITTI tree needs its info pickles and gt database
+(``python -m hvpr_tpu_torch.datasets.kitti.kitti_dataset create_kitti_infos
+DATA_PATH``). Batches are augmented and voxelized on the host into padded
+pillars by the data layer's worker processes, and trained on ``--device``
+(``cuda`` unless the caller passes ``cpu``). Output goes to
+``output/<cfg group>/<cfg name>/<extra_tag>/{ckpt,eval}`` under
+``cfg.ROOT_DIR`` (``HVPR_ROOT_DIR``, else the repository root), with the
+log and ``train_log.jsonl`` beside them.
+
+Without ``--ckpt`` a run resumes from the newest ``ckpt/checkpoint_epoch_*.pth``
+(by modification time): weights, BN statistics, optimizer state, epoch and
+iteration. ``--pretrained_model X.pth`` loads the shape-matching weights
+of X first. After training, the last ``--num_epochs_to_eval`` checkpoints
+are evaluated into ``eval/eval_with_train`` with the port's test CLI.
+
+``--fix_random_seed`` seeds Python, numpy and torch with 666 and turns on
+``torch.use_deterministic_algorithms``: two such runs give the same
+checkpoints bit for bit. Without it no global switch is set; the
+nondeterministic backward of the point stream's 3-NN interpolation
+(scatter-adds by atomics) then makes runs differ by rounding. The
+deterministic mode costs the fused hvpr.yaml step about a fifth of its
+time.
+"""
+
+import argparse
+import datetime
+import glob
+import os
+from pathlib import Path
+
+import torch
+
+from .. import config as config_module
+from ..config import ConfigDict, cfg_from_list, cfg_from_yaml_file, log_config_to_file
+from ..datasets import build_dataloader, stop_worker_server
+from ..models import build_network
+from ..utils import common_utils
+from ..utils.checkpoint import load_checkpoint, load_params_from_file
+from . import test as test_cli
+from .train_utils import train_model
+
+
+def parse_config(argv=None):
+    parser = argparse.ArgumentParser(description='hvpr_tpu_torch training')
+    parser.add_argument('--cfg_file', type=str, default=None, help='config for training')
+    parser.add_argument('--batch_size', type=int, default=None)
+    parser.add_argument('--epochs', type=int, default=None)
+    parser.add_argument('--workers', type=int, default=4)
+    parser.add_argument('--extra_tag', type=str, default='default')
+    parser.add_argument('--ckpt', type=str, default=None, help='checkpoint to start from')
+    parser.add_argument('--pretrained_model', type=str, default=None)
+    parser.add_argument('--launcher', choices=['none', 'pytorch'], default='none')
+    parser.add_argument('--coordinator_address', type=str, default=None,
+                        help='several processes: address of process 0 (not ported)')
+    parser.add_argument('--num_processes', type=int, default=None)
+    parser.add_argument('--process_id', type=int, default=None)
+    parser.add_argument('--sync_bn', action='store_true', default=False,
+                        help='no effect in one process')
+    parser.add_argument('--fix_random_seed', action='store_true', default=False,
+                        help='seed everything and turn on deterministic algorithms')
+    parser.add_argument('--ckpt_save_interval', type=int, default=1)
+    parser.add_argument('--max_ckpt_save_num', type=int, default=30)
+    parser.add_argument('--merge_all_iters_to_one_epoch', action='store_true', default=False)
+    parser.add_argument('--num_epochs_to_eval', type=int, default=10,
+                        help='after training, evaluate the last N checkpoints')
+    parser.add_argument('--max_waiting_mins', type=int, default=0,
+                        help='post-train evaluation: minutes to wait for new checkpoints')
+    parser.add_argument('--save_to_file', action='store_true', default=False)
+    parser.add_argument('--device', type=str, default='cuda',
+                        help="device of the network: 'cuda' (default) or 'cpu'")
+    parser.add_argument('--set', dest='set_cfgs', default=None, nargs=argparse.REMAINDER,
+                        help='set extra config keys')
+    args = parser.parse_args(argv)
+
+    cfg = ConfigDict(ROOT_DIR=config_module.cfg.ROOT_DIR, LOCAL_RANK=0)
+    cfg_from_yaml_file(args.cfg_file, cfg)
+    cfg.TAG = Path(args.cfg_file).stem
+    cfg.EXP_GROUP_PATH = '/'.join(args.cfg_file.split('/')[1:-1])
+    if args.set_cfgs is not None:
+        cfg_from_list(args.set_cfgs, cfg)
+    return args, cfg
+
+
+def schedule_steps(n_batches, epochs, merge_all_iters_to_one_epoch):
+    """(OneCycle total steps, iterations an epoch) for a loader of
+    ``n_batches``: under ``merge_all_iters_to_one_epoch`` the loader
+    already spans every epoch."""
+    if merge_all_iters_to_one_epoch:
+        return n_batches, n_batches // max(epochs, 1)
+    return n_batches * epochs, n_batches
+
+
+def latest_checkpoint(ckpt_dir):
+    """The newest ``checkpoint_epoch_*.pth`` of ``ckpt_dir`` by modification
+    time, or None."""
+    ckpt_list = glob.glob(str(Path(ckpt_dir) / 'checkpoint_epoch_*.pth'))
+    return max(ckpt_list, key=os.path.getmtime) if ckpt_list else None
+
+
+def main(argv=None):
+    """Train as ``argv`` (``sys.argv[1:]`` by default) says, then evaluate
+    the last checkpoints. Returns a dict: the epoch and iteration the run
+    started from, the lr of its first step, the iteration it ended at, the
+    loop's timing (``train_time/``) and the result dict of the last
+    checkpoint evaluated (``eval``)."""
+    args, cfg = parse_config(argv)
+    if args.launcher != 'none' or args.coordinator_address is not None \
+            or args.num_processes is not None or args.process_id is not None:
+        raise NotImplementedError('training over several processes (DDP, ROADMAP A14) '
+                                  'is not ported yet; run one process with --launcher none')
+    if args.batch_size is None:
+        args.batch_size = cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU
+    args.epochs = cfg.OPTIMIZATION.NUM_EPOCHS if args.epochs is None else args.epochs
+
+    deterministic_before = torch.are_deterministic_algorithms_enabled()
+    cudnn_before = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    if args.fix_random_seed:
+        common_utils.set_random_seed(666, deterministic=True)
+    try:
+        return _train_and_evaluate(args, cfg)
+    finally:
+        torch.use_deterministic_algorithms(deterministic_before)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn_before
+
+
+def _train_and_evaluate(args, cfg):
+    output_dir = Path(cfg.ROOT_DIR) / 'output' / cfg.EXP_GROUP_PATH / cfg.TAG / args.extra_tag
+    ckpt_dir = output_dir / 'ckpt'
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+
+    log_file = output_dir / f'log_train_{datetime.datetime.now():%Y%m%d-%H%M%S}.txt'
+    logger = common_utils.create_logger(log_file)
+    logger.info('**********************Start logging**********************')
+    logger.info('device: %s', args.device)
+    for key, val in vars(args).items():
+        logger.info('%s: %s', key, val)
+    log_config_to_file(cfg, logger=logger)
+    logger.info('deterministic algorithms: %s', 'on (--fix_random_seed)'
+                if args.fix_random_seed else 'off (no --fix_random_seed: runs differ '
+                'by the rounding of atomic scatter-adds)')
+    if args.sync_bn:
+        logger.info('--sync_bn has no effect in one process')
+
+    train_set, train_loader, train_sampler = build_dataloader(
+        dataset_cfg=cfg.DATA_CONFIG, class_names=cfg.CLASS_NAMES,
+        batch_size=args.batch_size, root_path=Path(cfg.DATA_CONFIG.DATA_PATH),
+        workers=args.workers, logger=logger, training=True,
+        merge_all_iters_to_one_epoch=args.merge_all_iters_to_one_epoch,
+        total_epochs=args.epochs)
+    net = build_network(cfg.MODEL, num_class=len(cfg.CLASS_NAMES), dataset=train_set,
+                        device=args.device, train=True)
+    total_steps, iters_each_epoch = schedule_steps(
+        len(train_loader), args.epochs, args.merge_all_iters_to_one_epoch)
+    net.init_training(cfg.OPTIMIZATION, total_steps)
+    optimizer = net.train_state.optimizer
+    logger.info('OneCycle over %d steps, %d an epoch', total_steps, iters_each_epoch)
+
+    if args.pretrained_model is not None:
+        load_params_from_file(net.module, args.pretrained_model, logger=logger)
+
+    start_epoch = it = 0
+    ckpt_to_resume = args.ckpt if args.ckpt is not None else latest_checkpoint(ckpt_dir)
+    if ckpt_to_resume is not None:
+        start_epoch, it = load_checkpoint(net.module, ckpt_to_resume, optimizer=optimizer)
+        start_epoch, it = int(start_epoch), int(it)
+        net.train_state.step = it
+        logger.info('Resumed from %s (epoch %d, it %d)', ckpt_to_resume, start_epoch, it)
+    first_lr = float(optimizer.lr_fn(optimizer.count))
+    logger.info('OneCycle lr of the first step (it %d): %r', optimizer.count, first_lr)
+
+    logger.info('**********************Start training %s/%s(%s)**********************',
+                cfg.EXP_GROUP_PATH, cfg.TAG, args.extra_tag)
+    end_it, timing = train_model(
+        net, train_loader, start_epoch=start_epoch, total_epochs=args.epochs,
+        start_iter=it, ckpt_save_dir=ckpt_dir, log_file=output_dir / 'train_log.jsonl',
+        logger=logger, train_sampler=train_sampler,
+        ckpt_save_interval=args.ckpt_save_interval,
+        max_ckpt_save_num=args.max_ckpt_save_num,
+        merge_all_iters_to_one_epoch=args.merge_all_iters_to_one_epoch)
+    logger.info('**********************End training**********************')
+    del net, optimizer, train_loader
+
+    # after training, evaluate the last checkpoints as the test CLI's
+    # --eval_all does, on a network without the point stream
+    logger.info('**********************Start evaluation %s/%s(%s)**********************',
+                cfg.EXP_GROUP_PATH, cfg.TAG, args.extra_tag)
+    test_set, test_loader, _ = build_dataloader(
+        dataset_cfg=cfg.DATA_CONFIG, class_names=cfg.CLASS_NAMES,
+        batch_size=args.batch_size, root_path=Path(cfg.DATA_CONFIG.DATA_PATH),
+        workers=args.workers, logger=logger, training=False)
+    eval_net = build_network(cfg.MODEL, num_class=len(cfg.CLASS_NAMES), dataset=test_set,
+                             device=args.device)
+    eval_output_dir = output_dir / 'eval' / 'eval_with_train'
+    eval_output_dir.mkdir(parents=True, exist_ok=True)
+    args.start_epoch = max(args.epochs - args.num_epochs_to_eval, 0)
+    last_eval = test_cli.repeat_eval_ckpt(cfg, eval_net, test_loader, args, eval_output_dir,
+                                          logger, ckpt_dir)
+    logger.info('**********************End evaluation**********************')
+    return {'start_epoch': start_epoch, 'start_it': it, 'first_lr': first_lr,
+            'end_it': end_it, **timing, 'eval': last_eval}
+
+
+if __name__ == '__main__':
+    main()
+    stop_worker_server()

@@ -107,6 +107,18 @@ def boxes3d_kitti_camera_to_lidar(boxes3d_camera, calib):
     return np.concatenate([xyz_lidar, l, w, h, -(r + np.pi / 2)], axis=-1)
 
 
+def boxes3d_kitti_fakelidar_to_lidar(boxes3d_lidar):
+    """(N, 7) [x, y, z, w, l, h, r] in the old ("fake") lidar convention,
+    z at the bottom centre -> (N, 7) [x, y, z, dx, dy, dz, heading], z at
+    the centre (the reference's conversion; a gt database written by old
+    OpenPCDet versions stores its boxes so). Shifts z of the input in
+    place, as the reference does."""
+    w, l, h, r = (boxes3d_lidar[:, 3:4], boxes3d_lidar[:, 4:5],
+                  boxes3d_lidar[:, 5:6], boxes3d_lidar[:, 6:7])
+    boxes3d_lidar[:, 2] += h[:, 0] / 2
+    return np.concatenate([boxes3d_lidar[:, 0:3], l, w, h, -(r + np.pi / 2)], axis=-1)
+
+
 def boxes3d_lidar_to_kitti_camera(boxes3d_lidar, calib):
     """Inverse of :func:`boxes3d_kitti_camera_to_lidar`."""
     xyz_lidar = boxes3d_lidar[:, 0:3].copy()

@@ -7,9 +7,13 @@ under the reference keys, which the port's modules use
 files (``hvpr_tpu/utils/torch_ckpt.py``), so ``.pth`` is the exchange
 format of the two packages.
 
-Loading is the reference's shape-checked partial load: a key of the file
-updates the module only where the module has it at the same shape; every
-other key is reported, not loaded.
+A training checkpoint also holds the optimizer's state
+(``AdamOneCycle.state_dict``: the AdamW moments and step, and the OneCycle
+position) and the iteration; :func:`load_checkpoint` restores all of it for
+a resumed run. :func:`load_params_from_file` is the reference's
+shape-checked partial load of the weights alone: a key of the file updates
+the module only where the module has it at the same shape; every other key
+is reported, not loaded.
 """
 
 import re
@@ -19,12 +23,43 @@ import torch
 VERSION = 'hvpr_tpu_torch'
 
 
-def save_checkpoint(module, filename, epoch=None):
-    """Write ``module``'s weights (on the CPU) as a checkpoint; it holds no
-    optimizer state (training is not ported to checkpoints yet)."""
-    state = {k: v.detach().cpu() for k, v in module.state_dict().items()}
-    torch.save({'epoch': epoch, 'it': None, 'model_state': state,
-                'optimizer_state': None, 'version': VERSION}, filename)
+def _to_cpu(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj
+
+
+def save_checkpoint(module, filename, epoch=None, it=None, optimizer=None):
+    """Write ``module``'s weights and BN statistics, and the state of
+    ``optimizer`` (an ``AdamOneCycle``) if given, on the CPU, with the
+    epoch and iteration."""
+    torch.save({'epoch': epoch, 'it': it,
+                'model_state': _to_cpu(module.state_dict()),
+                'optimizer_state': None if optimizer is None
+                else _to_cpu(optimizer.state_dict()),
+                'version': VERSION}, filename)
+
+
+def load_checkpoint(module, filename, optimizer=None, logger=None):
+    """Restore a checkpoint of :func:`save_checkpoint` for a resumed run:
+    every weight and BN statistic of ``module`` (all keys must match), and
+    the state of ``optimizer`` if given (the file must hold one). Returns
+    (epoch, it)."""
+    blob = torch.load(filename, map_location='cpu', weights_only=True)
+    module.load_state_dict(blob['model_state'], strict=True)
+    if optimizer is not None:
+        if blob.get('optimizer_state') is None:
+            raise ValueError(f'{filename} holds no optimizer state')
+        optimizer.load_state_dict(blob['optimizer_state'])
+    epoch, it = blob.get('epoch'), blob.get('it')
+    if logger is not None:
+        logger.info('==> Loaded checkpoint %s (epoch %s, it %s%s)', filename, epoch, it,
+                    ', with the optimizer' if optimizer is not None else '')
+    return epoch, it
 
 
 def load_params_from_file(module, filename, logger=None):

@@ -623,3 +623,76 @@ def test_padded_eval_path_launches_k2_only(cuda):
     assert bool(padded['pred_mask'].any())
     for k in ('pred_mask', 'pred_boxes', 'pred_scores', 'pred_labels'):
         assert torch.equal(padded[k], flat[k]), k
+
+
+def test_padded_train_step_kernels_equal_plain(cuda):
+    """hvpr_mini.yaml as shipped (fused) on the card: one train step on a
+    host-voxelized padded batch (the train CLI's layout) through the
+    kernels equals one through the plain versions from the same state, bit
+    for bit (losses, grad norm, every weight and BN statistic), under
+    deterministic algorithms; the kernel step launches K4-K10 their
+    expected number of times and K1, K3 and K11 never."""
+    import os
+    from pathlib import Path
+
+    from hvpr_tpu_torch.config import ConfigDict, cfg_from_yaml_file
+    from hvpr_tpu_torch.models import DatasetMeta, build_network, load_data_to_gpu
+    from hvpr_tpu_torch.ops.voxelizer import VoxelGeneratorNumpy
+
+    os.environ.setdefault('CUBLAS_WORKSPACE_CONFIG', ':4096:8')
+    cfg = cfg_from_yaml_file(str(Path(__file__).resolve().parent.parent / 'tools' / 'cfgs'
+                                 / 'kitti_models' / 'hvpr_mini.yaml'), ConfigDict())
+    meta = DatasetMeta(cfg.DATA_CONFIG, cfg.CLASS_NAMES, mode='train')
+    rng = np.random.default_rng(1)
+    pcr = meta.point_cloud_range
+    n = 256
+    pts = rng.uniform(pcr[:3], pcr[3:], (2, n, 3))
+    pts = np.concatenate([pts, rng.uniform(0, 1, (2, n, 1))], axis=2).astype(np.float32)
+    gen = VoxelGeneratorNumpy(meta.voxel_size, pcr, meta.max_points_per_voxel, meta.max_voxels)
+    v, p = meta.max_voxels, meta.max_points_per_voxel
+    batch = {'points': pts, 'point_valid_mask': np.ones((2, n), bool),
+             'voxels': np.zeros((2, v, p, 4), np.float32),
+             'voxel_coords': np.zeros((2, v, 3), np.int32),
+             'voxel_num_points': np.zeros((2, v), np.int32),
+             'gt_boxes': np.zeros((2, 4, 8), np.float32)}
+    for i in range(2):
+        vox, coords, cnt = gen.generate(pts[i])
+        batch['voxels'][i, :len(vox)] = vox
+        batch['voxel_coords'][i, :len(vox)] = coords
+        batch['voxel_num_points'][i, :len(vox)] = cnt
+    batch['voxel_mask'] = batch['voxel_num_points'] > 0
+    batch['gt_boxes'][:, :3] = [[20.0, 0.0, -1.0, 3.9, 1.6, 1.56, 0.3, 1.0],
+                                [30.0, 5.0, -1.0, 4.1, 1.7, 1.5, -1.2, 1.0],
+                                [12.0, -8.0, -1.0, 3.8, 1.6, 1.5, 2.0, 1.0]]
+    dev_batch = load_data_to_gpu(batch, cuda)
+
+    torch.manual_seed(0)
+    net = build_network(cfg.MODEL, 1, meta, device='cuda', train=True)
+    state = {k: v.clone() for k, v in net.module.state_dict().items()}
+    runs = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name in ('kernels', 'plain'):
+            net.module.load_state_dict(state)
+            net.init_training(cfg.OPTIMIZATION, 10)
+            _kernels.reset_launch_counts()
+            if name == 'plain':
+                with _kernels.plain_versions():
+                    metrics = net.train_step(dev_batch)
+            else:
+                metrics = net.train_step(dev_batch)
+            torch.cuda.synchronize()
+            runs[name] = ({k: float(x) for k, x in metrics.items()}, _kernels.launch_counts(),
+                          {k: x.clone() for k, x in net.module.state_dict().items()})
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (mk, launches, sk), (mp, plain_launches, sp) = runs['kernels'], runs['plain']
+    assert mk == mp and np.isfinite(mk['loss'])
+    for k in sp:
+        assert torch.equal(sk[k], sp[k]), k
+    assert launches == {**dict.fromkeys(_kernels.KERNELS, 0),
+                        'ball_query': 2, 'fps_chunks': 2, 'memory_recon_fwd': 1,
+                        'memory_recon_bwd': 1, 'bucket_threshold': 1,
+                        'masked_attend_fwd': 1, 'masked_attend_pairs': 1,
+                        'masked_attend_bwd': 2}, launches
+    assert not any(plain_launches.values())

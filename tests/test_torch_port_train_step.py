@@ -96,23 +96,31 @@ def gt_boxes(rng, b, pcr, n=4):
 class TrainPair:
     """The JAX network and the port's train network with the same weights."""
 
-    def __init__(self, cfg, batch=2, n_points=256, seed=0):
+    def __init__(self, cfg, batch=2, n_points=256, seed=0, host_batch=None):
+        """``host_batch``: a batch of the data layer (its numpy arrays are
+        taken) in place of seeded points voxelized by the JAX device
+        voxelizer."""
         self.cfg = cfg
         self.meta = DatasetMeta(cfg.DATA_CONFIG, cfg.CLASS_NAMES, mode='train')
         m = self.meta
         rng = np.random.default_rng(seed)
-        self.points = uniform_points(rng, batch, n_points, m.point_cloud_range)
-        self.mask = np.ones((batch, n_points), bool)
-        self.mask[:, -7:] = False
-        self.gt = gt_boxes(rng, batch, m.point_cloud_range)
-        pts, mask = jnp.asarray(self.points), jnp.asarray(self.mask)
-        vox = jax_voxelize(pts, mask, tuple(float(v) for v in m.point_cloud_range),
-                           tuple(float(v) for v in m.voxel_size),
-                           max_voxels=m.max_voxels,
-                           max_points_per_voxel=m.max_points_per_voxel,
-                           grid_size_static=tuple(int(g) for g in m.grid_size))
-        self.jbatch = {'points': pts, 'point_valid_mask': mask, **vox,
-                       'gt_boxes': jnp.asarray(self.gt)}
+        if host_batch is not None:
+            self.gt = host_batch['gt_boxes']
+            self.jbatch = {k: jnp.asarray(v) for k, v in host_batch.items()
+                           if isinstance(v, np.ndarray)}
+        else:
+            self.points = uniform_points(rng, batch, n_points, m.point_cloud_range)
+            self.mask = np.ones((batch, n_points), bool)
+            self.mask[:, -7:] = False
+            self.gt = gt_boxes(rng, batch, m.point_cloud_range)
+            pts, mask = jnp.asarray(self.points), jnp.asarray(self.mask)
+            vox = jax_voxelize(pts, mask, tuple(float(v) for v in m.point_cloud_range),
+                               tuple(float(v) for v in m.voxel_size),
+                               max_voxels=m.max_voxels,
+                               max_points_per_voxel=m.max_points_per_voxel,
+                               grid_size_static=tuple(int(g) for g in m.grid_size))
+            self.jbatch = {'points': pts, 'point_valid_mask': mask, **vox,
+                           'gt_boxes': jnp.asarray(self.gt)}
         self.jnet = jax_build_network(cfg.MODEL, len(cfg.CLASS_NAMES), m)
         variables = self.jnet.init(jax.random.PRNGKey(seed), self.jbatch, train=True)
         flat = {'/'.join(k): np.asarray(v) for k, v in

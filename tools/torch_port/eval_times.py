@@ -14,7 +14,7 @@ phase does, then:
 1. runs ``hvpr_tpu_torch.tools.test.main`` on the card (batch 8,
    ``--save_to_file``) and prints its ``eval_time/`` keys: scans/s and the
    share of the loop waiting on the DataLoader, over the whole loop and
-   past its first batch (whose wait holds the spawned workers' start-up),
+   past its first batch (whose wait holds the workers' start-up),
    the forward's median and the evaluator's seconds;
 2. the data layer in this process: the items of one batch (read, masks,
    ``sample_points``, host voxelization), their collation and a pickle
@@ -101,7 +101,7 @@ def main():
     sys.path.insert(0, ROOT)
     os.chdir(ROOT)
     import chip_smoke
-    from hvpr_tpu_torch.datasets import build_dataloader
+    from hvpr_tpu_torch.datasets import build_dataloader, stop_worker_server
     from hvpr_tpu_torch.models import build_network, load_data_to_gpu
     from hvpr_tpu_torch.utils.checkpoint import load_params_from_file
 
@@ -123,7 +123,7 @@ def main():
         wall_s = time.perf_counter() - t0
         n_batches = -(-args.val_scenes // bs)
         print(f'eval loop, {args.val_scenes} scans in {n_batches} batches of {bs}, '
-              f'{args.workers} spawned workers: '
+              f'{args.workers} workers: '
               f'{ret["eval_time/scans_per_s"]} scans/s, DataLoader wait share '
               f'{ret["eval_time/loader_wait_share"]}; past the first batch '
               f'{ret.get("eval_time/steady_scans_per_s")} scans/s, wait share '
@@ -177,6 +177,7 @@ def main():
         print(f'NMS candidates clearing SCORE_THRESH a scan: {live.tolist()} '
               f'(NMS_PRE_MAXSIZE {post.NMS_CONFIG.NMS_PRE_MAXSIZE}); '
               f'{int(dev_batch["voxel_mask"].sum())} pillars, {int(mask.sum())} points')
+    stop_worker_server()
     return 0
 
 
