@@ -42,9 +42,11 @@ scans with seeded random weights:
   which recomputes every row's weights), one step through the kernels
   must equal one step through the plain versions from the same state bit
   for bit under torch's deterministic algorithms (each gradient, loss term
-  and updated weight), and 5 more steps must launch each kernel its
-  expected number of times; the step's peak memory is read with the
-  captured inputs freed.
+  and updated weight), two kernel steps without them must give the same
+  gradients bit for bit (K12, the row gathers' backward, sums in a fixed
+  order, and equals its plain version on the CPU bit for bit), and 5 more
+  steps must launch each kernel its expected number of times; the step's
+  peak memory is read with the captured inputs freed.
 - the bucketed 3-NN (K11), which no path of the model calls (the FP modules
   keep the exact 3-NN, as in the JAX package): on the inputs of the two
   ``pointnet2.three_nn`` calls of one fused step it must equal its plain
@@ -71,6 +73,20 @@ scans with seeded random weights:
   the evaluation must write 8 annos with the Car AP keys. The loop's
   scans/s and DataLoader wait share (whole, and past the first batch), the
   step's median (CUDA events) and the peak device memory are printed.
+- ddp: data-parallel training and evaluation over 2 processes, spawned
+  ranks that share the one card over gloo (they measure correctness and
+  the exchange's overhead, not scaling): (a) the fused batch's 4 scans as
+  2 + 2, 2 steps from seed_weights, against one process's 2 steps on the
+  4 (loss terms and grad_norm rtol 1e-4; after the first step 99% of the
+  weights within 1e-6 relative, after the second 90% within 0.1 lr, the
+  tolerances of tests/test_torch_port_train_step.py), the ranks bit-equal, each rank's run repeated bit for bit
+  without deterministic algorithms, each rank's kernels launched as a
+  step launches them (over NCCL too, a rank a card, where there are two
+  cards or more); (b) the train CLI with ``--launcher pytorch`` over the 2
+  ranks, then its test CLI, which must give one process's annos and
+  result string; (c) ``torchrun`` of the train CLI over NCCL on every card
+  (on one card a group of one). Each kernel entry gains rank 0's
+  ``ddp_launches`` of (a).
 
 Device times by kernel (torch.profiler) are printed for K2, K3, K4 (per
 SA level, and per level and radius the same kernel for that radius alone,
@@ -118,10 +134,13 @@ INFER_KERNELS = ('segment_sweep', 'memory_lookup', 'bev_canvas')
 # SA level (both radii in one sweep), one FPS per level, one reconstruction
 # each way, one threshold, and the masked attention of the points (K9's
 # dense sweep) and of their reconstructions (K9's pair pass, on the first
-# call's selection), and both backwards (the last four in fused mode only)
+# call's selection), and both backwards (those four in fused mode only);
+# K12, the row gathers' deterministic backward: SA2's two groupings of SA1's
+# features and the two FP modules' 3-NN interpolations
 STEP_LAUNCHES = {'ball_query': 2, 'fps_chunks': 2, 'memory_recon_fwd': 1,
                  'memory_recon_bwd': 1, 'bucket_threshold': 1,
-                 'masked_attend_fwd': 1, 'masked_attend_pairs': 1, 'masked_attend_bwd': 2}
+                 'masked_attend_fwd': 1, 'masked_attend_pairs': 1, 'masked_attend_bwd': 2,
+                 'gather_grad': 4}
 ATTEND_KERNELS = ('bucket_threshold', 'masked_attend_fwd', 'masked_attend_pairs',
                   'masked_attend_bwd')
 EXACT_FPS_NPOINT = 4096            # hvpr.yaml's SA1 npoint, over whole scans
@@ -154,6 +173,9 @@ META = {
                           'hvpr_tpu/ops/topk_attend.py:427'),
     'three_nn_bucket': ('hvpr_tpu_torch/csrc/three_nn.cu',
                         'hvpr_tpu/ops/pn2_select.py:135'),
+    # no TPU kernel: the backward of the JAX package's XLA gather
+    'gather_grad': ('hvpr_tpu_torch/csrc/gather_grad.cu',
+                    'hvpr_tpu/ops/pointnet2.py:189'),
 }
 
 
@@ -602,7 +624,14 @@ def _train_bounds(name, calls, plain_outs, selected, recon_nonzero):
     dmma_ops = None
     flops = F32_FLOPS_PER_S
     for (args, _), out in zip(calls, plain_outs):
-        if name == 'ball_query':
+        if name == 'gather_grad':
+            # the gathered rows' gradient and their int64 targets read once,
+            # the source gradient written once; an f32 add an element
+            grad, index, n = args
+            ops += grad.numel()
+            nbytes += grad.numel() * grad.element_size() + index.numel() * 8 \
+                + n * grad.shape[1] * grad.element_size()
+        elif name == 'ball_query':
             # one call a level, both radii: ~8 f32 operations for the
             # distance and a compare a radius, per (centre, point) pair up
             # to the point at which the centre has both radii's nsample
@@ -848,7 +877,7 @@ def _lookup_library_ms(pill, memw, row_mask, thresh):
 # K9's row maxima and pair weights (and every integer output: counts, pair
 # indices); the rest within RECON_RTOL
 EXACT_OUTPUTS = {'bucket_threshold': (0,), 'masked_attend_fwd': (1, 5),
-                 'masked_attend_pairs': (1, 5)}
+                 'masked_attend_pairs': (1, 5), 'gather_grad': (0,)}
 
 
 def train_phase(smi, mode):
@@ -862,8 +891,8 @@ def train_phase(smi, mode):
     import torch
     from hvpr_tpu_torch.models import DatasetMeta, build_network
     from hvpr_tpu_torch.models.backbones_2d.map_to_bev import pointpillar_scatter
-    from hvpr_tpu_torch.ops import (_kernels, memory_recon, pn2_select, pointnet2,
-                                    topk_attend)
+    from hvpr_tpu_torch.ops import (_kernels, gather_rows, memory_recon, pn2_select,
+                                    pointnet2, topk_attend)
     from hvpr_tpu_torch.parallel import loss_and_grads
     from hvpr_tpu_torch.utils.scans import realistic_scans_with_boxes
 
@@ -899,7 +928,9 @@ def train_phase(smi, mode):
                 # the same wrapper; its calls that carry a selection
                 'masked_attend_pairs': (None, None, topk_attend.masked_attend_fwd),
                 'masked_attend_bwd': (topk_attend, 'masked_attend_bwd',
-                                      topk_attend.masked_attend_bwd)}
+                                      topk_attend.masked_attend_bwd),
+                'gather_grad': (gather_rows, 'gather_rows_backward',
+                                gather_rows.gather_rows_backward)}
     wrappers = {k: w for k, w in wrappers.items() if k in step_launches}
 
     def fresh():
@@ -909,9 +940,10 @@ def train_phase(smi, mode):
     # 1-2. one step through the kernels, every train kernel's wrapper call
     # captured, and the same step from the same state through the plain
     # versions, under torch's deterministic algorithms. Without them the
-    # backward's gathers sum by atomics in run order and two plain steps
+    # plain versions' gathers sum by atomics in run order and two plain steps
     # differ by some percent in a point-stream gradient (its bf16 BN
-    # backwards amplify the noise; printed below); with them two plain steps
+    # backwards amplify the noise; printed below; the kernel step, whose
+    # gathers K12 sums in order, needs no switch); with them two plain steps
     # are bit-identical, and the kernels equal their plain versions, so the
     # kernel step must equal the plain step to the bit: each gradient leaf
     # (before the optimizer), each loss term, grad_norm, and each updated
@@ -972,20 +1004,29 @@ def train_phase(smi, mode):
 
     entries = {}
     if fused:
-        # what deterministic mode removes: two plain steps' gradients without it
-        noisy = []
-        for _ in range(2):
-            fresh()
-            with _kernels.plain_versions():
-                noisy.append(loss_and_grads(net.train_state, batch)[1])
-        rel = {n: float(torch.linalg.vector_norm((a - b).double())
-                        / torch.linalg.vector_norm(b.double()).clamp_min(1e-30))
-               for n, a, b in zip(names, *noisy)}
-        worst = max(rel, key=rel.get)
-        print(f'without deterministic algorithms two plain steps differ in '
-              f'{sum(v > 0 for v in rel.values())} of {len(rel)} gradient leaves, '
-              f'most in {worst}: {rel[worst]:.3g} of its L2 norm')
-        del noisy
+        # without deterministic algorithms: two kernel steps must give the
+        # same bits (K12 sums the gathers' gradients without atomics; ROADMAP
+        # C3); the plain versions' gathers still add by atomics
+        for run in ('kernels', 'plain'):
+            twice = []
+            for _ in range(2):
+                fresh()
+                with _kernels.plain_versions() if run == 'plain' else \
+                        contextlib.nullcontext():
+                    twice.append(loss_and_grads(net.train_state, batch)[1])
+            rel = {n: float(torch.linalg.vector_norm((a - b).double())
+                            / torch.linalg.vector_norm(b.double()).clamp_min(1e-30))
+                   for n, a, b in zip(names, *twice)}
+            worst = max(rel, key=rel.get)
+            n_differ = sum(v > 0 for v in rel.values())
+            kind = 'kernel' if run == 'kernels' else 'plain'
+            print(f'without deterministic algorithms two {kind} steps differ in {n_differ} '
+                  f'of {len(rel)} gradient leaves, most in {worst}: {rel[worst]:.3g} of its '
+                  f'L2 norm')
+            if run == 'kernels' and n_differ:
+                fail(f'two kernel steps without deterministic algorithms differ in '
+                     f'{n_differ} gradient leaves')
+            del twice
 
         # 3. each kernel against its plain version at this step's shapes
         outs = {}
@@ -994,8 +1035,14 @@ def train_phase(smi, mode):
             plain_outs = []
             for args, kwargs in calls[name]:
                 got = fn(*args, **kwargs)
-                with _kernels.plain_versions():
-                    want = fn(*args, **kwargs)
+                if name == 'gather_grad':
+                    # its plain version sums in order on the CPU (on the
+                    # card its index_add_ adds by atomics): the same bits
+                    want = gather_rows.gather_rows_backward_plain(
+                        args[0].cpu(), args[1].cpu(), args[2]).to(got.device)
+                else:
+                    with _kernels.plain_versions():
+                        want = fn(*args, **kwargs)
                 torch.cuda.synchronize()
                 plain_outs.append(want)
                 # K4's two radii: ((idx, cnt), (idx, cnt))
@@ -1067,6 +1114,17 @@ def train_phase(smi, mode):
                     if max(e_k, e_p) > RECON_RTOL * scale:
                         fail(f'{name}: differs from the dense oracle by {max(e_k, e_p)}')
                     del got, oracle
+
+        # K12's yardstick: index_add_ (atomic adds) into a zeroed buffer
+        lib_ms = 0.0
+        for (grad, index, n), _ in calls['gather_grad']:
+            buf = torch.zeros(n, grad.shape[1], dtype=grad.dtype, device=grad.device)
+            lib_ms += cuda_ms(lambda: buf.index_add_(0, index, grad), reps=10, warmup=2)
+        entries['gather_grad']['library_ms'] = lib_ms
+        print(f'gather_grad: equal bit for bit to its plain version on the CPU at '
+              f'{[(tuple(a[0].shape), str(a[0].dtype), a[2]) for a, _ in calls["gather_grad"]]}; '
+              f'index_add_ {lib_ms:.4f} ms')
+        del buf
 
         # the selected sets: points per valid pillar row, per K9 call
         selected = {}
@@ -1319,15 +1377,16 @@ def write_eval_tree(tmp, cfg, n_val):
     return root, ckpt
 
 
-def run_test_cli(tmp, root, ckpt, tag, workers):
-    """``hvpr_tpu_torch.tools.test.main`` on the card: hvpr.yaml, batch 8,
-    --save_to_file, its output tree under ``tmp``; the result dict."""
+def run_test_cli(tmp, root, ckpt, tag, workers, batch=BATCH):
+    """``hvpr_tpu_torch.tools.test.main`` on the card: hvpr.yaml, batch
+    ``batch``, --save_to_file, its output tree under ``tmp``; the result
+    dict."""
     from hvpr_tpu_torch import config
     from hvpr_tpu_torch.tools import test as test_cli
 
     config.cfg.ROOT_DIR = tmp
     return test_cli.main([
-        '--cfg_file', CFG, '--ckpt', str(ckpt), '--batch_size', str(BATCH),
+        '--cfg_file', CFG, '--ckpt', str(ckpt), '--batch_size', str(batch),
         '--workers', str(workers), '--extra_tag', tag, '--save_to_file',
         '--set', 'DATA_CONFIG.DATA_PATH', str(root)])
 
@@ -1408,9 +1467,8 @@ def eval_cli_phase(smi):
         print('eval_cli: annos equal to those of the run through the plain versions')
 
         # padded vs flat on the first batch's sampled points
-        np.random.seed(0)
         test_set, _, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, BATCH,
-                                          root_path=root, workers=0)
+                                          root_path=root, workers=0, item_seed=0)
         batch = test_set.collate_batch([test_set[i] for i in range(BATCH)])
         net = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), test_set, device='cuda')
         load_params_from_file(net.module, ckpt)
@@ -1418,7 +1476,7 @@ def eval_cli_phase(smi):
         padded = net.eval_forward(dev_batch)
         flat = net.pipeline(dev_batch['points'], dev_batch['point_valid_mask'])
         torch.cuda.synchronize()
-        # the same batch as the CLI's first (its worker 0 seeds numpy with 0)
+        # the same batch as the CLI's first (scene i's draws seeded with i)
         for i in range(BATCH):
             kept = padded['pred_boxes'][i][padded['pred_mask'][i]].cpu().numpy()
             if not np.array_equal(kept, annos[i]['boxes_lidar']):
@@ -1484,7 +1542,7 @@ def train_cli_phase(smi):
     ``create_kitti_infos``, then ``hvpr_tpu_torch.tools.train.main`` on the
     card: hvpr.yaml at full width, batch 4 (4 steps an epoch of augmented,
     host-voxelized padded batches of 16,384 points a scan from 4
-    DataLoader workers), --fix_random_seed (deterministic algorithms), the
+    DataLoader workers), --fix_random_seed, deterministic algorithms, the
     model's own initialization, 2 epochs with the post-train evaluation of
     the last checkpoints; then --epochs 3 with the same tag, which resumes
     from checkpoint_epoch_2.pth; then the 2 epochs again through the plain
@@ -1541,9 +1599,16 @@ def train_cli_phase(smi):
         out = tmp / 'output' / 'cfgs' / 'kitti_models' / 'hvpr'
 
         def run(tag, epochs):
+            # under deterministic algorithms, where the plain versions'
+            # scatter-adds sum in order too (the CLI leaves the switch as it
+            # finds it: its kernel path needs none)
             _kernels.reset_launch_counts()
+            torch.use_deterministic_algorithms(True)
             t0 = time.perf_counter()
-            ret = train.main(['--epochs', str(epochs), '--extra_tag', tag] + common)
+            try:
+                ret = train.main(['--epochs', str(epochs), '--extra_tag', tag] + common)
+            finally:
+                torch.use_deterministic_algorithms(False)
             torch.cuda.synchronize()
             return ret, _kernels.launch_counts(), time.perf_counter() - t0
 
@@ -1650,6 +1715,474 @@ def train_cli_phase(smi):
           f'initialization), eval loop {float(first["eval"]["eval_time/scans_per_s"]):.3f} '
           f'scans/s; on {smi}')
     return {k: launches1[k] + launches2[k] for k in launches1}
+
+
+DDP_RANKS = 2                      # the ddp phase: 2 ranks, both on card 0 over gloo
+DDP_STEPS = 2                      # (a): steps of 2 + 2 scans of the fused batch
+DDP_CLI_TRAIN_SCENES = 8           # (b), (c): 2 steps an epoch at global batch 4
+DDP_CLI_VAL_SCENES = 8
+DDP_CLI_EPOCHS = 2
+DDP_CLI_WORKERS = 2                # DataLoader workers a rank
+DDP_TIMED_STEPS = 3                # (a): warm steps timed after the checked ones
+# (a)'s yardstick is one process's own noise: the same step on the same 4
+# scans in another order, which moves only the BatchNorms' sums, as 2 ranks
+# do. hvpr.yaml runs its point stream, backbone and head in bf16, where an
+# f32-ulp change flips roundings and the attention's selections: on an
+# H100 80GB HBM3 (700 W) that reordering alone moves a loss term by up to
+# 2.3e-3 after one step and 9.4e-3 after two, and leaves 88.8% of the
+# weights within 1e-6 relative after one step. The 2-rank step must stay
+# within NOISE_MARGIN times it: the largest relative difference of a loss
+# term or grad_norm, and of a running statistic (over its tensor's largest
+# magnitude), at most NOISE_MARGIN times the reordered step's; the share of
+# weights within 0.1 lr at least the reordered step's less SHARE_MARGIN.
+# (tests/test_torch_port_ddp.py holds hvpr_mini.yaml, in f32, to rtol 1e-5.)
+NOISE_MARGIN, SHARE_MARGIN = 2.0, 0.02
+
+
+def _card_flags():
+    """The flags ``run_phases`` sets, in a spawned rank too."""
+    import torch
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+def _cpu_state(net):
+    """The module's state_dict and the optimizer's, on the host."""
+    import torch
+    opt = net.train_state.optimizer.state_dict()
+    to_cpu = lambda x: x.detach().cpu().clone() if isinstance(x, torch.Tensor) else x
+    return ({k: to_cpu(v) for k, v in net.module.state_dict().items()},
+            {'count': opt['count'], 'adamw': {
+                'state': {i: {k: to_cpu(v) for k, v in st.items()}
+                          for i, st in opt['adamw']['state'].items()},
+                'param_groups': opt['adamw']['param_groups']}})
+
+
+def _ddp_step_rank(rank, world, device, state0_path, out_dir):
+    """(a) on one rank: hvpr.yaml fused, seed_weights loaded on rank 0 only
+    (rank 1 starts from its own initialization: the broadcast gives it rank
+    0's), this rank's 2 of the fused batch's 4 scans, DDP_STEPS steps with
+    launch counts from zero, the whole run twice from the same state (no
+    deterministic algorithms), then DDP_TIMED_STEPS timed steps (CUDA
+    events) and the gradient all-reduce alone."""
+    import numpy as np
+    import torch
+    from hvpr_tpu_torch.models import DatasetMeta, build_network
+    from hvpr_tpu_torch.ops import _kernels
+    from hvpr_tpu_torch.parallel import average_over_ranks, broadcast_state
+    from hvpr_tpu_torch.utils.scans import realistic_scans_with_boxes
+
+    cfg = load_cfg()
+    meta = DatasetMeta(cfg.DATA_CONFIG, cfg.CLASS_NAMES, mode='train')
+    net = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), meta, device=device, train=True)
+    state0 = torch.load(state0_path, map_location=device, weights_only=True)
+    pts, gt = realistic_scans_with_boxes(np.random.default_rng(0), TRAIN_BATCH, N_POINTS,
+                                         meta.point_cloud_range)
+    b = TRAIN_BATCH // world
+    share = slice(rank * b, (rank + 1) * b)
+    mask = torch.ones(b, N_POINTS, dtype=torch.bool, device=device)
+    batch = dict(net.voxelize(torch.from_numpy(pts[share]).to(device), mask),
+                 gt_boxes=torch.from_numpy(gt[share]).to(device))
+    runs = []
+    for _ in range(2):
+        if rank == 0:
+            net.module.load_state_dict(state0)
+        broadcast_state(net.module)
+        net.init_training(cfg.OPTIMIZATION, TOTAL_STEPS)
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        _kernels.reset_launch_counts()
+        metrics, states = [], []
+        for _ in range(DDP_STEPS):
+            metrics.append({k: float(v) for k, v in net.train_step(batch).items()})
+            states.append(_cpu_state(net)[0])
+        torch.cuda.synchronize(device)
+        state, opt = _cpu_state(net)
+        runs.append({'metrics': metrics, 'states': states, 'state': state, 'optimizer': opt,
+                     'launches': _kernels.launch_counts(),
+                     'peak': torch.cuda.max_memory_allocated(device),
+                     'pillars': int(batch['voxel_mask'].sum())})
+    repeat_differ = _differ(runs[0]['state'], runs[1]['state'], 'state') \
+        + _differ(runs[0]['optimizer'], runs[1]['optimizer'], 'optimizer') \
+        + ([] if runs[0]['metrics'] == runs[1]['metrics'] else ['metrics'])
+    events = []
+    for _ in range(DDP_TIMED_STEPS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        net.train_step(batch)
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize(device)
+    runs[0]['step_ms'] = [s.elapsed_time(e) for s, e in events]
+    grads = [torch.randn_like(p) for p in net.train_state.optimizer.params]
+    reduce_ms = []
+    for _ in range(7):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        average_over_ranks(grads)
+        torch.cuda.synchronize(device)
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.save(dict(runs[0], repeat_differ=repeat_differ,
+                    allreduce_ms=statistics.median(reduce_ms[2:]),
+                    allreduce_bytes=sum(g.numel() * g.element_size() for g in grads)),
+               os.path.join(out_dir, f'step_rank{rank}.pt'))
+
+
+def _ddp_cli_rank(rank, device, root, out_dir):
+    """(b) on one rank: the train CLI (--launcher pytorch, the group made
+    already) for DDP_CLI_EPOCHS epochs at global batch 4, this rank's state
+    when training ends kept, then the test CLI over the ranks on rank 0's
+    last checkpoint."""
+    from pathlib import Path
+
+    import torch
+    from hvpr_tpu_torch import config
+    from hvpr_tpu_torch.ops import _kernels
+    from hvpr_tpu_torch.tools import test, train, train_utils
+
+    config.cfg.ROOT_DIR = os.path.join(out_dir, 'cli')
+    launch = ['--launcher', 'pytorch', '--local_rank', str(device.index)]
+    common = ['--cfg_file', CFG, '--batch_size', str(TRAIN_BATCH),
+              '--workers', str(DDP_CLI_WORKERS), '--extra_tag', 'ddp',
+              '--set', 'DATA_CONFIG.DATA_PATH', root]
+    captured = {}
+
+    def keep_state(net, *args, **kwargs):
+        out = train_utils.train_model(net, *args, **kwargs)
+        captured['state'], captured['optimizer'] = _cpu_state(net)
+        return out
+
+    train.train_model = keep_state
+    _kernels.reset_launch_counts()
+    try:
+        ret = train.main(launch + ['--epochs', str(DDP_CLI_EPOCHS), '--fix_random_seed',
+                                   '--num_epochs_to_eval', '1'] + common)
+    finally:
+        train.train_model = train_utils.train_model
+    train_launches = _kernels.launch_counts()
+    ckpt = next(Path(config.cfg.ROOT_DIR).glob(
+        f'output/**/ddp/ckpt/checkpoint_epoch_{DDP_CLI_EPOCHS}.pth'))
+    test_ret = test.main(launch + ['--ckpt', str(ckpt), '--save_to_file'] + common)
+    torch.save(dict(captured, train=ret, test=test_ret, train_launches=train_launches),
+               os.path.join(out_dir, f'cli_rank{rank}.pt'))
+
+
+def _ddp_rank(rank, world, backend, store, state0_path, root, out_dir):
+    """One rank of the ddp phase, spawned: joins the group (``file://``
+    store), then (a) and, over gloo, (b)."""
+    import torch
+    import torch.distributed as dist
+    from hvpr_tpu_torch.datasets import stop_worker_server
+
+    sys.path.insert(0, ROOT)
+    os.chdir(ROOT)
+    _card_flags()
+    device = torch.device('cuda', rank if backend == 'nccl' else 0)
+    torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method=f'file://{store}', rank=rank,
+                            world_size=world)
+    try:
+        _ddp_step_rank(rank, world, device, state0_path, out_dir)
+        if backend == 'gloo':
+            _ddp_cli_rank(rank, device, root, out_dir)
+        dist.barrier()
+    finally:
+        stop_worker_server()
+        dist.destroy_process_group()
+
+
+def _weight_agreement(got, want, lr):
+    """How close ``got``'s weights and BN statistics are to ``want``'s: (the
+    share of the weights within 1e-6 relative (+1e-7), the share within
+    0.1 ``lr``, the largest difference of a running statistic over the
+    tensor's largest magnitude)."""
+    import torch
+    diffs, within, stats = [], [], 0.0
+    for k, w in want.items():
+        if 'num_batches' in k:
+            continue
+        g, w = got[k].double(), w.double()
+        if 'running' in k:
+            stats = max(stats, float((g - w).abs().max() / w.abs().max().clamp_min(1e-30)))
+            continue
+        diffs.append((g - w).abs().reshape(-1))
+        within.append(diffs[-1] <= 1e-7 + 1e-6 * w.abs().reshape(-1))
+    d = torch.cat(diffs)
+    return (float(torch.cat(within).double().mean()), float((d <= 0.1 * lr).double().mean()),
+            stats)
+
+
+def ddp_phase(smi):
+    """Data-parallel training and evaluation over DDP_RANKS processes
+    (``hvpr_tpu_torch.parallel``, ``--launcher pytorch``). Two ranks share
+    the one card over gloo: they measure correctness and the overhead of
+    the exchange, not scaling.
+
+    (a) hvpr.yaml fused, the fused batch's 4 scans as 2 + 2 on two ranks,
+    DDP_STEPS steps from seed_weights (rank 0's, broadcast): the loss terms
+    and grad_norm, the weights and BN statistics after each step within
+    one process's own noise on the 4 scans (NOISE_MARGIN: against one
+    process's steps on them, at most twice as far as one process's steps on
+    the same scans in another order), the ranks bit-equal (weights, BN statistics, AdamW state), each rank's run
+    repeated from the same state bit for bit without deterministic
+    algorithms, each rank launching the train kernels STEP_LAUNCHES a step.
+    With two cards or more, (a) runs over NCCL too (a rank a card).
+    (b) the train CLI over the two ranks (gloo) on a tree of 8 train and 8
+    val scenes, DDP_CLI_EPOCHS epochs of 2 steps at global batch 4: one set
+    of checkpoints (rank 0's), the ranks bit-equal when training ends and
+    equal to the last checkpoint, the post-train evaluation reading each
+    val scene once; then the test CLI over the two ranks on the last
+    checkpoint gives one process's annos (boxes 1e-4, scores 1e-5, as
+    tests/test_torch_port_cli.py) and result string.
+    (c) ``torchrun --nproc_per_node <cards>`` of the train CLI with
+    ``--launcher pytorch`` over NCCL, DDP_CLI_EPOCHS epochs of 2 steps: it
+    must exit 0 and write a checkpoint an epoch
+    (on one card a group of one: the NCCL init, the broadcast and the
+    all-reduces on the real backend).
+    Returns rank 0's launch counts of (a)'s gloo run."""
+    import copy
+    import pickle
+    import re
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+    from hvpr_tpu_torch.datasets.kitti.kitti_dataset import create_kitti_infos
+    from hvpr_tpu_torch.datasets.kitti.kitti_object_eval_python.eval import (
+        get_official_eval_result)
+    from hvpr_tpu_torch.models import DatasetMeta, build_network
+    from hvpr_tpu_torch.ops import _kernels
+    from hvpr_tpu_torch.utils.scans import build_kitti_root, realistic_scans_with_boxes
+
+    cards = torch.cuda.device_count()
+    print(f'ddp: {DDP_RANKS} ranks on {cards} card(s); two ranks on one card measure '
+          f'correctness and the exchange\'s overhead, not scaling')
+    cfg = load_cfg()
+    # the one-process reference: the same weights and 4 scans, DDP_STEPS steps
+    meta = DatasetMeta(cfg.DATA_CONFIG, cfg.CLASS_NAMES, mode='train')
+    net = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), meta, device='cuda', train=True)
+    seed_weights(net.module, seed=0)
+    state0 = {k: v.clone() for k, v in net.module.state_dict().items()}
+    pts, gt = realistic_scans_with_boxes(np.random.default_rng(0), TRAIN_BATCH, N_POINTS,
+                                         meta.point_cloud_range)
+    mask = torch.ones(TRAIN_BATCH, N_POINTS, dtype=torch.bool, device='cuda')
+
+    def one_process(order, timed=0):
+        """DDP_STEPS steps on the 4 scans in ``order``, then ``timed`` more:
+        (metrics, states, the timed steps' ms by CUDA events)."""
+        batch = dict(net.voxelize(torch.from_numpy(pts[order]).cuda(), mask),
+                     gt_boxes=torch.from_numpy(gt[order]).cuda())
+        net.module.load_state_dict(state0)
+        net.init_training(cfg.OPTIMIZATION, TOTAL_STEPS)
+        metrics, states, ms = [], [], []
+        for _ in range(DDP_STEPS):
+            metrics.append({k: float(v) for k, v in net.train_step(batch).items()})
+            states.append(_cpu_state(net)[0])
+        for _ in range(timed):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            net.train_step(batch)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        return metrics, states, ms
+
+    ref_metrics, ref_states, ref_ms = one_process([0, 1, 2, 3], timed=DDP_TIMED_STEPS)
+    # the noise floor: the same scans in another order, which changes only
+    # the order of the BatchNorms' sums, as two ranks do
+    floor_metrics, floor_states, _ = one_process([2, 3, 0, 1])
+    lr = [net.train_state.optimizer.lr_fn(i) for i in range(DDP_STEPS)]
+    del net
+    torch.cuda.empty_cache()
+
+    build_dir = Path(ROOT) / 'build'
+    build_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        tmp = Path(tmp)
+        torch.save(state0, tmp / 'state0.pth')
+        del state0
+        root, _ = build_kitti_root(tmp / 'kitti',
+                                   n_scenes=DDP_CLI_TRAIN_SCENES + DDP_CLI_VAL_SCENES,
+                                   n_train=DDP_CLI_TRAIN_SCENES)
+        create_kitti_infos(root, root)
+        backends = ['gloo'] + (['nccl'] if cards >= DDP_RANKS else [])
+        outs = {}
+        for backend in backends:
+            out_dir = tmp / backend
+            out_dir.mkdir()
+            t0 = time.perf_counter()
+            mp.start_processes(_ddp_rank, args=(DDP_RANKS, backend, str(tmp / f'store_{backend}'),
+                                                str(tmp / 'state0.pth'), str(root), str(out_dir)),
+                               nprocs=DDP_RANKS, start_method='spawn')
+            print(f'ddp ({backend}): the ranks ran in {time.perf_counter() - t0:.1f} s')
+            outs[backend] = [torch.load(out_dir / f'step_rank{r}.pt', weights_only=False)
+                             for r in range(DDP_RANKS)]
+
+        # (a)
+        for backend, ranks in outs.items():
+            where = f'ddp (a, {backend})'
+            for i, (got, want) in enumerate(zip(ranks[0]['metrics'], ref_metrics)):
+                print(f'{where}: step {i + 1}, 2 ranks / one process / one process on the '
+                      f'scans in another order: ' + ', '.join(
+                          f'{k} {got[k]:.9g}/{v:.9g}/{floor_metrics[i][k]:.9g}'
+                          for k, v in sorted(want.items())))
+                rel, rel_floor = (max(abs(m[k] - v) / max(abs(v), 1e-30)
+                                      for k, v in want.items())
+                                  for m in (got, floor_metrics[i]))
+                agree = _weight_agreement(ranks[0]['states'][i], ref_states[i], lr[i])
+                agree_floor = _weight_agreement(floor_states[i], ref_states[i], lr[i])
+                print(f'{where}: step {i + 1} against one process, 2 ranks / the reordered '
+                      f'step: largest relative difference of a loss term or grad_norm '
+                      f'{rel:.3g} / {rel_floor:.3g}; weights within 1e-6 relative '
+                      f'{agree[0]:.6f} / {agree_floor[0]:.6f}, within 0.1 lr {agree[1]:.6f} / '
+                      f'{agree_floor[1]:.6f}; largest running-statistic difference '
+                      f'{agree[2]:.3g} / {agree_floor[2]:.3g}')
+                if rel > NOISE_MARGIN * rel_floor or agree[2] > NOISE_MARGIN * agree_floor[2] \
+                        or agree[1] < agree_floor[1] - SHARE_MARGIN:
+                    fail(f'{where}: step {i + 1} of 2 ranks is farther from one process\'s '
+                         f'than one process\'s noise allows')
+            for r, out in enumerate(ranks):
+                if out['repeat_differ']:
+                    fail(f'{where}: rank {r}\'s second run differs from its first in '
+                         f'{out["repeat_differ"][:5]}')
+                for name, n in out['launches'].items():
+                    if n != STEP_LAUNCHES.get(name, 0) * DDP_STEPS:
+                        fail(f'{where}: rank {r} launched {name} {n} times in {DDP_STEPS} '
+                             f'steps')
+            differ = _differ(ranks[0]['state'], ranks[1]['state'], 'state') + \
+                _differ(ranks[0]['optimizer'], ranks[1]['optimizer'], 'optimizer')
+            if differ or ranks[0]['metrics'] != ranks[1]['metrics']:
+                fail(f'{where}: the ranks differ in {differ[:5]} or their metrics')
+            print(f'{where}: {DDP_STEPS} steps of {TRAIN_BATCH // DDP_RANKS} + '
+                  f'{TRAIN_BATCH // DDP_RANKS} scans ({ranks[0]["pillars"]} and '
+                  f'{ranks[1]["pillars"]} pillars) against one process\'s on the '
+                  f'{TRAIN_BATCH}: within one process\'s own noise; ranks bit-equal '
+                  f'(weights, BN statistics, AdamW state); each rank\'s run repeated bit for '
+                  f'bit without deterministic algorithms; launches a rank {ranks[0]["launches"]}')
+            print(f'{where}: median of {DDP_TIMED_STEPS} warm steps (CUDA events) rank 0 '
+                  f'{statistics.median(ranks[0]["step_ms"]):.3f} ms, rank 1 '
+                  f'{statistics.median(ranks[1]["step_ms"]):.3f} ms (steps {ranks[0]["step_ms"]}); '
+                  f'one process on the {TRAIN_BATCH} scans {statistics.median(ref_ms):.3f} ms '
+                  f'(steps {ref_ms}); the gradient all-reduce alone {ranks[0]["allreduce_ms"]:.3f} '
+                  f'ms a step (host clock) for {ranks[0]["allreduce_bytes"]} bytes '
+                  f'({ranks[0]["allreduce_bytes"] // 4} f32 parameters); peak memory a rank '
+                  f'{ranks[0]["peak"] / 2**30:.3f} / {ranks[1]["peak"] / 2**30:.3f} GiB; '
+                  f'two ranks share {"one card" if backend == "gloo" else "no card"}: correctness '
+                  f'and overhead, not scaling; on {smi}')
+
+        # (b)
+        cli = [torch.load(tmp / 'gloo' / f'cli_rank{r}.pt', weights_only=False)
+               for r in range(DDP_RANKS)]
+        out_root = tmp / 'gloo' / 'cli'
+        ckpts = sorted(p.name for p in out_root.glob('output/**/ddp/ckpt/*.pth'))
+        want_ckpts = [f'checkpoint_epoch_{e + 1}.pth' for e in range(DDP_CLI_EPOCHS)]
+        if ckpts != want_ckpts:
+            fail(f'ddp (b): checkpoints {ckpts}, expected {want_ckpts} (from rank 0 alone)')
+        differ = _differ(cli[0]['state'], cli[1]['state'], 'state') + \
+            _differ(cli[0]['optimizer'], cli[1]['optimizer'], 'optimizer')
+        if differ:
+            fail(f'ddp (b): the ranks differ when training ends in {differ[:5]}')
+        last = torch.load(next(out_root.glob(f'output/**/ddp/ckpt/{want_ckpts[-1]}')),
+                          map_location='cpu', weights_only=True)
+        if _differ(last['model_state'], cli[1]['state']):
+            fail('ddp (b): rank 1\'s weights differ from the last checkpoint')
+        with open(root / 'kitti_infos_val.pkl', 'rb') as f:
+            val_ids = [i['point_cloud']['lidar_idx'] for i in pickle.load(f)]
+        evals = next(out_root.glob('output/**/ddp/eval/eval_with_train/eval_list_val.txt')
+                     ).read_text().split()
+        found = sorted(out_root.glob(f'output/**/ddp/eval/eval_with_train/'
+                                     f'epoch_{DDP_CLI_EPOCHS}/**/result.pkl'))
+        if len(found) != 1 or evals[-1] != str(DDP_CLI_EPOCHS):
+            fail(f'ddp (b): post-train evaluation results {found}, evaluated {evals}')
+        with open(found[0], 'rb') as f:
+            if [a['frame_id'] for a in pickle.load(f)] != val_ids:
+                fail('ddp (b): the post-train evaluation did not read each val scene once')
+        if cli[1]['train']['eval'] or cli[1]['test'] or \
+                'Car_3d/moderate' not in cli[0]['train']['eval']:
+            fail('ddp (b): the evaluation\'s result is not rank 0\'s alone')
+        steps = DDP_CLI_EPOCHS * DDP_CLI_TRAIN_SCENES // TRAIN_BATCH
+        for r, c in enumerate(cli):
+            for name, n in c['train_launches'].items():
+                want = STEP_LAUNCHES.get(name, 0) * steps
+                if name == 'memory_lookup':
+                    # the rank's share of the val scenes, a batch of 2 a launch
+                    want = len(evals) * -(-DDP_CLI_VAL_SCENES // TRAIN_BATCH)
+                if n != want:
+                    fail(f'ddp (b): rank {r}\'s train CLI launched {name} {n} times, '
+                         f'expected {want}')
+        # the test CLI over the two ranks against one process on that checkpoint
+        found = sorted(out_root.glob('output/**/ddp/eval/epoch_*/**/result.pkl'))
+        if len(found) != 1:
+            fail(f'ddp (b): test CLI results {found}')
+        with open(found[0], 'rb') as f:
+            annos2 = pickle.load(f)
+        ckpt = next(out_root.glob(f'output/**/ddp/ckpt/{want_ckpts[-1]}'))
+        # one process at a rank's batch size, so that cuDNN runs the same
+        # algorithms on each scan (the bf16 backbone's roundings, and the
+        # NMS ties of random weights, follow them)
+        one = run_test_cli(tmp / 'one', root, ckpt, 'one', DDP_CLI_WORKERS,
+                           batch=TRAIN_BATCH // DDP_RANKS)
+        annos1, _ = _eval_result(tmp / 'one', 'one')
+        bad = [(a['frame_id'], len(a['name']), len(b['name']))
+               for a, b in zip(annos1, annos2)
+               if a['frame_id'] != b['frame_id'] or not np.array_equal(a['name'], b['name'])
+               or not np.allclose(a['boxes_lidar'], b['boxes_lidar'], rtol=0, atol=1e-4)
+               or not np.allclose(a['score'], b['score'], rtol=0, atol=1e-5)]
+        if len(annos1) != len(annos2) or bad:
+            fail(f'ddp (b): the test CLI over two ranks gives other annos than one process '
+                 f'(frame, detections one process, two ranks): {bad}')
+        with open(root / 'kitti_infos_val.pkl', 'rb') as f:
+            gt_annos = [i['annos'] for i in pickle.load(f)]
+        strings = [get_official_eval_result(copy.deepcopy(gt_annos), copy.deepcopy(a),
+                                            list(cfg.CLASS_NAMES))[0] for a in (annos1, annos2)]
+        aps = [{k: v for k, v in d.items() if not k.startswith('eval_time/')}
+               for d in (one, cli[0]['test'])]
+        if strings[0] != strings[1] or aps[0] != aps[1]:
+            fail('ddp (b): the test CLI over two ranks gives another result than one process')
+        box_err = max(float(np.abs(a['boxes_lidar'] - b['boxes_lidar']).max(initial=0))
+                      for a, b in zip(annos1, annos2))
+        ret = cli[0]['train']
+        print(f'ddp (b): the train CLI over 2 ranks (gloo, one card), {DDP_CLI_EPOCHS} epochs '
+              f'of {DDP_CLI_TRAIN_SCENES // TRAIN_BATCH} steps at global batch {TRAIN_BATCH}: '
+              f'checkpoints {ckpts} from rank 0, ranks bit-equal at the end and equal to '
+              f'the last checkpoint, the post-train evaluation (of epochs {evals}) read each '
+              f'of the {len(val_ids)} val scenes once; train_step median '
+              f'{ret["train_time/step_median_ms"]:.3f} ms a rank (CUDA events); the test CLI '
+              f'over 2 ranks gives one process\'s {len(annos1)} annos '
+              f'({sum(len(a["name"]) for a in annos1)} detections, largest box difference '
+              f'{box_err}) and result string; on {smi}')
+
+        # (c)
+        env = dict(os.environ, HVPR_ROOT_DIR=str(tmp / 'nccl_cli'))
+        cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+               '--nproc_per_node', str(cards), '-m', 'hvpr_tpu_torch.tools.train',
+               '--launcher', 'pytorch', '--cfg_file', CFG, '--batch_size', str(TRAIN_BATCH),
+               '--epochs', str(DDP_CLI_EPOCHS), '--workers', str(DDP_CLI_WORKERS),
+               '--fix_random_seed',
+               '--num_epochs_to_eval', '1', '--extra_tag', 'nccl',
+               '--set', 'DATA_CONFIG.DATA_PATH', str(root)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                              timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:] + proc.stderr[-8000:], file=sys.stderr)
+            fail(f'ddp (c): torchrun exited {proc.returncode}')
+        logs = proc.stdout + proc.stderr
+        median = re.findall(r'train_step median ([0-9.]+) ms', logs)
+        n_ckpt = len(list((tmp / 'nccl_cli').glob('output/**/nccl/ckpt/*.pth')))
+        if not median or n_ckpt != DDP_CLI_EPOCHS or 'process(es)' not in logs:
+            fail(f'ddp (c): the NCCL run printed no step median or wrote {n_ckpt} checkpoints')
+        print(f'ddp (c): torchrun --nproc_per_node {cards} of the train CLI over NCCL, '
+              f'{DDP_CLI_EPOCHS} epochs of {DDP_CLI_TRAIN_SCENES // TRAIN_BATCH} steps: rc 0 in '
+              f'{wall:.1f} s, train_step median {median[-1]} ms (CUDA events, rank 0, the '
+              f'first step\'s warm-up included; a group of {cards}: the NCCL init, the '
+              f'broadcast and the all-reduces); on {smi}')
+    return outs['gloo'][0]['launches']
 
 
 def _descendants(pid):
@@ -1774,6 +2307,9 @@ def run_phases():
     t0 = time.perf_counter()
     train_cli_launches = train_cli_phase(smi)
     print(f'train_cli phase: {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    ddp_launches = ddp_phase(smi)
+    print(f'ddp phase: {time.perf_counter() - t0:.1f} s')
     from hvpr_tpu_torch.datasets import stop_worker_server
     stop_worker_server()    # no loader runs from here on
     print('step 1 from the same state, fused - gather: ' + ', '.join(
@@ -1799,6 +2335,7 @@ def run_phases():
         if name == 'memory_lookup':
             kernels[-1]['eval_cli_launches'] = eval_launches[name]
         kernels[-1]['train_cli_launches'] = train_cli_launches[name]
+        kernels[-1]['ddp_launches'] = ddp_launches[name]
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

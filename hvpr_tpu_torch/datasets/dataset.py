@@ -23,6 +23,12 @@ from .processor.point_feature_encoder import PointFeatureEncoder
 
 
 class DatasetTemplate:
+    # seed of a scene's host draws (``sample_points``' choice and shuffle):
+    # None draws from numpy's RNG as it stands; an int seeds it with
+    # item_seed + index before each scene, so that a scene's points do not
+    # depend on which worker, process or position reads it
+    item_seed = None
+
     def __init__(self, dataset_cfg=None, class_names=None, training=True,
                  root_path=None, logger=None):
         self.dataset_cfg = dataset_cfg

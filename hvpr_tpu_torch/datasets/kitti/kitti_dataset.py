@@ -92,6 +92,8 @@ class KittiDataset(DatasetTemplate):
     def __getitem__(self, index):
         if self._merge_all_iters_to_one_epoch:
             index = index % len(self.kitti_infos)
+        if self.item_seed is not None:
+            np.random.seed(self.item_seed + index)
         info = self.kitti_infos[index]
         fid = info['point_cloud']['lidar_idx']
         img_shape = info['image']['image_shape']
@@ -140,10 +142,15 @@ class KittiDataset(DatasetTemplate):
                 class_names)
             anno['frame_id'] = batch_dict['frame_id'][i]
             annos.append(anno)
-            if output_path is not None:
-                _write_kitti_txt(
-                    Path(output_path) / f"{anno['frame_id']}.txt", anno)
+        if output_path is not None:
+            KittiDataset.write_prediction_files(annos, output_path)
         return annos
+
+    @staticmethod
+    def write_prediction_files(annos, output_path):
+        """One KITTI label ``.txt`` a scene of ``annos`` under ``output_path``."""
+        for anno in annos:
+            _write_kitti_txt(Path(output_path) / f"{anno['frame_id']}.txt", anno)
 
     def evaluation(self, det_annos, class_names, **kwargs):
         if 'annos' not in self.kitti_infos[0]:

@@ -178,7 +178,11 @@ class AnchorHeadSingle(nn.Module):
     def get_loss(self, preds, preds_pt, targets, batch_dict):
         """Total loss and its terms: both paths' cls / loc / dir losses and
         the memory-mimicking MSE, mean over valid pillars' elements divided
-        again by the pillar count, as the reference does."""
+        again by the pillar count, as the reference does. The detection
+        terms are normalized per scan and averaged over the local batch, so
+        over several processes the mean of the ranks' terms is the global
+        batch's; the pillar count is the global batch's, and each rank's
+        memory term is the world size times its share."""
         lw = self.model_cfg['LOSS_CONFIG']['LOSS_WEIGHTS']
         labels = targets['box_cls_labels']
         terms = {}
@@ -197,9 +201,18 @@ class AnchorHeadSingle(nn.Module):
             target = batch_dict['point_positive_features'].detach()
             memory = batch_dict['memory_positive_features']
             vmask = batch_dict['voxel_mask'][..., None].to(memory.dtype)
-            nv = torch.clamp(batch_dict['voxel_mask'].sum().to(memory.dtype), min=1.0)
+            nv = batch_dict['voxel_mask'].sum().to(memory.dtype)
+            world = common_utils.get_dist_info()[1]
+            if world > 1:
+                # nv is the whole batch's count, as under the JAX mesh step:
+                # each rank's term is scaled so that their mean is the
+                # global term (the mean the gradient all-reduce takes)
+                nv = common_utils.all_reduce_sum(nv)
+            nv = torch.clamp(nv, min=1.0)
             mse = (((memory - target) ** 2) * vmask).sum() / (nv * memory.shape[-1])
             mem_loss = mse / nv * lw['mem_weight']
+            if world > 1:
+                mem_loss = mem_loss * world
         rpn = terms['rpn_loss_cls'] + terms['rpn_loss_loc'] + terms['rpn_loss_dir']
         rpn_pt = (terms['rpn_loss_cls_pt'] + terms['rpn_loss_loc_pt']
                   + terms['rpn_loss_dir_pt'])

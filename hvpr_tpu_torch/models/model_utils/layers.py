@@ -11,6 +11,14 @@ activation dtype. Both BatchNorms are written out by hand, since torch's
   own statistics and updates the running stats with the BIASED variance,
   sequentially, group 0 first.
 
+Over several processes (a process group of more than one rank) both take
+their training statistics over the global batch, as the JAX package's mesh
+step does: each rank's sums are summed over the ranks (under autograd, so
+that the gradient flows back to every rank's rows), in the same two passes
+(mean, then the centred sum of squares), and every rank ends with the same
+running statistics. In one process nothing is exchanged and nothing
+changes.
+
 The classes subclass ``nn.Linear``/``nn.BatchNorm*``/``nn.Sequential`` so
 that their ``state_dict`` keys are the reference OpenPCDet ones
 (``*.linear.weight``, ``*.norm.running_mean``, ``blocks.i.1.weight``, ...).
@@ -21,6 +29,8 @@ NCHW are ``channels_last`` memory, so cuDNN reads them without a copy.
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from ...utils.common_utils import all_reduce_sum, get_dist_info
 
 BN_EPS = 1e-3
 BN_KEEP = 0.99          # flax momentum: running = keep * running + (1 - keep) * batch
@@ -68,9 +78,15 @@ class MaskedBatchNorm(nn.BatchNorm1d):
         if self.training:
             m = (torch.ones(x_t.shape[1], device=x_t.device) if mask is None
                  else mask.float())[None, :]
-            count = torch.clamp(m.sum(), min=1.0)
-            mean = (x32 * m).sum(dim=1) / count
-            var = ((x32 - mean[:, None]) ** 2 * m).sum(dim=1) / count
+            if get_dist_info()[1] > 1:
+                sums = all_reduce_sum(torch.cat([(x32 * m).sum(dim=1), m.sum()[None]]))
+                count = torch.clamp(sums[-1].detach(), min=1.0)
+                mean = sums[:-1] / count
+                var = all_reduce_sum(((x32 - mean[:, None]) ** 2 * m).sum(dim=1)) / count
+            else:
+                count = torch.clamp(m.sum(), min=1.0)
+                mean = (x32 * m).sum(dim=1) / count
+                var = ((x32 - mean[:, None]) ** 2 * m).sum(dim=1) / count
             _update_running(self, [mean.detach()],
                             [(var * (count / torch.clamp(count - 1.0, min=1.0))).detach()])
         else:
@@ -97,8 +113,14 @@ class SplitBatchNorm(nn.BatchNorm2d):
             raise ValueError(f'batch {b} does not split into {splits}')
         xs = x.float().reshape(splits, b // splits, *x.shape[1:])
         red = (1, 3, 4)
-        mean = xs.mean(dim=red, keepdim=True)                    # (s, 1, C, 1, 1)
-        var = ((xs - mean) ** 2).mean(dim=red, keepdim=True)
+        world = get_dist_info()[1]
+        if world > 1:
+            n = world * xs.shape[1] * xs.shape[3] * xs.shape[4]
+            mean = all_reduce_sum(xs.sum(dim=red, keepdim=True)) / n
+            var = all_reduce_sum(((xs - mean) ** 2).sum(dim=red, keepdim=True)) / n
+        else:
+            mean = xs.mean(dim=red, keepdim=True)                # (s, 1, C, 1, 1)
+            var = ((xs - mean) ** 2).mean(dim=red, keepdim=True)
         y = (xs - mean) * torch.rsqrt(var + self.eps)
         y = (y.reshape(x.shape) * self.weight[:, None, None]
              + self.bias[:, None, None])

@@ -28,14 +28,16 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG.parent / 'build'
 SOURCES = ('segment_sweep', 'memory_lookup', 'bev_canvas', 'ball_query',
-           'fps_chunks', 'memory_recon', 'topk_attend', 'three_nn')
+           'fps_chunks', 'memory_recon', 'topk_attend', 'three_nn', 'gather_grad')
 # one launch count per kernel; memory_recon.cu holds K6 and K7, topk_attend.cu
 # K8-K10, and K9 two kernels: the dense sweep (masked_attend_fwd) and the
-# pair pass of a call handed another call's selection (masked_attend_pairs)
+# pair pass of a call handed another call's selection (masked_attend_pairs);
+# gather_grad.cu holds K12, the deterministic backward of the point stream's
+# row gathers (no TPU kernel: the JAX package's gathers are XLA)
 KERNELS = ('segment_sweep', 'memory_lookup', 'bev_canvas', 'ball_query',
            'fps_chunks', 'memory_recon_fwd', 'memory_recon_bwd',
            'bucket_threshold', 'masked_attend_fwd', 'masked_attend_pairs',
-           'masked_attend_bwd', 'three_nn_bucket')
+           'masked_attend_bwd', 'three_nn_bucket', 'gather_grad')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 

@@ -7,7 +7,10 @@ card), ball query (the lane-bucket rule through
 of a multi-scale level in one sweep, or the reference's first-by-index rule
 in plain torch), grouping, and the 3-NN
 feature propagation (plain torch: it is XLA in the JAX package on every
-backend, not a TPU kernel).
+backend, not a TPU kernel). Grouping and interpolation gather through
+:func:`ops.gather_rows.gather_rows`, whose backward sums without atomics
+(kernel K12 on the card), so that a train step gives the same bits on
+every run.
 
 Padded points carry a validity mask: they are never sampled or grouped.
 Selection outputs are integer indices and carry no gradient; the 3-NN
@@ -16,6 +19,7 @@ weights are computed from detached coordinates.
 
 import torch
 
+from .gather_rows import gather_rows
 from .pn2_select import _sq_dist, ball_query_bucket, ball_query_bucket2, fps_chunks
 
 INF = 1e10
@@ -126,11 +130,11 @@ def ball_query_msg(radii, nsamples, xyz, new_xyz, mask, semantics='auto'):
 
 
 def group_points(features, idx):
-    """Gather (B, N, C) features at (B, S, K) or (B, S) indices."""
+    """Gather (B, N, C) features at (B, S, K) or (B, S) indices; the
+    gradient sums each point's contributions in a fixed order
+    (:func:`ops.gather_rows.gather_rows`, kernel K12 on the card)."""
     b = features.shape[0]
-    flat = idx.reshape(b, -1)
-    out = torch.gather(features, 1,
-                       flat[..., None].expand(-1, -1, features.shape[-1]))
+    out = gather_rows(features, idx.reshape(b, -1))
     return out.reshape(*idx.shape, features.shape[-1])
 
 

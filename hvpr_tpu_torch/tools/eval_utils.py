@@ -11,6 +11,13 @@ share of the loop spent waiting on the DataLoader, both again past the
 first batch (``steady_*``, the workers' start-up left out; only with more
 than one batch), the forward's median milliseconds a batch (host clock,
 device synchronized) and the evaluator's seconds.
+
+With ``dist_test`` each rank of the process group evaluates its share
+(the strided eval sampler), and rank 0 gathers every rank's annos in
+dataset order, truncated to the dataset's length (``merge_results_dist``),
+with the recall counters summed over the ranks, as the JAX package does;
+rank 0 alone writes ``result.pkl`` and the ``.txt`` files and runs the
+evaluator. The timing is rank 0's own loop.
 """
 
 import pickle
@@ -21,6 +28,7 @@ import numpy as np
 import torch
 
 from ..models import load_data_to_gpu
+from ..utils.common_utils import get_dist_info, merge_results_dist
 
 
 def statistics_info(cfg, ret_dict, metric, disp_dict):
@@ -53,11 +61,14 @@ def _forward(model, batch_dict, keep_gt):
     return host, seconds
 
 
-def eval_one_epoch(cfg, model, dataloader, epoch_id, logger, save_to_file=False,
-                   result_dir=None):
+def eval_one_epoch(cfg, model, dataloader, epoch_id, logger, dist_test=False,
+                   save_to_file=False, result_dir=None):
+    """Evaluate ``model`` over ``dataloader``; the result dict (recall, AP,
+    ``eval_time/``), {} on ranks other than 0 under ``dist_test``."""
+    rank = get_dist_info()[0] if dist_test else 0
     result_dir.mkdir(parents=True, exist_ok=True)
     final_output_dir = result_dir / 'final_result' / 'data'
-    if save_to_file:
+    if save_to_file and rank == 0:
         final_output_dir.mkdir(parents=True, exist_ok=True)
 
     thresh_list = cfg['MODEL']['POST_PROCESSING']['RECALL_THRESH_LIST']
@@ -102,15 +113,34 @@ def eval_one_epoch(cfg, model, dataloader, epoch_id, logger, save_to_file=False,
 
         det_annos += dataset.generate_prediction_dicts(
             batch_dict, pred_dicts, class_names,
-            output_path=final_output_dir if save_to_file else None)
+            output_path=final_output_dir if save_to_file and not dist_test else None)
         logger.info('eval batch %d/%d %s', i + 1, num_batches, disp_dict)
         if i == 0:
             first_s, first_wait_s, first_n = (time.perf_counter() - start_time, wait_s,
                                               len(det_annos))
     loop_s = time.perf_counter() - start_time
+    timing = {
+        'eval_time/scans_per_s': len(det_annos) / loop_s,
+        'eval_time/loader_wait_share': wait_s / loop_s,
+        'eval_time/forward_median_ms': statistics.median(forward_s) * 1e3
+        if forward_s else 0.0,
+    }
+    if num_batches > 1:
+        timing['eval_time/steady_scans_per_s'] = (len(det_annos) - first_n) / (loop_s - first_s)
+        timing['eval_time/steady_loader_wait_share'] = \
+            (wait_s - first_wait_s) / (loop_s - first_s)
 
     sec_per_example = loop_s / max(len(dataset), 1)
     logger.info('Generate label finished(sec_per_example: %.4f second).', sec_per_example)
+
+    if dist_test:
+        metrics = merge_results_dist([metric], get_dist_info()[1])
+        det_annos = merge_results_dist(det_annos, len(dataset))
+        if rank != 0:
+            return {}
+        metric = {k: sum(m[k] for m in metrics) for k in metric}
+        if save_to_file:
+            dataset.write_prediction_files(det_annos, final_output_dir)
 
     ret_dict = {}
     gt_num_cnt = metric['gt_num']
@@ -135,17 +165,7 @@ def eval_one_epoch(cfg, model, dataloader, epoch_id, logger, save_to_file=False,
     if result_str is not None:
         logger.info(result_str)
     ret_dict.update(result_dict)
-    ret_dict.update({
-        'eval_time/scans_per_s': len(det_annos) / loop_s,
-        'eval_time/loader_wait_share': wait_s / loop_s,
-        'eval_time/forward_median_ms': statistics.median(forward_s) * 1e3
-        if forward_s else 0.0,
-        'eval_time/evaluator_s': evaluator_s,
-    })
-    if num_batches > 1:
-        ret_dict['eval_time/steady_scans_per_s'] = (len(det_annos) - first_n) / (loop_s - first_s)
-        ret_dict['eval_time/steady_loader_wait_share'] = \
-            (wait_s - first_wait_s) / (loop_s - first_s)
+    ret_dict.update(timing, **{'eval_time/evaluator_s': evaluator_s})
     logger.info('eval loop on %s: %d scans in %.3f s (%.3f scans/s), %.3f of it '
                 'waiting on the DataLoader, forward median %.3f ms a batch; '
                 'evaluator %.3f s', model.device, len(det_annos), loop_s,

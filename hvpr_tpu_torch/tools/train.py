@@ -1,12 +1,17 @@
 """Training CLI of the port: a KITTI tree in, ``.pth`` checkpoints and the
 post-train evaluation of the last ones out.
 
-The counterpart of the JAX package's ``tools/train.py``, for one process,
-run from the repository root:
+The counterpart of the JAX package's ``tools/train.py``, run from the
+repository root, in one process:
 
     python -m hvpr_tpu_torch.tools.train --cfg_file tools/cfgs/kitti_models/hvpr.yaml \\
         --batch_size 4 --epochs 80 [--fix_random_seed] \\
         --set DATA_CONFIG.DATA_PATH /path/to/kitti
+
+or data-parallel, one process a card (the reference's ``dist_train.sh``):
+
+    torchrun --nproc_per_node N -m hvpr_tpu_torch.tools.train --launcher pytorch \\
+        --cfg_file tools/cfgs/kitti_models/hvpr.yaml --batch_size 4N ...
 
 The KITTI tree needs its info pickles and gt database
 (``python -m hvpr_tpu_torch.datasets.kitti.kitti_dataset create_kitti_infos
@@ -17,19 +22,31 @@ pillars by the data layer's worker processes, and trained on ``--device``
 ``cfg.ROOT_DIR`` (``HVPR_ROOT_DIR``, else the repository root), with the
 log and ``train_log.jsonl`` beside them.
 
+``--launcher pytorch`` joins the process group of a ``torchrun`` launch
+(NCCL on the card, gloo with ``--device cpu``; a group the caller made
+already is used as it is) and trains on card ``--local_rank``
+(``LOCAL_RANK``). ``--batch_size`` is the global batch, split evenly over
+the ranks (``BATCH_SIZE_PER_GPU`` a rank by default). A step of W ranks
+equals the one-process step on their W batches to rounding
+(``hvpr_tpu_torch.parallel``): BatchNorm statistics are the global
+batch's whatever ``--sync_bn`` says. Every rank starts from rank 0's
+weights, reads its share of the scenes and loads the same checkpoint to
+resume; rank 0 alone logs at INFO, writes checkpoints and
+``train_log.jsonl``, and keeps the evaluation's records (the evaluation
+runs on every rank, each on its share, ``tools/test.py``).
+
 Without ``--ckpt`` a run resumes from the newest ``ckpt/checkpoint_epoch_*.pth``
 (by modification time): weights, BN statistics, optimizer state, epoch and
 iteration. ``--pretrained_model X.pth`` loads the shape-matching weights
 of X first. After training, the last ``--num_epochs_to_eval`` checkpoints
 are evaluated into ``eval/eval_with_train`` with the port's test CLI.
 
-``--fix_random_seed`` seeds Python, numpy and torch with 666 and turns on
-``torch.use_deterministic_algorithms``: two such runs give the same
-checkpoints bit for bit. Without it no global switch is set; the
-nondeterministic backward of the point stream's 3-NN interpolation
-(scatter-adds by atomics) then makes runs differ by rounding. The
-deterministic mode costs the fused hvpr.yaml step about a fifth of its
-time.
+``--fix_random_seed`` seeds Python, numpy and torch with 666 (666 + r on
+rank r, so that the ranks draw other augmentations) and makes cuDNN
+deterministic: two such runs give the same checkpoints bit for bit. The
+train step needs no ``torch.use_deterministic_algorithms`` for that (the
+point stream's gathers sum their gradients without atomics); this CLI
+leaves the switch as it finds it.
 """
 
 import argparse
@@ -44,6 +61,7 @@ from .. import config as config_module
 from ..config import ConfigDict, cfg_from_list, cfg_from_yaml_file, log_config_to_file
 from ..datasets import build_dataloader, stop_worker_server
 from ..models import build_network
+from ..parallel import broadcast_state, in_process_group
 from ..utils import common_utils
 from ..utils.checkpoint import load_checkpoint, load_params_from_file
 from . import test as test_cli
@@ -60,14 +78,16 @@ def parse_config(argv=None):
     parser.add_argument('--ckpt', type=str, default=None, help='checkpoint to start from')
     parser.add_argument('--pretrained_model', type=str, default=None)
     parser.add_argument('--launcher', choices=['none', 'pytorch'], default='none')
-    parser.add_argument('--coordinator_address', type=str, default=None,
-                        help='several processes: address of process 0 (not ported)')
-    parser.add_argument('--num_processes', type=int, default=None)
-    parser.add_argument('--process_id', type=int, default=None)
+    parser.add_argument('--tcp_port', type=int, default=18888,
+                        help='--launcher pytorch: port of rank 0 where torchrun set none')
+    parser.add_argument('--local_rank', type=int,
+                        default=int(os.environ.get('LOCAL_RANK', 0)),
+                        help='--launcher pytorch: this process\'s card')
     parser.add_argument('--sync_bn', action='store_true', default=False,
-                        help='no effect in one process')
+                        help='implied: over several processes BatchNorm statistics '
+                             'are the global batch\'s')
     parser.add_argument('--fix_random_seed', action='store_true', default=False,
-                        help='seed everything and turn on deterministic algorithms')
+                        help='seed everything (666 + rank) and make cuDNN deterministic')
     parser.add_argument('--ckpt_save_interval', type=int, default=1)
     parser.add_argument('--max_ckpt_save_num', type=int, default=30)
     parser.add_argument('--merge_all_iters_to_one_epoch', action='store_true', default=False)
@@ -82,7 +102,7 @@ def parse_config(argv=None):
                         help='set extra config keys')
     args = parser.parse_args(argv)
 
-    cfg = ConfigDict(ROOT_DIR=config_module.cfg.ROOT_DIR, LOCAL_RANK=0)
+    cfg = ConfigDict(ROOT_DIR=config_module.cfg.ROOT_DIR, LOCAL_RANK=args.local_rank)
     cfg_from_yaml_file(args.cfg_file, cfg)
     cfg.TAG = Path(args.cfg_file).stem
     cfg.EXP_GROUP_PATH = '/'.join(args.cfg_file.split('/')[1:-1])
@@ -112,48 +132,48 @@ def main(argv=None):
     the last checkpoints. Returns a dict: the epoch and iteration the run
     started from, the lr of its first step, the iteration it ended at, the
     loop's timing (``train_time/``) and the result dict of the last
-    checkpoint evaluated (``eval``)."""
+    checkpoint evaluated (``eval``; over several ranks rank 0's, None on
+    the others)."""
     args, cfg = parse_config(argv)
-    if args.launcher != 'none' or args.coordinator_address is not None \
-            or args.num_processes is not None or args.process_id is not None:
-        raise NotImplementedError('training over several processes (DDP, ROADMAP A14) '
-                                  'is not ported yet; run one process with --launcher none')
-    if args.batch_size is None:
-        args.batch_size = cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU
+    rank, world = test_cli.join_launcher(args, cfg)
     args.epochs = cfg.OPTIMIZATION.NUM_EPOCHS if args.epochs is None else args.epochs
 
-    deterministic_before = torch.are_deterministic_algorithms_enabled()
     cudnn_before = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
     if args.fix_random_seed:
-        common_utils.set_random_seed(666, deterministic=True)
+        common_utils.set_random_seed(666 + rank)
+    elif world > 1:
+        # torch's RNG starts from one seed in every process: without this
+        # the ranks' loaders would seed their workers alike
+        torch.manual_seed(torch.initial_seed() + rank)
     try:
-        return _train_and_evaluate(args, cfg)
+        return _train_and_evaluate(args, cfg, rank, world)
     finally:
-        torch.use_deterministic_algorithms(deterministic_before)
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn_before
 
 
-def _train_and_evaluate(args, cfg):
+def _train_and_evaluate(args, cfg, rank, world):
     output_dir = Path(cfg.ROOT_DIR) / 'output' / cfg.EXP_GROUP_PATH / cfg.TAG / args.extra_tag
     ckpt_dir = output_dir / 'ckpt'
     ckpt_dir.mkdir(parents=True, exist_ok=True)
 
     log_file = output_dir / f'log_train_{datetime.datetime.now():%Y%m%d-%H%M%S}.txt'
-    logger = common_utils.create_logger(log_file)
+    logger = common_utils.create_logger(log_file if rank == 0 else None, rank=rank)
     logger.info('**********************Start logging**********************')
-    logger.info('device: %s', args.device)
+    logger.info('device: %s; %d process(es), %d scans a step a process', args.device,
+                world, args.batch_size // world)
     for key, val in vars(args).items():
         logger.info('%s: %s', key, val)
     log_config_to_file(cfg, logger=logger)
-    logger.info('deterministic algorithms: %s', 'on (--fix_random_seed)'
-                if args.fix_random_seed else 'off (no --fix_random_seed: runs differ '
-                'by the rounding of atomic scatter-adds)')
-    if args.sync_bn:
-        logger.info('--sync_bn has no effect in one process')
+    logger.info('seeds: %s', 'fixed (--fix_random_seed: 666 + rank, cuDNN deterministic)'
+                if args.fix_random_seed else 'not fixed (no --fix_random_seed)')
+    if args.sync_bn or world > 1:
+        logger.info('BatchNorm statistics: the global batch\'s (%d process(es); '
+                    '--sync_bn is implied)', world)
 
     train_set, train_loader, train_sampler = build_dataloader(
         dataset_cfg=cfg.DATA_CONFIG, class_names=cfg.CLASS_NAMES,
-        batch_size=args.batch_size, root_path=Path(cfg.DATA_CONFIG.DATA_PATH),
+        batch_size=args.batch_size // world, dist=world > 1,
+        root_path=Path(cfg.DATA_CONFIG.DATA_PATH),
         workers=args.workers, logger=logger, training=True,
         merge_all_iters_to_one_epoch=args.merge_all_iters_to_one_epoch,
         total_epochs=args.epochs)
@@ -175,6 +195,8 @@ def _train_and_evaluate(args, cfg):
         start_epoch, it = int(start_epoch), int(it)
         net.train_state.step = it
         logger.info('Resumed from %s (epoch %d, it %d)', ckpt_to_resume, start_epoch, it)
+    if in_process_group():
+        broadcast_state(net.module)
     first_lr = float(optimizer.lr_fn(optimizer.count))
     logger.info('OneCycle lr of the first step (it %d): %r', optimizer.count, first_lr)
 
@@ -196,15 +218,16 @@ def _train_and_evaluate(args, cfg):
                 cfg.EXP_GROUP_PATH, cfg.TAG, args.extra_tag)
     test_set, test_loader, _ = build_dataloader(
         dataset_cfg=cfg.DATA_CONFIG, class_names=cfg.CLASS_NAMES,
-        batch_size=args.batch_size, root_path=Path(cfg.DATA_CONFIG.DATA_PATH),
-        workers=args.workers, logger=logger, training=False)
+        batch_size=args.batch_size // world, dist=world > 1,
+        root_path=Path(cfg.DATA_CONFIG.DATA_PATH),
+        workers=args.workers, logger=logger, training=False, item_seed=0)
     eval_net = build_network(cfg.MODEL, num_class=len(cfg.CLASS_NAMES), dataset=test_set,
                              device=args.device)
     eval_output_dir = output_dir / 'eval' / 'eval_with_train'
     eval_output_dir.mkdir(parents=True, exist_ok=True)
     args.start_epoch = max(args.epochs - args.num_epochs_to_eval, 0)
     last_eval = test_cli.repeat_eval_ckpt(cfg, eval_net, test_loader, args, eval_output_dir,
-                                          logger, ckpt_dir)
+                                          logger, ckpt_dir, dist_test=world > 1)
     logger.info('**********************End evaluation**********************')
     return {'start_epoch': start_epoch, 'start_it': it, 'first_lr': first_lr,
             'end_it': end_it, **timing, 'eval': last_eval}

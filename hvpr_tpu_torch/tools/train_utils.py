@@ -17,6 +17,11 @@ optimizer state, epoch, iteration), keeping at most ``max_ckpt_save_num``
 the loop spent waiting on the DataLoader, both again past the run's first
 batch (``steady_*``), and the median of ``Network.train_step`` (CUDA events
 on the card, the host clock on the CPU).
+
+Over several processes every rank runs the loop on its share of the
+scenes (the sampler's ``set_epoch`` each epoch) and logs the metrics that
+``train_step`` averaged over the ranks; rank 0 alone writes
+``train_log.jsonl`` and the checkpoints. The timing is each rank's own.
 """
 
 import glob
@@ -30,6 +35,7 @@ import torch
 
 from ..models import load_data_to_gpu
 from ..utils.checkpoint import save_checkpoint
+from ..utils.common_utils import get_dist_info
 
 LOG_EVERY = 10
 
@@ -78,6 +84,7 @@ def train_one_epoch(net, train_loader, accumulated_iter, epoch, log_file, logger
     clock['wait_s'] += time.perf_counter() - t0
 
     optimizer = net.train_state.optimizer
+    rank = get_dist_info()[0]
     last_metrics = {}
     for i in range(total_it_each_epoch):
         t0 = time.perf_counter()
@@ -103,9 +110,10 @@ def train_one_epoch(net, train_loader, accumulated_iter, epoch, log_file, logger
         if accumulated_iter % LOG_EVERY == 0 or accumulated_iter == 1:
             last_metrics = {k: float(v) for k, v in metrics.items()}
             last_metrics['lr'] = float(optimizer.lr_fn(optimizer.count - 1))
-            with open(log_file, 'a') as f:
-                f.write(json.dumps({'epoch': epoch, 'it': accumulated_iter,
-                                    **last_metrics}) + '\n')
+            if rank == 0:
+                with open(log_file, 'a') as f:
+                    f.write(json.dumps({'epoch': epoch, 'it': accumulated_iter,
+                                        **last_metrics}) + '\n')
             logger.info('epoch %d iter %d/%d (it %d): loss %.4f, lr %.3e, grad_norm %.3f',
                         epoch, i + 1, total_it_each_epoch, accumulated_iter,
                         last_metrics['loss'], last_metrics['lr'],
@@ -146,7 +154,7 @@ def train_model(net, train_loader, start_epoch, total_epochs, start_iter, ckpt_s
             logger.info('memory items[:2]: %s', memory.weight[:2, :4].detach().cpu().numpy())
 
         trained_epoch = cur_epoch + 1
-        if trained_epoch % ckpt_save_interval == 0:
+        if trained_epoch % ckpt_save_interval == 0 and get_dist_info()[0] == 0:
             ckpt_list = glob.glob(str(ckpt_save_dir / 'checkpoint_epoch_*.pth'))
             ckpt_list.sort(key=os.path.getmtime)
             if len(ckpt_list) >= max_ckpt_save_num:

@@ -16,7 +16,10 @@ selected counts, row maxima and pairs
 (indices and bf16 weights) are exact, in K9's dense sweep and in its pair
 pass (a call handed another call's selection). K10 reduces K9's pairs; it
 is also held to the dense plain backward, which recomputes every row's
-weights. K5's long path (sets above 8192 rows) is exact too.
+weights. K5's long path (sets above 8192 rows) is exact too. K12 (the row
+gathers' deterministic backward, no TPU kernel) sums in the order of its
+plain version on the CPU, so it gives those bits, and the same bits on
+every run.
 """
 
 import numpy as np
@@ -630,8 +633,8 @@ def test_padded_train_step_kernels_equal_plain(cuda):
     host-voxelized padded batch (the train CLI's layout) through the
     kernels equals one through the plain versions from the same state, bit
     for bit (losses, grad norm, every weight and BN statistic), under
-    deterministic algorithms; the kernel step launches K4-K10 their
-    expected number of times and K1, K3 and K11 never."""
+    deterministic algorithms; the kernel step launches K4-K10 and K12
+    their expected number of times and K1, K3 and K11 never."""
     import os
     from pathlib import Path
 
@@ -694,5 +697,56 @@ def test_padded_train_step_kernels_equal_plain(cuda):
                         'ball_query': 2, 'fps_chunks': 2, 'memory_recon_fwd': 1,
                         'memory_recon_bwd': 1, 'bucket_threshold': 1,
                         'masked_attend_fwd': 1, 'masked_attend_pairs': 1,
-                        'masked_attend_bwd': 2}, launches
+                        'masked_attend_bwd': 2, 'gather_grad': 4}, launches
     assert not any(plain_launches.values())
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_gather_grad_kernel_equals_plain_and_repeats_its_bits(cuda, dtype):
+    """K12 (the row gather's backward) sums each target's contributions
+    in source order without atomics: the same bits on every run, and the
+    plain version's bits on the CPU (an f32 index_add_ in order), at
+    hvpr.yaml's SA2 grouping widths with a hub row and empty targets."""
+    from hvpr_tpu_torch.ops.gather_rows import (gather_rows_backward,
+                                                gather_rows_backward_plain)
+    rng = np.random.default_rng(12)
+    n, r, c = 16384, 196608, 67
+    index = rng.integers(0, n - 100, r)                  # the last 100 rows get none
+    index[:5000] = 7                                     # a hub row
+    grad = torch.from_numpy(rng.normal(size=(r, c)).astype(np.float32)).to(dtype)
+    index = torch.from_numpy(index)
+    before = _kernels.launch_counts()['gather_grad']
+    got = gather_rows_backward(grad.to(cuda), index.to(cuda), n)
+    again = gather_rows_backward(grad.to(cuda), index.to(cuda), n)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts()['gather_grad'] == before + 2
+    assert got.dtype == dtype and got.shape == (n, c)
+    assert torch.equal(got, again)
+    assert torch.equal(got.cpu(), gather_rows_backward_plain(grad, index, n))
+    assert not got[-100:].any()
+
+
+def test_three_interpolate_backward_repeats_its_bits(cuda):
+    """The FP modules' 3-NN interpolation at hvpr.yaml's first FP level
+    (16,384 points from 4096, C = 128, bf16): two backwards give the same
+    bits with torch's deterministic algorithms off, each launching K12
+    once."""
+    from hvpr_tpu_torch.ops import pointnet2 as pn2
+    rng = np.random.default_rng(3)
+    unknown = torch.from_numpy(rng.uniform(-40, 40, (2, 16384, 3)).astype(np.float32)).to(cuda)
+    known = unknown[:, ::4].contiguous()
+    mask = torch.ones(2, 4096, dtype=torch.bool, device=cuda)
+    dist, idx = pn2.three_nn(unknown, known, mask)
+    weight = pn2.three_nn_interpolate_weights(dist).to(torch.bfloat16)
+    feats = torch.from_numpy(rng.normal(size=(2, 4096, 128)).astype(np.float32)).to(cuda)
+    dout = torch.from_numpy(rng.normal(size=(2, 16384, 128)).astype(np.float32)).to(cuda)
+    assert not torch.are_deterministic_algorithms_enabled()
+    grads = []
+    for _ in range(2):
+        f = feats.to(torch.bfloat16).requires_grad_()
+        before = _kernels.launch_counts()['gather_grad']
+        (pn2.three_interpolate(f, idx, weight).float() * dout).sum().backward()
+        torch.cuda.synchronize()
+        assert _kernels.launch_counts()['gather_grad'] == before + 1
+        grads.append(f.grad)
+    assert torch.equal(grads[0], grads[1])

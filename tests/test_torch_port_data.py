@@ -25,7 +25,7 @@ from hvpr_tpu.datasets.processor.point_feature_encoder import (
     PointFeatureEncoder as JaxPointFeatureEncoder)
 from hvpr_tpu.ops.voxelizer import VoxelGeneratorNumpy as JaxVoxelGenerator
 
-from hvpr_tpu_torch.datasets import build_dataloader
+from hvpr_tpu_torch.datasets import StridedEvalSampler, build_dataloader
 from hvpr_tpu_torch.datasets.kitti.kitti_dataset import KittiDataset, create_kitti_infos
 from hvpr_tpu_torch.datasets.kitti.kitti_io import png_shape
 from hvpr_tpu_torch.models import DatasetMeta, build_network
@@ -157,18 +157,28 @@ def test_kitti_writer_matches_fixture(tmp_path):
         np.testing.assert_array_equal(scenes_a[sid], scenes_b[sid])
 
 
-def test_train_mode_and_dist_raise(trees):
+def test_train_mode_and_dist_samplers(trees):
     """The train mode builds its augmentor (hvpr_mini's flip, rotation and
     scaling; it raised before the augmentor was ported, and
     tests/test_torch_port_train_data.py holds it to the JAX package's);
-    loading over several processes still raises, naming its queue item."""
+    loading over processes (``dist=True``) takes this rank's sampler, at
+    world size 1 (no process group) every scene: a DistributedSampler in
+    training, the strided eval sampler in evaluation
+    (tests/test_torch_port_ddp.py checks both at world sizes 2 and 3)."""
     root, _, port_dir = trees
     dc = data_cfg(root).DATA_CONFIG
     ds = KittiDataset(dc, ['Car'], training=True, root_path=port_dir)
     assert [kind for kind, _ in ds.data_augmentor.steps] == ['world'] * 3
     assert ds.mode == 'train' and len(ds) == 2
-    with pytest.raises(NotImplementedError, match='A14'):
-        build_dataloader(dc, ['Car'], 2, dist=True, root_path=port_dir, workers=0)
+    _, loader, sampler = build_dataloader(dc, ['Car'], 2, dist=True, root_path=port_dir,
+                                          workers=0, training=True)
+    assert isinstance(sampler, torch.utils.data.distributed.DistributedSampler)
+    assert loader.sampler is sampler and (sampler.num_replicas, sampler.rank) == (1, 0)
+    assert sorted(sampler) == [0, 1]
+    test_set, loader, sampler = build_dataloader(dc, ['Car'], 2, dist=True,
+                                                 root_path=port_dir, workers=0)
+    assert isinstance(sampler, StridedEvalSampler) and loader.sampler is sampler
+    assert list(sampler) == list(range(len(test_set)))
 
 
 def test_five_feature_encoding_sizes_the_network():

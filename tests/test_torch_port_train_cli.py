@@ -227,7 +227,7 @@ def test_cli_trains_checkpoints_resumes_and_evaluates(cli_runs):
     assert (eval_dir / 'eval_list_val.txt').read_text().split() == ['1', '2']
     assert 'Car_3d/moderate' in first['eval'] and 'Car_3d/moderate' in second['eval']
     logs = ''.join(p.read_text() for p in out.glob('log_train_*.txt'))
-    assert 'Resumed from' in logs and 'deterministic algorithms: on' in logs
+    assert 'Resumed from' in logs and 'seeds: fixed' in logs
 
 
 def test_cli_merge_all_iters_to_one_epoch(tree, tmp_path):
@@ -253,7 +253,7 @@ def test_cli_merge_all_iters_to_one_epoch(tree, tmp_path):
     assert ret['end_it'] == 2 and ret['train_time/steps'] == 2
     logs = ''.join(p.read_text() for p in out.glob('log_train_*.txt'))
     assert 'OneCycle over 2 steps, 1 an epoch' in logs
-    assert 'deterministic algorithms: off' in logs
+    assert 'seeds: not fixed' in logs
     assert (out / 'eval' / 'eval_with_train' / 'eval_list_val.txt').read_text().split() == ['2']
 
 

@@ -189,6 +189,29 @@ def test_three_nn_and_interpolate_match_jax():
     np.testing.assert_allclose(tout.numpy(), np.asarray(jout), rtol=1e-6, atol=1e-6)
 
 
+def test_three_interpolate_gradient_matches_jax_grad():
+    """The features' gradient of ``three_interpolate`` (the gather's
+    deterministic backward, ``ops/gather_rows.py``) against ``jax.grad`` of
+    the JAX function, with each known point listed by many unknown points
+    (300 from 40, hub point 7 in a fifth of the slots) and one listed by
+    none: rtol 1e-6, the same sums in another order."""
+    rng = np.random.default_rng(4)
+    idx = rng.integers(0, 39, (2, 300, 3)).astype(np.int32)      # point 39: none
+    idx[:, ::5, 1] = 7
+    weight = rng.uniform(0.1, 1.0, (2, 300, 3)).astype(np.float32)
+    feats = rng.normal(size=(2, 40, 16)).astype(np.float32)
+    dout = rng.normal(size=(2, 300, 16)).astype(np.float32)
+    want = np.asarray(jax.grad(lambda f: jnp.sum(jax_pn2.three_interpolate(
+        f, jnp.asarray(idx), jnp.asarray(weight)) * dout))(jnp.asarray(feats)))
+    f = torch.from_numpy(feats).requires_grad_()
+    out = port_pn2.three_interpolate(f, torch.from_numpy(idx).long(),
+                                     torch.from_numpy(weight))
+    (out * torch.from_numpy(dout)).sum().backward()
+    got = f.grad.numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6 * np.abs(want).max())
+    assert not got[:, 39].any() and np.abs(got[:, 7]).max() > 0
+
+
 def _close(got, want, what):
     want = np.asarray(want)
     np.testing.assert_allclose(got, want, rtol=2e-3, atol=1e-4 * np.abs(want).max(),
