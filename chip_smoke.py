@@ -6,15 +6,36 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``hvpr_tpu_torch/csrc`` into
-``build/`` (one nvcc per source, all at once), then drives two paths of
-``tools/cfgs/kitti_models/hvpr.yaml`` at full width on seeded KITTI-like
-scans with seeded random weights:
+``build/`` (one nvcc per source, all at once), then drives the paths of
+the four shipped model configs at full width on seeded scans with seeded
+random weights, ``tools/cfgs/kitti_models/hvpr.yaml`` first:
 
 - inference, batch 8: voxelize -> PillarVFE_Scale -> memory scatter -> scale
   BEV backbone -> anchor head -> rotated NMS. Each inference kernel (K1-K3)
   is held against its plain PyTorch version at the shapes the path gives
   it, the path must launch each of them, and its detections must equal
   those of the same pipeline through the plain versions.
+- multiclass: ``hvpr_multiclass.yaml`` (Car, Pedestrian, Cyclist; one
+  rotated NMS a class; f32) through the same pipeline at batch 8 (K1-K3
+  against their plain versions, the detections against the plain
+  pipeline's bit for bit, the candidates of each class above SCORE_THRESH
+  and the post-processing time printed), then its fused train step at
+  batch 4 through the train phase's checks below (K4-K10 against their
+  plain versions, the kernel step equal to a plain step bit for bit under
+  deterministic algorithms, two kernel steps without them equal).
+- pointpillar: ``pointpillar.yaml`` (no point stream, no memory) through the
+  pipeline at batch 8 (K1 and K3 only, held as above; the stage medians),
+  then 3 train steps at batch 4, which must launch no kernel (the plain
+  sweeps and scatter under autograd, as in the JAX package), with their
+  peak memory.
+- nuscenes: ``pointpillar_nuscenes.yaml`` on a synthetic nuScenes tree by
+  ``utils.scans.build_nuscenes_root`` (10 sweeps of 34,000 points a
+  sample, 5 classes): the pipeline at batch 4 on the data layer's frames
+  (K1 at max_seg 20 and K3 at 512 x 512 x 64 held to their plain versions,
+  with their bounds and K3's yardstick), then the test CLI (padded, 4
+  workers, ``--save_to_file``: annos, one submission file a frame, the
+  centre-distance AP string) and the train CLI (one epoch, then its
+  evaluation), neither launching a kernel.
 - eval_cli: the evaluation entry point ``python -m hvpr_tpu_torch.tools.test``
   (its ``main``) at batch 8 on a synthetic KITTI tree of 16 val scenes with
   its infos and a ``.pth`` of seeded random weights, all written by the
@@ -56,7 +77,10 @@ scans with seeded random weights:
   the fused batch's 4 whole scans of 16,384 points, npoint 4096: equal to
   its plain version, timed, one launch.
 - training in ``TRAIN_ATTEND_MODE: gather``: the kernel step must equal the
-  plain step as above, and 2 timed steps must launch K4-K7 and never K8-K10.
+  plain step as above, two kernel steps without deterministic algorithms
+  must give the same bits (the pooling's and the memory path's gathers
+  take K12's backward too), and 2 timed steps must launch K4-K7 and K12
+  (13 times a step) and never K8-K10.
 - train_cli: the training entry point ``python -m hvpr_tpu_torch.tools.train``
   (its ``main``) at batch 4 with ``--fix_random_seed`` on a synthetic KITTI
   tree of 16 train and 8 val scenes with its infos and gt database, all
@@ -99,7 +123,8 @@ selected sets, K3 beside ``torch.zeros`` + ``index_put_``, K9 beside
 ``scaled_dot_product_attention``.
 
 It prints a ``{"kernels": [...]}`` JSON line (times, bounds, launches,
-errors), the card's name and power limit as nvidia-smi reports them, and
+errors; each entry also the launches of every other path, and K1's and
+K3's the ``nuscenes`` shapes' times and bounds), the card's name and power limit as nvidia-smi reports them, and
 last ``{"ok": true, "device": {...}}``. Any failed check exits nonzero.
 Without a CUDA device it exits 2 at once. It leaves no process running:
 the DataLoader's fork server and resource tracker are stopped after the
@@ -109,6 +134,7 @@ after a failed check, is killed and reaped.
 
 import contextlib
 import glob
+import inspect
 import json
 import os
 import signal
@@ -230,16 +256,21 @@ def device_breakdown(fn, reps=3):
         or 'not measured'
 
 
-def seed_weights(module, seed):
+def seed_weights(module, seed, box_std=None):
     """Seeded random weights: He-normal convs/linears (the point stream's
     1x1 convs too), the memory uniform in +-1/sqrt(C), BN running statistics
     and affine terms perturbed so that BN is exercised, and the cls bias at
-    0 so that thousands of anchors clear SCORE_THRESH and reach NMS."""
+    0 so that thousands of anchors clear SCORE_THRESH and reach NMS.
+    ``box_std``: the box head's weights normal at this std instead (the
+    reference's init is 0.001): nuScenes' raw intensities (0-255) carry
+    He-normal activations to box residuals whose exp overflows f32."""
     import torch
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in module.named_parameters():
-            if name.endswith('memory.weight'):
+            if box_std is not None and name.endswith('conv_box.weight'):
+                v = torch.randn(p.shape, generator=gen) * box_std
+            elif name.endswith('memory.weight'):
                 bound = p.shape[1] ** -0.5
                 v = (torch.rand(p.shape, generator=gen) * 2 - 1) * bound
             elif p.dim() >= 2:
@@ -294,10 +325,10 @@ def capture_calls(modules_and_names, run):
     return calls
 
 
-def load_cfg(train_attend_mode=None):
+def load_cfg(train_attend_mode=None, path=CFG):
     from hvpr_tpu_torch.config import ConfigDict, cfg_from_yaml_file
     cfg = ConfigDict()
-    cfg_from_yaml_file(CFG, cfg)
+    cfg_from_yaml_file(path, cfg)
     if train_attend_mode is not None:
         cfg.MODEL.MAP_TO_BEV.TRAIN_ATTEND_MODE = train_attend_mode
     return cfg
@@ -350,109 +381,23 @@ def bound(ops, flops_per_s, nbytes):
     return max(t_ops, t_bytes) * 1e3, 'operations' if t_ops > t_bytes else 'bytes'
 
 
-def inference_phase(smi):
-    """Kernels K1-K3 against their plain versions and the inference path.
-    Returns ({kernel: entry}, the path's launch counts)."""
-    import numpy as np
+def _sweep_bound(calls):
+    """K1's bound over its captured calls: each (C, R) input read and the
+    output written once in f32, the slots read once, over the memory rate."""
+    nbytes = sum(2 * a[0].numel() * 4 + a[1].numel() * 4 for a, _ in calls)
+    return {'bound_ms': nbytes / HBM_BYTES_PER_S * 1e3, 'bound_by': 'bytes',
+            'library_ms': None}
+
+
+def _canvas_bound_and_yardstick(calls, label=''):
+    """K3's bound (the canvas written once, the valid pillars' rows read
+    once, coords and mask read) and its yardstick over the captured calls:
+    ``torch.zeros`` + ``index_put_`` in one window, as the kernel writes
+    the whole canvas; beside it ``index_put_`` into a canvas zeroed outside
+    the window."""
     import torch
-    from hvpr_tpu_torch.models import DatasetMeta, build_network
-    from hvpr_tpu_torch.models.backbones_2d.map_to_bev import (
-        memory_module, pointpillar_scatter)
-    from hvpr_tpu_torch.models.backbones_3d.vfe import pillar_vfe
-    from hvpr_tpu_torch.ops import _kernels
-    from hvpr_tpu_torch.utils.scans import realistic_scans
-
-    cfg = load_cfg()
-    meta = DatasetMeta(cfg.DATA_CONFIG, cfg.CLASS_NAMES)
-    net = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), meta, device='cuda')
-    seed_weights(net.module, seed=0)
-    pcr = meta.point_cloud_range
-    points = torch.from_numpy(realistic_scans(np.random.default_rng(0), BATCH,
-                                              N_POINTS, pcr)).cuda()
-    mask = torch.ones(BATCH, N_POINTS, dtype=torch.bool, device='cuda')
-
-    # capture every wrapper call of one pipeline run (the warm-up)
-    calls = capture_calls(
-        [(pillar_vfe, 'segment_sweep', 'segment_sweep'),
-         (memory_module, 'memory_lookup_fused', 'memory_lookup'),
-         (pointpillar_scatter, 'canvas_from_sorted', 'bev_canvas')],
-        lambda: net.pipeline(points, mask))
-    torch.cuda.synchronize()
-
-    # each kernel against its plain version at the main path's shapes
-    entries = {}
-    wrappers = {'segment_sweep': pillar_vfe.segment_sweep,
-                'memory_lookup': memory_module.memory_lookup_fused,
-                'bev_canvas': pointpillar_scatter.canvas_from_sorted}
-    for name, fn in wrappers.items():
-        if name not in calls:
-            fail(f'the pipeline never called the {name} wrapper')
-        err = ms = plain_ms = 0.0
-        for args, kwargs in calls[name]:
-            got = fn(*args, **kwargs)
-            with _kernels.plain_versions():
-                want = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            if got.shape != want.shape or got.dtype != want.dtype:
-                fail(f'{name}: {got.shape}/{got.dtype} vs plain {want.shape}/{want.dtype}')
-            if not torch.isfinite(got.float()).all():
-                fail(f'{name}: non-finite output')
-            err = max(err, float((got.float() - want.float()).abs().max()))
-            ms += cuda_ms(lambda: fn(*args, **kwargs))
-            with _kernels.plain_versions():
-                plain_ms += cuda_ms(lambda: fn(*args, **kwargs), reps=5, warmup=1)
-        entries[name] = {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms}
-        print(f'{name}: {len(calls[name])} call(s) per forward, max_abs_err {err}, '
-              f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms')
-        if name in ('segment_sweep', 'memory_lookup', 'bev_canvas'):
-            print(f'{name}: device ms per forward by kernel (torch.profiler): '
-                  + device_breakdown(lambda: [fn(*a, **kw) for a, kw in calls[name]]))
-        # the kernels repeat the plain versions' arithmetic: bit-identical
-        if err != 0.0:
-            fail(f'{name}: kernel differs from its plain version by {err}')
-
-    # K2's selected sets and thresholds, row by row
-    args, _ = calls['memory_lookup'][0]
-    _, th_k, cnt_k = memory_module.memory_lookup_fused(*args, return_stats=True)
-    with _kernels.plain_versions():
-        _, th_p, cnt_p = memory_module.memory_lookup_fused(*args, return_stats=True)
-    if not (torch.equal(th_k, th_p) and torch.equal(cnt_k, cnt_p)):
-        fail('memory_lookup: thresholds or selected counts differ from plain')
-    k = args[2]
-    print(f'memory_lookup: selected columns per row mean '
-          f'{cnt_k.float().mean().item():.3f} (k={k}), min {int(cnt_k.min())}')
-
-    # bounds and library yardsticks from this run's inputs
-    def sweep_bytes(x, slot):
-        return 2 * x.numel() * 4 + slot.numel() * 4
-    entries['segment_sweep']['bound_ms'] = sum(
-        sweep_bytes(a[0], a[1]) for a, _ in calls['segment_sweep']) / HBM_BYTES_PER_S * 1e3
-    entries['segment_sweep']['bound_by'] = 'bytes'
-    entries['segment_sweep']['library_ms'] = None
-
-    pill, memw, row_mask = args[0], args[1], args[3]
-    r, c = pill.shape
-    m = memw.shape[0]
-    r_valid = int(row_mask.sum())          # empty pillar slots are not looked up
-    print(f'memory_lookup: {r_valid} of {r} rows are valid pillars')
-    ops = 2.0 * r_valid * m * c + 2.0 * c * float(cnt_k.sum())  # logits + selected output
-    nbytes = 2 * r * c * 4 + m * c * 4 + r
-    b_ms, b_by = bound(ops, BF16_FLOPS_PER_S, nbytes)
-    lib_ms = _lookup_library_ms(pill, memw, row_mask, th_k)
-    entries['memory_lookup'].update(bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-    print(f'memory_lookup: scaled_dot_product_attention over the valid rows with the '
-          f'selected sets as its mask (the function of _apply_kernel only) {lib_ms:.4f} ms')
-    k2_ms = entries['memory_lookup']['ms']
-    print(f'memory_lookup: K2 {k2_ms:.4f} ms against the SDPA yardstick {lib_ms:.4f} ms: '
-          f'{"below" if k2_ms < lib_ms else "NOT below"} it ({k2_ms / lib_ms:.3f}x); bound '
-          f'{b_ms:.4f} ms ({b_by}, bf16 tensor cores), on the FP64 tensor cores '
-          f'{2.0 * r_valid * m * c / F64_TC_FLOPS_PER_S * 1e3:.4f} ms for the logits')
-
-    # K3's yardstick: zeroing the canvas and index_put_ in one window, as the
-    # kernel writes the whole canvas; beside it the earlier yardstick,
-    # index_put_ into a canvas zeroed outside the window
     canvas_bytes, lib_ms, put_ms, yardsticks = 0, 0.0, 0.0, []
-    for a, kw in calls['bev_canvas']:
+    for a, kw in calls:
         feat, coords, vmask, ny, nx = a[:5]
         out_dtype = a[5] if len(a) > 5 else kw.get('out_dtype', torch.float32)
         el = torch.finfo(out_dtype).bits // 8
@@ -472,13 +417,80 @@ def inference_phase(smi):
         canvas = torch.zeros(b, ny * nx, cc, dtype=out_dtype, device='cuda')
         put_ms += cuda_ms(lambda: canvas.index_put_((bi, cell), rows))
         del canvas
-    entries['bev_canvas'].update(bound_ms=canvas_bytes / HBM_BYTES_PER_S * 1e3,
-                                 bound_by='bytes', library_ms=lib_ms)
-    print(f'bev_canvas: torch.zeros + index_put_ {lib_ms:.4f} ms; index_put_ into a '
+    print(f'bev_canvas{label}: torch.zeros + index_put_ {lib_ms:.4f} ms; index_put_ into a '
           f'canvas zeroed outside the window {put_ms:.4f} ms')
-    print('bev_canvas: torch.zeros + index_put_, device ms per forward by kernel '
+    print(f'bev_canvas{label}: torch.zeros + index_put_, device ms per forward by kernel '
           '(torch.profiler): ' + device_breakdown(lambda: [f() for f in yardsticks]))
-    del yardsticks
+    return {'bound_ms': canvas_bytes / HBM_BYTES_PER_S * 1e3, 'bound_by': 'bytes',
+            'library_ms': lib_ms}
+
+
+def flat_phase(smi, label, cfg, points, mask, kernels, reps=5, box_std=None):
+    """One config's eval network through ``Network.pipeline`` on the card
+    (seeded weights, the flat layout of the device voxelizer): every call
+    of the inference kernels' wrappers in one run captured and each held
+    against its plain version (bit for bit), the main path run with the
+    counts from zero (each of ``kernels`` launched as often as the capture
+    called it, no other kernel), its detections against the same pipeline
+    through the plain versions (bit for bit), then the pipeline's median
+    over ``reps`` batches, the stage medians and the candidates of each
+    class above SCORE_THRESH. Returns (network, calls, {kernel: entry},
+    launch counts, detections). ``box_std``: see :func:`seed_weights`."""
+    import torch
+    from hvpr_tpu_torch.models import DatasetMeta, build_network
+    from hvpr_tpu_torch.models.backbones_2d.map_to_bev import (
+        memory_module, pointpillar_scatter)
+    from hvpr_tpu_torch.models.backbones_3d.vfe import pillar_vfe
+    from hvpr_tpu_torch.ops import _kernels
+
+    meta = DatasetMeta(cfg.DATA_CONFIG, cfg.CLASS_NAMES)
+    net = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), meta, device='cuda')
+    seed_weights(net.module, seed=0, box_std=box_std)
+    b = points.shape[0]
+
+    # capture every wrapper call of one pipeline run (the warm-up)
+    calls = capture_calls(
+        [(pillar_vfe, 'segment_sweep', 'segment_sweep'),
+         (memory_module, 'memory_lookup_fused', 'memory_lookup'),
+         (pointpillar_scatter, 'canvas_from_sorted', 'bev_canvas')],
+        lambda: net.pipeline(points, mask))
+    torch.cuda.synchronize()
+    if set(calls) != set(kernels):
+        fail(f'{label}: the pipeline called {sorted(calls)}, expected {sorted(kernels)}')
+
+    # each kernel against its plain version at the path's shapes
+    entries = {}
+    wrappers = {'segment_sweep': pillar_vfe.segment_sweep,
+                'memory_lookup': memory_module.memory_lookup_fused,
+                'bev_canvas': pointpillar_scatter.canvas_from_sorted}
+    for name in kernels:
+        fn = wrappers[name]
+        err = ms = plain_ms = 0.0
+        for args, kwargs in calls[name]:
+            got = fn(*args, **kwargs)
+            with _kernels.plain_versions():
+                want = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            if got.shape != want.shape or got.dtype != want.dtype:
+                fail(f'{label} {name}: {got.shape}/{got.dtype} vs plain '
+                     f'{want.shape}/{want.dtype}')
+            if not torch.isfinite(got.float()).all():
+                fail(f'{label} {name}: non-finite output')
+            err = max(err, float((got.float() - want.float()).abs().max()))
+            ms += cuda_ms(lambda: fn(*args, **kwargs))
+            with _kernels.plain_versions():
+                plain_ms += cuda_ms(lambda: fn(*args, **kwargs), reps=5, warmup=1)
+        entries[name] = {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms}
+        shapes = [tuple(tuple(a.shape) for a in args if isinstance(a, torch.Tensor))
+                  + tuple(a for a in args if isinstance(a, (int, str)))
+                  for args, _ in calls[name]]
+        print(f'{label} {name}: {len(calls[name])} call(s) per forward at {shapes}, '
+              f'max_abs_err {err}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms')
+        print(f'{label} {name}: device ms per forward by kernel (torch.profiler): '
+              + device_breakdown(lambda: [fn(*a, **kw) for a, kw in calls[name]]))
+        # the kernels repeat the plain versions' arithmetic: bit-identical
+        if err != 0.0:
+            fail(f'{label} {name}: kernel differs from its plain version by {err}')
 
     # the main path, counts from zero
     _kernels.reset_launch_counts()
@@ -488,59 +500,116 @@ def inference_phase(smi):
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = _kernels.launch_counts()
-    print(f'inference path launches: {launches}')
-    for name in INFER_KERNELS:
-        if launches[name] == 0:
-            fail(f'the inference path launched {name} no time')
+    print(f'{label} path launches: {launches}')
+    for name, n in launches.items():
+        if n != len(calls.get(name, ())):
+            fail(f'the {label} path launched {name} {n} times, expected '
+                 f'{len(calls.get(name, ()))}')
 
     post = cfg.MODEL.POST_PROCESSING
-    for key, shape in (('pred_boxes', (BATCH, 500, 7)), ('pred_scores', (BATCH, 500)),
-                       ('pred_labels', (BATCH, 500)), ('pred_mask', (BATCH, 500))):
+    nms = post.NMS_CONFIG
+    slots = int(nms.NMS_POST_MAXSIZE) * (len(cfg.CLASS_NAMES) if nms.MULTI_CLASSES_NMS else 1)
+    for key, shape in (('pred_boxes', (b, slots, 7)), ('pred_scores', (b, slots)),
+                       ('pred_labels', (b, slots)), ('pred_mask', (b, slots))):
         if tuple(res[key].shape) != shape:
-            fail(f'{key} shape {tuple(res[key].shape)}, expected {shape}')
+            fail(f'{label}: {key} shape {tuple(res[key].shape)}, expected {shape}')
     if not (torch.isfinite(res['pred_boxes']).all() and torch.isfinite(res['pred_scores']).all()):
-        fail('non-finite detections')
+        fail(f'{label}: non-finite detections')
     kept = res['pred_mask'].sum(dim=1)
     if int(kept.min()) == 0:
-        fail(f'a scan kept no box: {kept.tolist()}')
+        fail(f'{label}: a scan kept no box: {kept.tolist()}')
     if int((res['pred_scores'][res['pred_mask']] < post.SCORE_THRESH).sum()):
-        fail('a kept box scores below SCORE_THRESH')
+        fail(f'{label}: a kept box scores below SCORE_THRESH')
+    labels = res['pred_labels'][res['pred_mask']]
+    if int(labels.min()) < 1 or int(labels.max()) > len(cfg.CLASS_NAMES):
+        fail(f'{label}: labels outside 1..{len(cfg.CLASS_NAMES)}')
 
     # the same pipeline through the plain versions: the same detections
     with _kernels.plain_versions():
         ref = net.pipeline(points, mask)
     torch.cuda.synchronize()
-    if not torch.equal(res['pred_mask'], ref['pred_mask']):
-        fail('kept sets differ from the plain pipeline')
-    m_ = res['pred_mask']
-    if not torch.equal(res['pred_labels'][m_], ref['pred_labels'][m_]):
-        fail('labels differ from the plain pipeline')
-    box_err = float((res['pred_boxes'][m_] - ref['pred_boxes'][m_]).abs().max())
-    score_err = float((res['pred_scores'][m_] - ref['pred_scores'][m_]).abs().max())
-    print(f'detections vs plain pipeline: kept per scan {kept.tolist()}, '
-          f'max box diff {box_err}, max score diff {score_err}')
-    if box_err > 1e-4 or score_err > 1e-5:
-        fail('boxes or scores differ from the plain pipeline')
+    differ = [k for k in ('pred_mask', 'pred_labels', 'pred_boxes', 'pred_scores',
+                          'num_capped') if not torch.equal(res[k], ref[k])]
+    print(f'{label} detections vs plain pipeline: kept per scan {kept.tolist()}, '
+          f'keys that differ {differ}')
+    if differ:
+        fail(f'{label}: detections differ from the plain pipeline in {differ}')
 
     # throughput, host clock around synchronized batches
     times = []
-    for _ in range(5):
+    for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         net.pipeline(points, mask)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     batch_s = statistics.median(times)
-    print(f'pipeline: first run {first_s:.4f} s, median of 5 {batch_s:.4f} s per '
-          f'batch of {BATCH} -> {BATCH / batch_s:.2f} scans/s on {smi}')
-
-    stages = stage_ms(net, points, mask)
-    print('stage ms (median of 5, synchronized): '
+    print(f'{label} pipeline: first run {first_s:.4f} s, median of {reps} {batch_s:.4f} s '
+          f'per batch of {b} -> {b / batch_s:.2f} scans/s on {smi}')
+    stages = stage_ms(net, points, mask, reps=reps)
+    print(f'{label} stage ms (median of {reps}, synchronized): '
           + ', '.join(f'{k} {v:.3f}' for k, v in stages.items()))
     with torch.no_grad():
         cls = net.module(net_batch(net, points, mask))['batch_cls_preds']
-    live = (torch.sigmoid(cls).amax(dim=-1) >= post.SCORE_THRESH).sum(dim=1)
-    print(f'NMS candidates clearing SCORE_THRESH per scan: {live.tolist()}')
+    live = (torch.sigmoid(cls) >= post.SCORE_THRESH).sum(dim=1)          # (B, C)
+    per_class = {name: live[:, i].tolist() for i, name in enumerate(cfg.CLASS_NAMES)}
+    print(f'{label}: candidates clearing SCORE_THRESH per scan, by class: {per_class} '
+          f'(MULTI_CLASSES_NMS {bool(nms.MULTI_CLASSES_NMS)}, NMS_PRE_MAXSIZE '
+          f'{nms.NMS_PRE_MAXSIZE}); post-processing {stages["post_processing"]:.3f} ms '
+          f'a batch of {b}')
+    return net, calls, entries, launches, res
+
+
+def inference_phase(smi):
+    """Kernels K1-K3 against their plain versions and the inference path of
+    hvpr.yaml at batch 8, with K2's selected sets, the bounds and the
+    library yardsticks. Returns ({kernel: entry}, the path's launch
+    counts)."""
+    import numpy as np
+    import torch
+    from hvpr_tpu_torch.models.backbones_2d.map_to_bev import memory_module
+    from hvpr_tpu_torch.ops import _kernels
+    from hvpr_tpu_torch.utils.scans import realistic_scans
+
+    cfg = load_cfg()
+    pcr = cfg.DATA_CONFIG.POINT_CLOUD_RANGE
+    points = torch.from_numpy(realistic_scans(np.random.default_rng(0), BATCH,
+                                              N_POINTS, pcr)).cuda()
+    mask = torch.ones(BATCH, N_POINTS, dtype=torch.bool, device='cuda')
+    _, calls, entries, launches, _ = flat_phase(smi, 'inference', cfg, points, mask,
+                                                INFER_KERNELS)
+
+    # K2's selected sets and thresholds, row by row
+    args, _ = calls['memory_lookup'][0]
+    _, th_k, cnt_k = memory_module.memory_lookup_fused(*args, return_stats=True)
+    with _kernels.plain_versions():
+        _, th_p, cnt_p = memory_module.memory_lookup_fused(*args, return_stats=True)
+    if not (torch.equal(th_k, th_p) and torch.equal(cnt_k, cnt_p)):
+        fail('memory_lookup: thresholds or selected counts differ from plain')
+    k = args[2]
+    print(f'memory_lookup: selected columns per row mean '
+          f'{cnt_k.float().mean().item():.3f} (k={k}), min {int(cnt_k.min())}')
+
+    # bounds and library yardsticks from this run's inputs
+    entries['segment_sweep'].update(_sweep_bound(calls['segment_sweep']))
+    pill, memw, row_mask = args[0], args[1], args[3]
+    r, c = pill.shape
+    m = memw.shape[0]
+    r_valid = int(row_mask.sum())          # empty pillar slots are not looked up
+    print(f'memory_lookup: {r_valid} of {r} rows are valid pillars')
+    ops = 2.0 * r_valid * m * c + 2.0 * c * float(cnt_k.sum())  # logits + selected output
+    nbytes = 2 * r * c * 4 + m * c * 4 + r
+    b_ms, b_by = bound(ops, BF16_FLOPS_PER_S, nbytes)
+    lib_ms = _lookup_library_ms(pill, memw, row_mask, th_k)
+    entries['memory_lookup'].update(bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    print(f'memory_lookup: scaled_dot_product_attention over the valid rows with the '
+          f'selected sets as its mask (the function of _apply_kernel only) {lib_ms:.4f} ms')
+    k2_ms = entries['memory_lookup']['ms']
+    print(f'memory_lookup: K2 {k2_ms:.4f} ms against the SDPA yardstick {lib_ms:.4f} ms: '
+          f'{"below" if k2_ms < lib_ms else "NOT below"} it ({k2_ms / lib_ms:.3f}x); bound '
+          f'{b_ms:.4f} ms ({b_by}, bf16 tensor cores), on the FP64 tensor cores '
+          f'{2.0 * r_valid * m * c / F64_TC_FLOPS_PER_S * 1e3:.4f} ms for the logits')
+    entries['bev_canvas'].update(_canvas_bound_and_yardstick(calls['bev_canvas']))
     return entries, launches
 
 
@@ -880,13 +949,16 @@ EXACT_OUTPUTS = {'bucket_threshold': (0,), 'masked_attend_fwd': (1, 5),
                  'masked_attend_pairs': (1, 5), 'gather_grad': (0,)}
 
 
-def train_phase(smi, mode):
-    """One train step of hvpr.yaml at batch 4 in TRAIN_ATTEND_MODE ``mode``
-    through the kernels against one through the plain versions, and the
-    timed steps. In the shipped mode, fused, also each train kernel (K4-K10)
-    against its plain version at the step's shapes and the part times.
-    Returns ({kernel: entry}, the timed steps' launch counts, the kernel
-    step's metrics, the step's ``pointnet2.three_nn`` calls)."""
+def train_phase(smi, mode, cfg_path=CFG, n_steps=None):
+    """One train step of ``cfg_path`` (hvpr.yaml, or hvpr_multiclass.yaml)
+    at batch 4 in TRAIN_ATTEND_MODE ``mode`` through the kernels against one
+    through the plain versions, two kernel steps without deterministic
+    algorithms against each other, and ``n_steps`` timed steps
+    (TRAIN_STEPS fused, GATHER_STEPS gather by default). In the shipped
+    mode, fused, also each train kernel (K4-K10) against its plain version
+    at the step's shapes and the part times. Returns ({kernel: entry}, the
+    timed steps' launch counts, the kernel step's metrics, the step's
+    ``pointnet2.three_nn`` calls)."""
     import numpy as np
     import torch
     from hvpr_tpu_torch.models import DatasetMeta, build_network
@@ -897,8 +969,9 @@ def train_phase(smi, mode):
     from hvpr_tpu_torch.utils.scans import realistic_scans_with_boxes
 
     fused = mode == 'fused'
+    label = mode if cfg_path == CFG else f'{mode}, {os.path.basename(cfg_path)}'
     # hvpr.yaml sets no TRAIN_ATTEND_MODE: as shipped it trains fused
-    cfg = load_cfg(None if fused else mode)
+    cfg = load_cfg(None if fused else mode, path=cfg_path)
     meta = DatasetMeta(cfg.DATA_CONFIG, cfg.CLASS_NAMES, mode='train')
     net = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), meta, device='cuda',
                         train=True)
@@ -911,11 +984,17 @@ def train_phase(smi, mode):
     points = torch.from_numpy(pts).cuda()
     mask = torch.ones(TRAIN_BATCH, N_POINTS, dtype=torch.bool, device='cuda')
     batch = dict(net.voxelize(points, mask), gt_boxes=torch.from_numpy(gt).cuda())
-    print(f'train batch ({mode}): {TRAIN_BATCH} scans, '
+    print(f'train batch ({label}): {TRAIN_BATCH} scans, '
           f'{int(batch["voxel_mask"].sum())} pillars, {gt.shape[1]} boxes a scan')
     state0 = {k: v.clone() for k, v in net.module.state_dict().items()}
     n_params = sum(p.numel() for p in net.module.parameters())
     step_launches = {k: n for k, n in STEP_LAUNCHES.items() if fused or k not in ATTEND_KERNELS}
+    if not fused:
+        # the gather mode's gathers: the pooling's, a chunk of pillars at a
+        # time, and the memory path's reconstructions
+        chunk = inspect.signature(
+            pointpillar_scatter.attentive_point_pooling).parameters['chunk'].default
+        step_launches['gather_grad'] += -(-meta.max_voxels // chunk) + 1
     wrappers = {'ball_query': (pointnet2, 'ball_query_bucket2', pn2_select.ball_query_bucket2),
                 'fps_chunks': (pointnet2, 'fps_chunks', pn2_select.fps_chunks),
                 'memory_recon_fwd': (memory_recon, 'recon_forward', memory_recon.recon_forward),
@@ -976,7 +1055,7 @@ def train_phase(smi, mode):
         torch.use_deterministic_algorithms(False)
     (grads_k, metrics_k, params_k), (grads_p, metrics_p, params_p) = \
         runs['kernels'], runs['plain']
-    print(f'step 1 ({mode}), kernels/plain: ' + ', '.join(
+    print(f'step 1 ({label}), kernels/plain: ' + ', '.join(
         f'{k} {metrics_k[k]:.7g}/{metrics_p[k]:.7g}' for k in sorted(metrics_k)))
     for k, v in metrics_k.items():
         if not np.isfinite(v):
@@ -985,11 +1064,11 @@ def train_phase(smi, mode):
     differ = ([n for n, g, w in zip(names, grads_k, grads_p) if not torch.equal(g, w)]
               + [k for k in params_p if not torch.equal(params_k[k], params_p[k])]
               + [k for k in metrics_p if metrics_k[k] != metrics_p[k]])
-    print(f'step 1 ({mode}), kernels vs plain: {len(names)} gradient leaves, '
+    print(f'step 1 ({label}), kernels vs plain: {len(names)} gradient leaves, '
           f'{len(params_p)} weight and statistic tensors, {len(metrics_p)} metrics; '
           f'{len(differ)} differ')
     if differ:
-        fail(f'the {mode} kernel step differs from the plain step in {differ[:5]}')
+        fail(f'the {label} kernel step differs from the plain step in {differ[:5]}')
     if fused:
         # K9's calls: the dense sweep's (no selection), the pair pass's
         fwd = calls.pop('masked_attend_fwd', [])
@@ -998,36 +1077,37 @@ def train_phase(smi, mode):
         del fwd                 # the captures are freed with `calls` below
     for name, per_step in step_launches.items():
         if len(calls.get(name, ())) != per_step:
-            fail(f'one {mode} train step called {name} {len(calls.get(name, ()))} '
+            fail(f'one {label} train step called {name} {len(calls.get(name, ()))} '
                  f'times, expected {per_step}')
     del runs, grads_k, grads_p, params_k, params_p
 
+    # without deterministic algorithms: two kernel steps must give the same
+    # bits (K12 sums the gathers' gradients without atomics, the gather
+    # mode's pooling and memory gathers too; ROADMAP C3); the plain
+    # versions' gathers still add by atomics (printed in the fused mode)
+    for run in ('kernels', 'plain') if fused else ('kernels',):
+        twice = []
+        for _ in range(2):
+            fresh()
+            with _kernels.plain_versions() if run == 'plain' else \
+                    contextlib.nullcontext():
+                twice.append(loss_and_grads(net.train_state, batch)[1])
+        rel = {n: float(torch.linalg.vector_norm((a - b).double())
+                        / torch.linalg.vector_norm(b.double()).clamp_min(1e-30))
+               for n, a, b in zip(names, *twice)}
+        worst = max(rel, key=rel.get)
+        n_differ = sum(v > 0 for v in rel.values())
+        kind = 'kernel' if run == 'kernels' else 'plain'
+        print(f'without deterministic algorithms two {kind} steps ({label}) differ in '
+              f'{n_differ} of {len(rel)} gradient leaves, most in {worst}: {rel[worst]:.3g} '
+              f'of its L2 norm')
+        if run == 'kernels' and n_differ:
+            fail(f'two {label} kernel steps without deterministic algorithms differ in '
+                 f'{n_differ} gradient leaves')
+        del twice
+
     entries = {}
     if fused:
-        # without deterministic algorithms: two kernel steps must give the
-        # same bits (K12 sums the gathers' gradients without atomics; ROADMAP
-        # C3); the plain versions' gathers still add by atomics
-        for run in ('kernels', 'plain'):
-            twice = []
-            for _ in range(2):
-                fresh()
-                with _kernels.plain_versions() if run == 'plain' else \
-                        contextlib.nullcontext():
-                    twice.append(loss_and_grads(net.train_state, batch)[1])
-            rel = {n: float(torch.linalg.vector_norm((a - b).double())
-                            / torch.linalg.vector_norm(b.double()).clamp_min(1e-30))
-                   for n, a, b in zip(names, *twice)}
-            worst = max(rel, key=rel.get)
-            n_differ = sum(v > 0 for v in rel.values())
-            kind = 'kernel' if run == 'kernels' else 'plain'
-            print(f'without deterministic algorithms two {kind} steps differ in {n_differ} '
-                  f'of {len(rel)} gradient leaves, most in {worst}: {rel[worst]:.3g} of its '
-                  f'L2 norm')
-            if run == 'kernels' and n_differ:
-                fail(f'two kernel steps without deterministic algorithms differ in '
-                     f'{n_differ} gradient leaves')
-            del twice
-
         # 3. each kernel against its plain version at this step's shapes
         outs = {}
         for name, (_, _, fn) in wrappers.items():
@@ -1184,7 +1264,8 @@ def train_phase(smi, mode):
     held_pairs = nbytes(a for args, _ in calls.get('masked_attend_bwd', ())
                         for a in args[10:])
     calls = {'three_nn': calls.get('three_nn', [])}
-    n_steps = TRAIN_STEPS if fused else GATHER_STEPS
+    if n_steps is None:
+        n_steps = TRAIN_STEPS if fused else GATHER_STEPS
     fresh()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1199,25 +1280,25 @@ def train_phase(smi, mode):
         times.append(time.perf_counter() - t0)
         losses.append(loss)
     launches = _kernels.launch_counts()
-    print(f'train path ({mode}) launches in {n_steps} steps: {launches}')
+    print(f'train path ({label}) launches in {n_steps} steps: {launches}')
     for name in _kernels.KERNELS:
         want = step_launches.get(name, 0) * n_steps
         if launches[name] != want:
-            fail(f'{n_steps} {mode} train steps launched {name} {launches[name]} '
+            fail(f'{n_steps} {label} train steps launched {name} {launches[name]} '
                  f'times, expected {want}')
     if not all(np.isfinite(losses)):
         fail(f'non-finite train loss: {losses}')
     step_s = statistics.median(times)
-    print(f'train losses ({mode}) over {n_steps} steps: {losses}')
+    print(f'train losses ({label}) over {n_steps} steps: {losses}')
     peak = torch.cuda.max_memory_allocated()
-    print(f'train step ({mode}): median of {n_steps} {step_s * 1e3:.3f} ms per batch of '
+    print(f'train step ({label}): median of {n_steps} {step_s * 1e3:.3f} ms per batch of '
           f'{TRAIN_BATCH} -> {TRAIN_BATCH / step_s:.3f} scans/s, peak memory '
           f'{peak / 2**30:.3f} GiB ({(peak + held - held_pairs) / 2**30:.3f} GiB with the '
           f'captured inputs held, as counted before; those held {held / 2**30:.3f} GiB, '
           f'{held_pairs / 2**30:.3f} of it K10\'s pairs), {n_params} parameters, on {smi}')
     if fused:
         stages = train_stage_ms(net, batch)
-        print(f'train step ({mode}) stage ms (median of 3, CUDA events inside '
+        print(f'train step ({label}) stage ms (median of 3, CUDA events inside '
               'Network.train_step): '
               + ', '.join(f'{k} {v:.3f}' for k, v in stages.items())
               + f'; sum {sum(stages.values()):.3f}')
@@ -1715,6 +1796,241 @@ def train_cli_phase(smi):
           f'initialization), eval loop {float(first["eval"]["eval_time/scans_per_s"]):.3f} '
           f'scans/s; on {smi}')
     return {k: launches1[k] + launches2[k] for k in launches1}
+
+
+MULTICLASS_CFG = 'tools/cfgs/kitti_models/hvpr_multiclass.yaml'
+MULTICLASS_STEPS = 2               # timed fused steps of hvpr_multiclass.yaml
+POINTPILLAR_CFG = 'tools/cfgs/kitti_models/pointpillar.yaml'
+POINTPILLAR_STEPS = 3              # timed train steps of pointpillar.yaml
+NUSC_CFG = 'tools/cfgs/nuscenes_models/pointpillar_nuscenes.yaml'
+NUSC_BATCH = 4
+NUSC_TRAIN_SCENES = 4              # the nuscenes phase's tree: 4 train samples (20 infos
+NUSC_VAL_SCENES = 8                # after the balanced resampling, 5 steps) and 8 val
+NUSC_WORKERS = 4
+NUSC_BOX_STD = 0.001               # the box head's seeded weights (seed_weights)
+
+
+def multiclass_phase(smi):
+    """hvpr_multiclass.yaml (Car, Pedestrian, Cyclist; per-class NMS; f32,
+    the fused train mode, as shipped): the flat pipeline at batch 8 on
+    ``realistic_scans(seed 0)`` with K1-K3 held to their plain versions and
+    its detections to the plain pipeline's, then one fused train step at
+    batch 4 with K4-K10 captured and held to their plain versions, the step
+    to a plain step bit for bit under deterministic algorithms, and
+    MULTICLASS_STEPS timed steps. Returns (the pipeline's launch counts,
+    the timed steps')."""
+    import numpy as np
+    import torch
+    from hvpr_tpu_torch.utils.scans import realistic_scans
+
+    cfg = load_cfg(path=MULTICLASS_CFG)
+    points = torch.from_numpy(realistic_scans(np.random.default_rng(0), BATCH, N_POINTS,
+                                              cfg.DATA_CONFIG.POINT_CLOUD_RANGE)).cuda()
+    mask = torch.ones(BATCH, N_POINTS, dtype=torch.bool, device='cuda')
+    _, _, _, launches, _ = flat_phase(smi, 'multiclass', cfg, points, mask, INFER_KERNELS)
+    _, train_launches, _, _ = train_phase(smi, 'fused', cfg_path=MULTICLASS_CFG,
+                                          n_steps=MULTICLASS_STEPS)
+    return launches, train_launches
+
+
+def pointpillar_phase(smi):
+    """pointpillar.yaml (grid 440 x 500, 16,000 pillars of 32 points, the
+    64/128/256 -> 384 backbone): the flat pipeline at batch 8 on
+    ``realistic_scans(seed 0)`` with K1 and K3 held to their plain versions
+    and its detections to the plain pipeline's, then POINTPILLAR_STEPS
+    train steps at batch 4 on ``realistic_scans_with_boxes(seed 0)``, which
+    launch no kernel (the plain sweeps and scatter under autograd, as in
+    the JAX package), with the step's peak memory. Returns (the pipeline's
+    launch counts, the train steps')."""
+    import numpy as np
+    import torch
+    from hvpr_tpu_torch.models import DatasetMeta, build_network
+    from hvpr_tpu_torch.ops import _kernels
+    from hvpr_tpu_torch.utils.scans import realistic_scans, realistic_scans_with_boxes
+
+    cfg = load_cfg(path=POINTPILLAR_CFG)
+    pcr = cfg.DATA_CONFIG.POINT_CLOUD_RANGE
+    points = torch.from_numpy(realistic_scans(np.random.default_rng(0), BATCH, N_POINTS,
+                                              pcr)).cuda()
+    mask = torch.ones(BATCH, N_POINTS, dtype=torch.bool, device='cuda')
+    net, _, _, launches, _ = flat_phase(smi, 'pointpillar', cfg, points, mask,
+                                        ('segment_sweep', 'bev_canvas'))
+    print(f'pointpillar: grid {net.dataset.grid_size.tolist()}, {net.dataset.max_voxels} '
+          f'pillars of {net.dataset.max_points_per_voxel} points, backbone '
+          f'{list(cfg.MODEL.BACKBONE_2D.NUM_FILTERS)} -> '
+          f'{net.module.backbone_2d.num_bev_features} channels')
+    del net
+
+    meta = DatasetMeta(cfg.DATA_CONFIG, cfg.CLASS_NAMES, mode='train')
+    net = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), meta, device='cuda', train=True)
+    if net.module.backbone_3d is not None:
+        fail('pointpillar: the train network has a point stream')
+    seed_weights(net.module, seed=0)
+    net.init_training(cfg.OPTIMIZATION, TOTAL_STEPS)
+    pts, gt = realistic_scans_with_boxes(np.random.default_rng(0), TRAIN_BATCH, N_POINTS, pcr)
+    mask = torch.ones(TRAIN_BATCH, N_POINTS, dtype=torch.bool, device='cuda')
+    batch = dict(net.voxelize(torch.from_numpy(pts).cuda(), mask),
+                 gt_boxes=torch.from_numpy(gt).cuda())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    times, metrics = [], []
+    for _ in range(POINTPILLAR_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = net.train_step(batch)
+        metrics.append({k: float(v) for k, v in m.items()})     # synchronizes
+        times.append(time.perf_counter() - t0)
+    train_launches = _kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f'pointpillar train path launches in {POINTPILLAR_STEPS} steps: {train_launches}')
+    if any(train_launches.values()):
+        fail('the pointpillar train step launched a kernel (it runs the plain versions '
+             'under autograd)')
+    for m in metrics:
+        if not all(np.isfinite(v) for v in m.values()):
+            fail(f'pointpillar: non-finite train metrics {m}')
+        zero = [k for k in ('rpn_loss_cls_pt', 'rpn_loss_loc_pt', 'rpn_loss_dir_pt',
+                            'mem_loss') if m[k] != 0.0]
+        if zero:
+            fail(f'pointpillar: {zero} are not zero without a point stream')
+    print(f'pointpillar train step: losses {[m["loss"] for m in metrics]}; median of '
+          f'{POINTPILLAR_STEPS} {statistics.median(times) * 1e3:.3f} ms per batch of '
+          f'{TRAIN_BATCH} (the first included), peak memory {peak / 2**30:.3f} GiB, '
+          f'{sum(p.numel() for p in net.module.parameters())} parameters, on {smi}')
+    return launches, train_launches
+
+
+def nuscenes_phase(smi):
+    """pointpillar_nuscenes.yaml (grid 512 x 512, 30,000 pillars of 20
+    points, 5 classes, 5-channel points of 10 sweeps) on a synthetic tree
+    of NUSC_TRAIN_SCENES train and NUSC_VAL_SCENES val samples written by
+    ``utils.scans.build_nuscenes_root`` (34,000 points a sweep): the flat
+    pipeline at batch 4 on the first val frames as the data layer reads
+    them, with K1 (max_seg 20) and K3 (512 x 512 x 64) held to their plain
+    versions, their bounds and K3's yardstick, the detections held to the
+    plain pipeline's; then the test CLI (batch 4, NUSC_WORKERS workers,
+    padded pillars, --save_to_file) and the train CLI (1 epoch at batch 4,
+    then its evaluation) on the tree, through ``--device cuda``. Checks:
+    annos of every val frame, one submission file a frame, the
+    centre-distance AP string in the log, the checkpoint, and no kernel
+    launched by the padded CLIs (the plain VFE and scatter, as in the JAX
+    package). Returns ({kernel: entry} of K1 and K3 at these shapes, the
+    pipeline's launch counts, the CLIs')."""
+    import pickle
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    from hvpr_tpu_torch import config
+    from hvpr_tpu_torch.datasets.nuscenes.nuscenes_dataset import NuScenesDataset
+    from hvpr_tpu_torch.models import build_network
+    from hvpr_tpu_torch.ops import _kernels
+    from hvpr_tpu_torch.tools import test as test_cli, train
+    from hvpr_tpu_torch.utils.checkpoint import save_checkpoint
+    from hvpr_tpu_torch.utils.scans import build_nuscenes_root
+
+    cfg = load_cfg(path=NUSC_CFG)
+    build_dir = Path(ROOT) / 'build'
+    build_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        root = build_nuscenes_root(tmp / 'nuscenes', n_train=NUSC_TRAIN_SCENES,
+                                   n_val=NUSC_VAL_SCENES)
+        print(f'nuscenes: tree of {NUSC_TRAIN_SCENES} train and {NUSC_VAL_SCENES} val samples '
+              f'({cfg.DATA_CONFIG.MAX_SWEEPS} sweeps of 34,000 points each) written in '
+              f'{time.perf_counter() - t0:.2f} s')
+
+        test_set = NuScenesDataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, training=False,
+                                   root_path=root)
+        host = test_set.collate_batch([test_set[i] for i in range(NUSC_BATCH)])
+        points = torch.from_numpy(host['points']).cuda()
+        mask = torch.from_numpy(host['point_valid_mask']).cuda()
+        print(f'nuscenes: points a frame {host["point_valid_mask"].sum(1).tolist()} '
+              f'({points.shape[2]} channels, time lags '
+              f'{np.unique(host["points"][0, :, 4]).round(3).tolist()})')
+        net, calls, entries, launches, _ = flat_phase(
+            smi, 'nuscenes', cfg, points, mask, ('segment_sweep', 'bev_canvas'), reps=3,
+            box_std=NUSC_BOX_STD)
+        sweep_segs = {a[2] for a, _ in calls['segment_sweep']}
+        canvas = {(a[3], a[4], a[0].shape[2]) for a, _ in calls['bev_canvas']}
+        if sweep_segs != {20} or canvas != {(512, 512, 64)}:
+            fail(f'nuscenes: K1 at max_seg {sweep_segs}, K3 at {canvas}')
+        entries['segment_sweep'].update(_sweep_bound(calls['segment_sweep']))
+        entries['bev_canvas'].update(_canvas_bound_and_yardstick(calls['bev_canvas'],
+                                                                 ' (nuscenes)'))
+        del net, calls, points, mask
+
+        # the test CLI: a .pth of seeded weights, padded pillars from the workers
+        writer = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), test_set, device='cpu')
+        seed_weights(writer.module, seed=0, box_std=NUSC_BOX_STD)
+        ckpt = tmp / 'checkpoint_epoch_1.pth'
+        save_checkpoint(writer.module, ckpt, epoch=1)
+        config.cfg.ROOT_DIR = tmp
+        out = tmp / 'output' / 'cfgs' / 'nuscenes_models' / 'pointpillar_nuscenes' / 'nusc'
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        ret = test_cli.main(['--cfg_file', NUSC_CFG, '--ckpt', str(ckpt), '--batch_size',
+                             str(NUSC_BATCH), '--workers', str(NUSC_WORKERS), '--extra_tag',
+                             'nusc', '--save_to_file', '--set', 'DATA_CONFIG.DATA_PATH',
+                             str(root)])
+        eval_s = time.perf_counter() - t0
+        cli_launches = _kernels.launch_counts()
+        eval_dir = out / 'eval' / 'epoch_1' / 'val' / 'default'
+        with open(eval_dir / 'result.pkl', 'rb') as f:
+            annos = pickle.load(f)
+        rows = sorted((eval_dir / 'final_result' / 'data').glob('*.json'))
+        log = ''.join(p.read_text() for p in eval_dir.glob('log_eval_*.txt'))
+        if len(annos) != NUSC_VAL_SCENES or len(rows) != NUSC_VAL_SCENES:
+            fail(f'nuscenes test CLI: {len(annos)} annos, {len(rows)} submission files')
+        if 'center-distance AP' not in log or 'mAP' not in ret:
+            fail('nuscenes test CLI: no centre-distance AP')
+        frame = json.loads(rows[0].read_text())
+        if not frame or {r['detection_name'] for r in frame} - set(cfg.CLASS_NAMES):
+            fail(f'nuscenes test CLI: submission rows {frame[:1]}')
+        ap_str = log[log.index('center-distance AP'):].split('\n')
+        print('nuscenes test CLI: ' + ' | '.join(ap_str[:len(cfg.CLASS_NAMES) + 2]))
+        print(f'nuscenes test CLI: {len(annos)} annos, detections per frame '
+              f'{[len(a["name"]) for a in annos]}, {len(frame)} submission rows in '
+              f'{rows[0].name}; {ret["eval_time/scans_per_s"]:.3f} scans/s over the loop, '
+              f'{ret["eval_time/loader_wait_share"]:.4f} waiting on the DataLoader '
+              f'({NUSC_WORKERS} workers; past the first batch '
+              f'{ret.get("eval_time/steady_scans_per_s", float("nan")):.3f} scans/s, '
+              f'{ret.get("eval_time/steady_loader_wait_share", float("nan")):.4f}), forward '
+              f'median {ret["eval_time/forward_median_ms"]:.3f} ms a batch of {NUSC_BATCH}, '
+              f'evaluator {ret["eval_time/evaluator_s"]:.3f} s, main() {eval_s:.2f} s; '
+              f'launches {({k: v for k, v in cli_launches.items() if v})} on {smi}')
+
+        # the train CLI: one epoch, then the evaluation of its checkpoint
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        tret = train.main(['--cfg_file', NUSC_CFG, '--batch_size', str(NUSC_BATCH),
+                           '--epochs', '1', '--workers', str(NUSC_WORKERS), '--extra_tag',
+                           'nusc', '--num_epochs_to_eval', '1', '--set',
+                           'DATA_CONFIG.DATA_PATH', str(root)])
+        train_s = time.perf_counter() - t0
+        train_launches = _kernels.launch_counts()
+        if not (out / 'ckpt' / 'checkpoint_epoch_1.pth').exists():
+            fail('nuscenes train CLI: no checkpoint_epoch_1.pth')
+        if 'mAP' not in (tret['eval'] or {}):
+            fail('nuscenes train CLI: the post-train evaluation has no mAP')
+        losses = [json.loads(x) for x in (out / 'train_log.jsonl').read_text().splitlines()]
+        if not all(np.isfinite(x['loss']) for x in losses):
+            fail(f'nuscenes train CLI: non-finite loss {losses}')
+        print(f'nuscenes train CLI: {tret["train_time/steps"]} steps, '
+              f'{tret["train_time/scans_per_s"]:.3f} scans/s over the loop, '
+              f'{tret["train_time/loader_wait_share"]:.4f} waiting on the DataLoader '
+              f'({NUSC_WORKERS} workers), Network.train_step median '
+              f'{tret["train_time/step_median_ms"]:.3f} ms; post-train mAP '
+              f'{tret["eval"]["mAP"]:.4f}; main() {train_s:.2f} s; launches '
+              f'{({k: v for k, v in train_launches.items() if v})} on {smi}')
+        for name, n in {**cli_launches, **train_launches}.items():
+            if n:
+                fail(f'the nuscenes CLIs launched {name} (padded pillars take the plain '
+                     f'VFE and scatter)')
+    return entries, launches, {k: cli_launches[k] + train_launches[k] for k in cli_launches}
 
 
 DDP_RANKS = 2                      # the ddp phase: 2 ranks, both on card 0 over gloo
@@ -2287,6 +2603,15 @@ def run_phases():
     entries, launches = inference_phase(smi)
     print(f'inference phase: {time.perf_counter() - t0:.1f} s')
     t0 = time.perf_counter()
+    multiclass_launches, multiclass_train_launches = multiclass_phase(smi)
+    print(f'multiclass phase: {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    pointpillar_launches, pointpillar_train_launches = pointpillar_phase(smi)
+    print(f'pointpillar phase: {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    nusc_entries, nusc_launches, nusc_cli_launches = nuscenes_phase(smi)
+    print(f'nuscenes phase: {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
     eval_launches = eval_cli_phase(smi)
     print(f'eval_cli phase: {time.perf_counter() - t0:.1f} s')
     t0 = time.perf_counter()
@@ -2336,6 +2661,15 @@ def run_phases():
             kernels[-1]['eval_cli_launches'] = eval_launches[name]
         kernels[-1]['train_cli_launches'] = train_cli_launches[name]
         kernels[-1]['ddp_launches'] = ddp_launches[name]
+        kernels[-1]['multiclass_launches'] = multiclass_launches[name]
+        kernels[-1]['multiclass_train_launches'] = multiclass_train_launches[name]
+        kernels[-1]['pointpillar_launches'] = pointpillar_launches[name]
+        kernels[-1]['pointpillar_train_launches'] = pointpillar_train_launches[name]
+        kernels[-1]['nuscenes_launches'] = nusc_launches[name]
+        kernels[-1]['nuscenes_cli_launches'] = nusc_cli_launches[name]
+        if name in nusc_entries:
+            kernels[-1]['nuscenes'] = {k: nusc_entries[name][k] for k in (
+                'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')}
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

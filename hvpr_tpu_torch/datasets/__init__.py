@@ -19,10 +19,12 @@ import torch.utils.data as torch_data
 from ..utils.common_utils import get_dist_info
 from .dataset import DatasetTemplate
 from .kitti.kitti_dataset import KittiDataset
+from .nuscenes.nuscenes_dataset import NuScenesDataset
 
 __all__ = {
     'DatasetTemplate': DatasetTemplate,
     'KittiDataset': KittiDataset,
+    'NuScenesDataset': NuScenesDataset,
 }
 
 

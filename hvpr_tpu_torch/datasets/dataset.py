@@ -45,9 +45,10 @@ class DatasetTemplate:
         self.point_feature_encoder = PointFeatureEncoder(
             self.dataset_cfg['POINT_FEATURE_ENCODING'],
             point_cloud_range=self.point_cloud_range)
+        # a config without DATA_AUGMENTOR trains on the scenes as they are
         self.data_augmentor = DataAugmentor(
-            self.root_path, self.dataset_cfg['DATA_AUGMENTOR'], self.class_names,
-            logger=self.logger) if self.training else None
+            self.root_path, self.dataset_cfg.get('DATA_AUGMENTOR') or [],
+            self.class_names, logger=self.logger) if self.training else None
         self.data_processor = DataProcessor(
             self.dataset_cfg['DATA_PROCESSOR'],
             point_cloud_range=self.point_cloud_range, training=self.training)

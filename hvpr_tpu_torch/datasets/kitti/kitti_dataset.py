@@ -152,7 +152,9 @@ class KittiDataset(DatasetTemplate):
         for anno in annos:
             _write_kitti_txt(Path(output_path) / f"{anno['frame_id']}.txt", anno)
 
-    def evaluation(self, det_annos, class_names, **kwargs):
+    def evaluation(self, det_annos, class_names, eval_metric='kitti', **kwargs):
+        if eval_metric not in (None, 'kitti'):
+            raise ValueError(f'KittiDataset evaluates EVAL_METRIC kitti, not {eval_metric!r}')
         if 'annos' not in self.kitti_infos[0]:
             return None, {}
         if self.logger is not None:

@@ -10,7 +10,8 @@ similarity (stop-gradient weights). ``train_forward_fused`` (the shipped
 ``TRAIN_ATTEND_MODE: fused``) selects by the bucket threshold and
 aggregates with :func:`ops.topk_attend.masked_attend` (kernels K9/K10);
 ``train_forward`` (``gather``) gathers the reconstructions of each pillar's
-exact top-k points.
+exact top-k points by :func:`ops.gather_rows.gather_rows`, whose backward
+sums in order (K12 on the card).
 
 Modes (MAP_TO_BEV.TOPK_MODE): ``'fused'`` runs
 :func:`ops.memory_lookup.memory_lookup_fused` (kernel K2 on the card) over a
@@ -24,6 +25,7 @@ canvas drops: the counterpart of the JAX package's eighth-prefix
 import torch
 from torch import nn
 
+from ....ops.gather_rows import gather_rows
 from ....ops.memory_lookup import memory_lookup_fused
 from ....ops.memory_recon import memory_recon
 from ....ops.topk_attend import masked_attend
@@ -61,7 +63,7 @@ class MemoryUnitAgg(nn.Module):
         recon = memory_recon(points.reshape(-1, c), self.weight,
                              shrink_thres=self.shrink_thres).reshape(b, n, c)
         v, k = topk_idx.shape[1:]
-        cand = torch.gather(recon, 1, topk_idx.reshape(b, v * k, 1).expand(-1, -1, c))
+        cand = gather_rows(recon, topk_idx.reshape(b, v * k))
         return {'output': self._aggregate(cand.reshape(b, v, k, c), pillars,
                                           topk_valid)}
 

@@ -1,7 +1,13 @@
-"""HVPR pillar -> BEV scatter with the attentive memory.
+"""Pillar -> BEV scatters: the plain one and HVPR's, with the attentive memory.
 
-Port of ``PointPillarScatterAggMemory1Scale`` in
+Port of ``PointPillarScatter`` and ``PointPillarScatterAggMemory1Scale`` in
 ``hvpr_tpu/models/backbones_2d/map_to_bev/pointpillar_scatter.py``.
+
+``PointPillarScatter`` writes the pillar features into one NHWC canvas
+(``spatial_features``): in eval, a flat batch through
+:func:`ops.bev_canvas.canvas_from_sorted` (K3 on the card) in CANVAS_DTYPE,
+a padded batch through the plain scatter; in training the differentiable
+plain scatter in f32, as the JAX package's ``_build_canvas`` picks.
 
 Eval: the memory reconstructs every pillar, and two canvases are written,
 [pillar | memory] (``spatial_features``) and the scale stream
@@ -28,13 +34,17 @@ softmax weights, and one differentiable ``scatter_to_bev`` emits
 - ``gather``: :func:`attentive_point_pooling` picks each pillar's exact
   top-k points with ``torch.topk`` (the JAX package takes ``approx_max_k``
   at recall 0.95, which is exact on its CPU backend) and the memory path
-  gathers their reconstructions.
+  gathers their reconstructions. The gathers go through
+  :func:`ops.gather_rows.gather_rows` (kernel K12 in the backward on the
+  card), whose backward sums each point's contributions in order: two
+  steps give the same bits without deterministic algorithms.
 """
 
 import torch
 from torch import nn
 
 from ....ops.bev_canvas import canvas_from_sorted
+from ....ops.gather_rows import gather_rows
 from ....ops.scatter import scatter_to_bev
 from ....ops.topk_attend import bucket_threshold, masked_attend
 from .memory_module import MemoryUnitAgg
@@ -52,6 +62,24 @@ def _build_canvas(features, coords, mask, ny, nx, cells_sorted, out_dtype):
     if cells_sorted:
         return canvas_from_sorted(features, coords, mask, ny, nx, out_dtype)
     return scatter_to_bev(features.to(out_dtype), coords, mask, ny, nx)
+
+
+class PointPillarScatter(nn.Module):
+
+    def __init__(self, model_cfg, grid_size):
+        super().__init__()
+        self.nx, self.ny, nz = (int(g) for g in grid_size)
+        if nz != 1:
+            raise ValueError(f'pillar grid must have nz == 1, got {nz}')
+        self.out_dtype = _canvas_dtype(model_cfg)
+
+    def forward(self, batch_dict):
+        batch_dict['spatial_features'] = _build_canvas(
+            batch_dict['pillar_features'], batch_dict['voxel_coords'],
+            batch_dict['voxel_mask'], self.ny, self.nx,
+            cells_sorted='flat_points' in batch_dict and not self.training,
+            out_dtype=torch.float32 if self.training else self.out_dtype)
+        return batch_dict
 
 
 def attentive_point_pooling(points, point_mask, pillars, k, chunk=2048):
@@ -78,9 +106,8 @@ def attentive_point_pooling(points, point_mask, pillars, k, chunk=2048):
             score = torch.bmm(pc, points.transpose(1, 2)) + neg[:, None, :]
             idx = torch.topk(score, k, dim=-1).indices                   # (B, vc, k)
         vc = idx.shape[1]
-        pts = torch.gather(points, 1, idx.reshape(b, vc * k, 1).expand(-1, -1, c))
-        pts = pts.reshape(b, vc, k, c)
-        sel_neg = torch.gather(neg, 1, idx.reshape(b, -1)).reshape(b, vc, k)
+        pts = gather_rows(points, idx.reshape(b, vc * k)).reshape(b, vc, k, c)
+        sel_neg = gather_rows(neg[..., None], idx.reshape(b, -1)).reshape(b, vc, k)
         pts = torch.where(sel_neg[..., None] < -0.5, 0.0, pts)
         agg_logits = (pc[:, :, None, :] * pts).sum(dim=-1) + sel_neg
         agg_w = torch.softmax(agg_logits, dim=-1).detach()

@@ -2,7 +2,7 @@
 
 Port of ``hvpr_tpu/models/backbones_3d/vfe/pillar_vfe.py``
 (``decorate_flat_features``, ``decorate_pillar_features``, ``PFNLayer``,
-``PillarVFE_Scale``); a batch with ``flat_points`` (the device voxelizer)
+``PillarVFE``, ``PillarVFE_Scale``); a batch with ``flat_points`` (the device voxelizer)
 takes the flat branch, one with ``voxels`` (host-voxelized, the data layer's
 batches) the padded one. Both share the weights. Rows stay channel-major
 (C, R): in the flat layout R = B*N sorted points, in the padded one
@@ -11,10 +11,10 @@ masked max over the P axis and fully empty pillars get 0. The padded branch
 is plain PyTorch, as the JAX package's is XLA: the pillar sums are sums
 along P and the centres come from ``voxel_coords``, in the flat branch's
 order, so both layouts give the same pillar features bit for bit. In eval
-the three segment reductions of a flat forward (an xyz+count sum over 4
-channels and the PFN max sweeps over 16 and 64 channels at hvpr.yaml
-widths) go through :func:`ops.segment_sweep.segment_sweep`, kernel K1 on
-the card. In training
+the segment reductions of a flat forward (an xyz+count sum over 4 channels
+and one PFN max sweep a layer: over 16 and 64 channels at hvpr.yaml
+widths, over 64 at pointpillar.yaml's single layer) go through
+:func:`ops.segment_sweep.segment_sweep`, kernel K1 on the card. In training
 (``module.train()``) they run the plain sweeps under autograd, as the JAX
 package runs their XLA twins when ``train=True``, and the BatchNorms take
 masked batch statistics (valid points, non-empty pillars).
@@ -166,9 +166,12 @@ class PFNLayer(nn.Module):
         return torch.cat([x, x_max.expand_as(x)], dim=0).reshape(2 * c, -1)
 
 
-class PillarVFE_Scale(nn.Module):
-    """PFN layers over decorated points plus the scale-feature MLP over
-    (count, |mean|, mean xyz) per pillar."""
+class PillarVFE(nn.Module):
+    """PFN layers over decorated pillar points -> ``pillar_features``
+    (B, V, C). The decorated rows are the points' own channels (with
+    ``USE_ABSLOTE_XYZ``), their offsets from the pillar's mean and from its
+    centre, and with ``WITH_DISTANCE`` their range: 10 with KITTI's 4-channel
+    points, 11 with nuScenes' 5 (x, y, z, intensity, time lag)."""
 
     def __init__(self, model_cfg, num_point_features, voxel_size,
                  point_cloud_range, max_points_per_voxel=32):
@@ -195,39 +198,22 @@ class PillarVFE_Scale(nn.Module):
             in_ch = out_ch
         self.pfn_layers = nn.ModuleList(layers)
 
-        scale_layers, in_ch = [], 5
-        for out_ch in model_cfg['NUM_SCALE_FEATURES']:
-            scale_layers.append(nn.Sequential(DenseT(in_ch, out_ch),
-                                              MaskedBatchNorm(out_ch),
-                                              nn.ReLU()))
-            in_ch = out_ch
-        self.pfn_scale_layers = nn.ModuleList(scale_layers)
-
     def get_output_feature_dim(self):
         return list(self.model_cfg['NUM_FILTERS'])[-1]
 
-    def forward(self, batch_dict):
-        counts = batch_dict['voxel_num_points']
-        b, v = counts.shape
+    def pillars(self, batch_dict):
+        """(B, V, C) pillar features and (3, B*V) pillar xyz means of a
+        flat (``flat_points``) or a padded (``voxels``) batch."""
         if 'flat_points' in batch_dict:
-            features, means_t = self._flat_pillars(batch_dict, b, v)
-        else:
-            features, means_t = self._padded_pillars(batch_dict)
+            b, v = batch_dict['voxel_num_points'].shape
+            return self._flat_pillars(batch_dict, b, v)
+        return self._padded_pillars(batch_dict)
 
-        d_mean = torch.linalg.norm(means_t, dim=0, keepdim=True)
-        scale_t = torch.cat([counts.reshape(1, -1).to(features.dtype),
-                             d_mean, means_t], dim=0)                   # (5, B*V)
-        voxel_mask = counts.reshape(-1) > 0
-        for dense, norm, relu in self.pfn_scale_layers:
-            scale_t = relu(norm(dense(scale_t), voxel_mask))
-
-        batch_dict['pillar_features'] = features
-        batch_dict['pillar_scale_features'] = scale_t.t().reshape(b, v, -1)
+    def forward(self, batch_dict):
+        batch_dict['pillar_features'] = self.pillars(batch_dict)[0]
         return batch_dict
 
     def _flat_pillars(self, batch_dict, b, v):
-        """(B, V, C) pillar features and (3, B*V) pillar xyz means of a
-        flat batch."""
         features_t, safe_slot, sums_t = decorate_flat_features(
             batch_dict, self.voxel_size, self.point_cloud_range,
             use_absolute_xyz=self.use_absolute_xyz,
@@ -247,7 +233,6 @@ class PillarVFE_Scale(nn.Module):
         return cols[:-3].t().reshape(b, v, -1), cols[-3:] / cnt
 
     def _padded_pillars(self, batch_dict):
-        """The same of a padded batch (``voxels`` (B, V, P, C))."""
         voxels = batch_dict['voxels']
         x, point_mask, means_t = decorate_pillar_features(
             voxels, batch_dict['voxel_num_points'], batch_dict['voxel_coords'],
@@ -257,3 +242,38 @@ class PillarVFE_Scale(nn.Module):
         for layer in self.pfn_layers:
             x = layer(x, point_mask, padded=voxels.shape[:3])
         return x, means_t
+
+
+class PillarVFE_Scale(PillarVFE):
+    """:class:`PillarVFE` plus the scale-feature MLP over (count, |mean|,
+    mean xyz) per pillar -> ``pillar_scale_features``."""
+
+    def __init__(self, model_cfg, num_point_features, voxel_size,
+                 point_cloud_range, max_points_per_voxel=32):
+        super().__init__(model_cfg, num_point_features, voxel_size,
+                         point_cloud_range, max_points_per_voxel)
+        scale_layers, in_ch = [], 5
+        for out_ch in model_cfg['NUM_SCALE_FEATURES']:
+            scale_layers.append(nn.Sequential(DenseT(in_ch, out_ch),
+                                              MaskedBatchNorm(out_ch),
+                                              nn.ReLU()))
+            in_ch = out_ch
+        self.pfn_scale_layers = nn.ModuleList(scale_layers)
+
+    def get_scale_feature_dim(self):
+        return int(list(self.model_cfg['NUM_SCALE_FEATURES'])[-1])
+
+    def forward(self, batch_dict):
+        counts = batch_dict['voxel_num_points']
+        b, v = counts.shape
+        features, means_t = self.pillars(batch_dict)
+        d_mean = torch.linalg.norm(means_t, dim=0, keepdim=True)
+        scale_t = torch.cat([counts.reshape(1, -1).to(features.dtype),
+                             d_mean, means_t], dim=0)                   # (5, B*V)
+        voxel_mask = counts.reshape(-1) > 0
+        for dense, norm, relu in self.pfn_scale_layers:
+            scale_t = relu(norm(dense(scale_t), voxel_mask))
+
+        batch_dict['pillar_features'] = features
+        batch_dict['pillar_scale_features'] = scale_t.t().reshape(b, v, -1)
+        return batch_dict

@@ -1,7 +1,8 @@
 from .detector3d_template import Detector3DTemplate
-from .pointpillar import MixAnchorMemory
+from .pointpillar import MixAnchorMemory, PointPillar
 
 __all__ = {
+    'PointPillar': PointPillar,
     'MixAnchor_Memory': MixAnchorMemory,
 }
 

@@ -2,9 +2,11 @@
 
 Port of ``hvpr_tpu/models/detectors/detector3d_template.py``: the module
 topology backbone_3d -> vfe -> map_to_bev -> backbone_2d -> dense_head built
-from the config, and ``post_processing`` (sigmoid -> class-agnostic rotated
-NMS -> fixed-shape detections, plus recall records when ``gt_boxes`` are
-given). The modules of the HVPR inference and train paths are ported; the
+from the config, each module's input channels taken from the one before it
+as the JAX template threads them, and ``post_processing`` (sigmoid ->
+class-agnostic or per-class rotated NMS -> fixed-shape detections, plus
+recall records when ``gt_boxes`` are given). The modules of the HVPR
+(``MixAnchor_Memory``) and PointPillar detectors are ported; the
 point-stream ``backbone_3d`` runs only in training.
 """
 
@@ -12,19 +14,21 @@ import torch
 from torch import nn
 
 from ...ops.rotated_iou import boxes_iou3d
-from ..backbones_2d.base_bev_backbone import BaseBEVBackboneScale
+from ..backbones_2d.base_bev_backbone import BaseBEVBackbone, BaseBEVBackboneScale
 from ..backbones_2d.map_to_bev.pointpillar_scatter import (
-    PointPillarScatterAggMemory1Scale)
+    PointPillarScatter, PointPillarScatterAggMemory1Scale)
 from ..backbones_3d.pointnet2_backbone import PointNet2MSG
-from ..backbones_3d.vfe.pillar_vfe import PillarVFE_Scale
+from ..backbones_3d.vfe.pillar_vfe import PillarVFE, PillarVFE_Scale
 from ..dense_heads.anchor_head_single import AnchorHeadSingle
-from ..model_utils.model_nms_utils import class_agnostic_nms
+from ..model_utils.model_nms_utils import class_agnostic_nms, multi_classes_nms
 
 _BACKBONES_3D = {'PointNet2MSG': PointNet2MSG}
-_VFES = {'PillarVFE_Scale': PillarVFE_Scale}
-_MAP_TO_BEV = {'PointPillarScatter_Agg_Memory_1_scale':
+_VFES = {'PillarVFE': PillarVFE, 'PillarVFE_Scale': PillarVFE_Scale}
+_MAP_TO_BEV = {'PointPillarScatter': PointPillarScatter,
+               'PointPillarScatter_Agg_Memory_1_scale':
                PointPillarScatterAggMemory1Scale}
-_BACKBONES_2D = {'BaseBEVBackbone_Scale': BaseBEVBackboneScale}
+_BACKBONES_2D = {'BaseBEVBackbone': BaseBEVBackbone,
+                 'BaseBEVBackbone_Scale': BaseBEVBackboneScale}
 _DENSE_HEADS = {'AnchorHeadSingle': AnchorHeadSingle}
 
 
@@ -58,9 +62,11 @@ class Detector3DTemplate(nn.Module):
         self.map_to_bev_module = _pick(_MAP_TO_BEV, bev_cfg['NAME'], 'MAP_TO_BEV')(
             bev_cfg, grid_size)
         b2d_cfg = model_cfg['BACKBONE_2D']
-        self.backbone_2d = _pick(_BACKBONES_2D, b2d_cfg['NAME'], 'BACKBONE_2D')(
-            b2d_cfg, int(bev_cfg['NUM_BEV_FEATURES']),
-            int(list(vfe_cfg['NUM_SCALE_FEATURES'])[-1]))
+        b2d_cls = _pick(_BACKBONES_2D, b2d_cfg['NAME'], 'BACKBONE_2D')
+        b2d_inputs = [int(bev_cfg['NUM_BEV_FEATURES'])]
+        if b2d_cls is BaseBEVBackboneScale:   # and the scale stream's canvas
+            b2d_inputs.append(self.vfe.get_scale_feature_dim())
+        self.backbone_2d = b2d_cls(b2d_cfg, *b2d_inputs)
         head_cfg = model_cfg['DENSE_HEAD']
         self.dense_head = _pick(_DENSE_HEADS, head_cfg['NAME'], 'DENSE_HEAD')(
             head_cfg, self.backbone_2d.num_bev_features,
@@ -74,10 +80,13 @@ def post_processing(batch_dict, post_cfg, num_class):
     Returns pred_boxes (B, P, 7+), pred_scores (B, P), pred_labels (B, P)
     int32, pred_mask (B, P) bool, num_capped (B,) survivors dropped by the
     NMS_POST_MAXSIZE cap, and ``recall`` when ``gt_boxes`` is in the batch.
+    P is NMS_POST_MAXSIZE, or C times it with MULTI_CLASSES_NMS (one
+    rotated NMS per class). Every NMS runs at NMS_PRE_MAXSIZE: it takes
+    only the candidates above SCORE_THRESH, so it gives what the JAX
+    package's ``NMS_STAGE_SIZES`` ladder gives at any of its levels.
     """
     nms_cfg = post_cfg['NMS_CONFIG']
-    if nms_cfg.get('MULTI_CLASSES_NMS', False):
-        raise NotImplementedError('MULTI_CLASSES_NMS is not ported yet')
+    multi_class = bool(nms_cfg.get('MULTI_CLASSES_NMS', False))
     score_thresh = post_cfg.get('SCORE_THRESH', None)
     thresh_list = list(post_cfg.get('RECALL_THRESH_LIST', []))
     cls_preds = batch_dict['batch_cls_preds']
@@ -90,6 +99,10 @@ def post_processing(batch_dict, post_cfg, num_class):
 
     outs = []
     for cls_p, box_p in zip(cls_preds, box_preds):
+        if multi_class:
+            outs.append(multi_classes_nms(cls_p, box_p, nms_cfg,
+                                          score_thresh=score_thresh))
+            continue
         scores, labels = cls_p.max(dim=-1)
         keep_idx, keep_mask, num_kept = class_agnostic_nms(
             scores, box_p, nms_cfg, score_thresh=score_thresh)
@@ -109,18 +122,21 @@ def generate_recall_record(final_boxes, final_mask, roi_boxes, gt_boxes,
                            thresh_list):
     """Recall bookkeeping summed over the batch: ``gt`` count and, per
     threshold, the gts recalled by the raw (``roi_t``) and the post-NMS
-    (``rcnn_t``) boxes."""
+    (``rcnn_t``) boxes. The IoUs are taken against the valid gt rows only
+    (the JAX package masks the padded ones out of the same sums): every
+    anchor against a nuScenes batch's 320 gt slots would be (A, 320) planes
+    of ~0.8 GB each."""
     rec = {'gt': 0, **{f'rcnn_{t}': 0 for t in thresh_list},
            **{f'roi_{t}': 0 for t in thresh_list}}
     for fb, fm, rb, gt in zip(final_boxes, final_mask, roi_boxes, gt_boxes):
         gt_valid = gt.abs().sum(dim=-1) > 0
         rec['gt'] = rec['gt'] + gt_valid.sum()
-        iou_final = boxes_iou3d(fb[:, :7], gt[:, :7])
-        iou_final = torch.where(fm[:, None] & gt_valid[None, :], iou_final, 0.0)
+        gt = gt[gt_valid]
+        if gt.shape[0] == 0:
+            continue
+        iou_final = torch.where(fm[:, None], boxes_iou3d(fb[:, :7], gt[:, :7]), 0.0)
         best_final = iou_final.amax(dim=0)
-        iou_roi = torch.where(gt_valid[None, :],
-                              boxes_iou3d(rb[:, :7], gt[:, :7]), 0.0)
-        best_roi = iou_roi.amax(dim=0)
+        best_roi = boxes_iou3d(rb[:, :7], gt[:, :7]).amax(dim=0)
         for t in thresh_list:
             rec[f'rcnn_{t}'] = rec[f'rcnn_{t}'] + (best_final > t).sum()
             rec[f'roi_{t}'] = rec[f'roi_{t}'] + (best_roi > t).sum()

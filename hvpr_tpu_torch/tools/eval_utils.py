@@ -1,10 +1,14 @@
-"""Evaluation loop: batched inference -> KITTI annos -> official AP.
+"""Evaluation loop: batched inference -> the dataset's annos -> its metric.
 
 The port's ``tools/eval_utils/eval_utils.py``: each host batch of the data
 layer goes to the network's device (``load_data_to_gpu``), through
-``Network.eval_forward``, and back as per-scan detections, which the
-dataset turns into KITTI annos (and ``.txt`` files with ``save_to_file``);
-then ``result.pkl`` and the dataset's official AP. Progress goes to the
+``Network.eval_forward``, and back as per-scan detections (the kept slots
+of NMS_POST_MAXSIZE, or of C times it with per-class NMS), which the
+dataset turns into annos (with ``save_to_file`` also files: KITTI label
+``.txt`` files, nuScenes submission rows as ``<token>.json``); then
+``result.pkl`` and the dataset's evaluation, the one POST_PROCESSING's
+EVAL_METRIC names (``kitti``: the official AP; ``nuscenes``: the devkit's,
+or without it the centre-distance AP). Progress goes to the
 logger. Besides the recall and AP keys of the JAX package's loop, the
 result holds the loop's timing under ``eval_time/``: scans per second, the
 share of the loop spent waiting on the DataLoader, both again past the
@@ -160,7 +164,9 @@ def eval_one_epoch(cfg, model, dataloader, epoch_id, logger, dist_test=False,
         pickle.dump(det_annos, f)
 
     t0 = time.perf_counter()
-    result_str, result_dict = dataset.evaluation(det_annos, class_names)
+    result_str, result_dict = dataset.evaluation(
+        det_annos, class_names,
+        eval_metric=cfg['MODEL']['POST_PROCESSING'].get('EVAL_METRIC'))
     evaluator_s = time.perf_counter() - t0
     if result_str is not None:
         logger.info(result_str)

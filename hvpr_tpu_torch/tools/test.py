@@ -1,5 +1,7 @@
-"""Evaluation CLI of the port: a KITTI tree and a ``.pth`` checkpoint in,
-detections, ``result.pkl`` and the official AP out.
+"""Evaluation CLI of the port: a KITTI or nuScenes tree and a ``.pth``
+checkpoint in, detections, ``result.pkl`` and the config's EVAL_METRIC out
+(KITTI's official AP; nuScenes' devkit evaluation, or without the devkit
+the centre-distance AP).
 
 The counterpart of the JAX package's ``tools/test.py``, for one process,
 run from the repository root:
@@ -10,7 +12,12 @@ run from the repository root:
 
 The KITTI tree needs its info pickles
 (``python -m hvpr_tpu_torch.datasets.kitti.kitti_dataset create_kitti_infos
-DATA_PATH``). Results go to ``output/<cfg group>/<cfg name>/<extra_tag>/eval/``
+DATA_PATH``); a nuScenes tree (``tools/cfgs/nuscenes_models/``) its
+``nuscenes_infos_*sweeps_*.pkl``, which the devkit's info builder writes
+(``create_nuscenes_infos``, not ported past its devkit check) or
+``hvpr_tpu_torch.utils.scans.build_nuscenes_root`` with a synthetic tree.
+``--save_to_file`` writes KITTI label files or one ``<token>.json`` of
+nuScenes submission rows a frame. Results go to ``output/<cfg group>/<cfg name>/<extra_tag>/eval/``
 under ``cfg.ROOT_DIR`` (``HVPR_ROOT_DIR``, else the repository root), as in
 the JAX package. The network runs on ``--device`` (``cuda`` unless the
 caller passes ``cpu``), voxelized on the host into padded pillars by the

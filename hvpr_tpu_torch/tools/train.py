@@ -1,5 +1,5 @@
-"""Training CLI of the port: a KITTI tree in, ``.pth`` checkpoints and the
-post-train evaluation of the last ones out.
+"""Training CLI of the port: a KITTI or nuScenes tree in, ``.pth``
+checkpoints and the post-train evaluation of the last ones out.
 
 The counterpart of the JAX package's ``tools/train.py``, run from the
 repository root, in one process:
@@ -15,7 +15,7 @@ or data-parallel, one process a card (the reference's ``dist_train.sh``):
 
 The KITTI tree needs its info pickles and gt database
 (``python -m hvpr_tpu_torch.datasets.kitti.kitti_dataset create_kitti_infos
-DATA_PATH``). Batches are augmented and voxelized on the host into padded
+DATA_PATH``), a nuScenes tree its info pickles (``tools/test.py``). Batches are augmented and voxelized on the host into padded
 pillars by the data layer's worker processes, and trained on ``--device``
 (``cuda`` unless the caller passes ``cpu``). Output goes to
 ``output/<cfg group>/<cfg name>/<extra_tag>/{ckpt,eval}`` under

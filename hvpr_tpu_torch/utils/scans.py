@@ -1,11 +1,12 @@
-"""Seeded synthetic lidar scans and KITTI trees (numpy only).
+"""Seeded synthetic lidar scans, KITTI trees and nuScenes trees (numpy only).
 
 The port's copy of ``bench.py``'s ``synthetic_scans``/``realistic_scans`` and
 of ``make_scene`` and ``build_kitti_root`` from ``tests/kitti_fixture.py``:
 the draws come from the same generator in the same order, so a seed gives
 the same scans as the JAX package's benchmark, and the same KITTI files as
 its test fixture (the images are black PNGs written with zlib and struct,
-no image library).
+no image library). :func:`build_nuscenes_root` writes a multi-sweep
+nuScenes tree with its info pickles, at a 32-beam lidar's size or smaller.
 """
 
 import struct
@@ -186,3 +187,120 @@ def build_kitti_root(root, n_scenes=4, n_train=None):
     (root / 'ImageSets' / 'val.txt').write_text('\n'.join(ids[half:]) + '\n')
     (root / 'ImageSets' / 'test.txt').write_text('')
     return root, scenes
+
+
+# nuScenes classes of a synthetic frame: (name, count, (l, w, h), points a
+# sweep, z of the box centre); sizes are the classes' means in nuScenes
+NUSC_OBJECTS = (('car', 20, (4.63, 1.97, 1.74), 160, -0.9),
+                ('truck', 4, (6.93, 2.51, 2.84), 320, -0.4),
+                ('bus', 2, (10.5, 2.94, 3.47), 420, -0.1),
+                ('pedestrian', 14, (0.73, 0.67, 1.77), 40, -0.9),
+                ('traffic_cone', 10, (0.41, 0.41, 1.07), 16, -1.3))
+
+
+def _lidar_rings(rng, n, sensor_z=1.84, beams=32):
+    """(n, 3) returns of a ``beams``-beam spinning lidar ``sensor_z`` m above
+    flat ground, in the sensor frame: the downward beams hit the ground out
+    to ~50 m, the upward ones walls 10-50 m away."""
+    elev = np.deg2rad(np.linspace(-30.67, 10.67, beams))[rng.integers(0, beams, n)]
+    az = rng.uniform(-np.pi, np.pi, n)
+    ground = np.where(elev < -0.01, sensor_z / np.tan(np.maximum(-elev, 1e-3)), np.inf)
+    rng_m = np.minimum(np.where(np.isfinite(ground), ground, rng.uniform(10, 50, n)), 50.0)
+    rng_m = rng_m * rng.uniform(0.99, 1.01, n)
+    return np.stack([rng_m * np.cos(elev) * np.cos(az), rng_m * np.cos(elev) * np.sin(az),
+                     rng_m * np.sin(elev)], axis=1)
+
+
+def _nusc_scene(rng):
+    """A frame's objects: (N, 7) reference-lidar boxes on a jittered grid of
+    free cells (none over the ego vehicle), their names and points a sweep."""
+    cells = np.stack(np.meshgrid(np.arange(-45.0, 46.0, 10.0),
+                                 np.arange(-45.0, 46.0, 10.0)), -1).reshape(-1, 2)
+    cells = cells[np.abs(cells).max(axis=1) > 6]
+    cells = cells[rng.permutation(len(cells))]
+    boxes, names, npts = [], [], []
+    for name, count, size, n, z in NUSC_OBJECTS:
+        for _ in range(count):
+            x, y = cells[len(boxes)] + rng.uniform(-2.0, 2.0, 2)
+            boxes.append([x, y, z, *size, rng.uniform(-np.pi, np.pi)])
+            names.append(name)
+            npts.append(n)
+    return np.asarray(boxes, np.float32), np.asarray(names), np.asarray(npts)
+
+
+def _points_in_boxes(rng, boxes, npts, shift):
+    """``npts`` points a box, uniform over 0.8 of its extent, moved by
+    ``-shift`` (the sweep sensor's offset from the reference)."""
+    out = []
+    for box, n in zip(boxes, npts):
+        local = rng.uniform(-0.4, 0.4, (n, 3)) * box[3:6]
+        c, s = np.cos(box[6]), np.sin(box[6])
+        out.append(np.stack([local[:, 0] * c - local[:, 1] * s + box[0],
+                             local[:, 0] * s + local[:, 1] * c + box[1],
+                             local[:, 2] + box[2]], axis=1) - shift)
+    return np.concatenate(out, axis=0)
+
+
+def build_nuscenes_root(data_path, n_train=4, n_val=4, n_points=34000):
+    """Write a synthetic nuScenes tree under ``data_path``/v1.0-trainval (the
+    version and sweep count of ``nuscenes_dataset.yaml``): per sample a
+    reference sweep of ``n_points`` points (a 32-beam spinning lidar's
+    returns, about 34,000 a sweep) and 9 past sweeps 0.05 s apart, as raw
+    ``(N, 5)`` float32 ``.bin`` files [x y z intensity ring] under
+    ``samples/LIDAR_TOP`` and ``sweeps/LIDAR_TOP``.
+    The ego vehicle drives at 8 m/s along its x axis; each past sweep is
+    written in its own sensor frame, with its 4x4 sweep -> reference
+    transform in the info, so the static objects line up again once the
+    sweeps are compensated. Objects: cars, trucks, buses, pedestrians and
+    traffic cones (:data:`NUSC_OBJECTS`) as lidar-frame boxes with points
+    in every sweep. The info pickles ``nuscenes_infos_10sweeps_
+    {train,val}.pkl`` follow the schema of the data layer (``token``,
+    ``lidar_path``, ``timestamp``, ``ref_to_global``, ``sweeps``,
+    ``gt_boxes`` (N, 9) with zero velocities, ``gt_names``,
+    ``num_lidar_pts``). Returns ``data_path`` (the config's DATA_PATH)."""
+    import pickle
+    data_path = Path(data_path)
+    root = data_path / 'v1.0-trainval'
+    (root / 'samples' / 'LIDAR_TOP').mkdir(parents=True, exist_ok=True)
+    (root / 'sweeps' / 'LIDAR_TOP').mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(11)
+    infos = []
+    for s in range(n_train + n_val):
+        boxes, names, npts = _nusc_scene(rng)
+        scale = n_points / 34000.0              # fewer object points in a small tree
+        npts = np.maximum(1, np.round(npts * min(1.0, scale))).astype(int)
+        sweeps = []
+        for k in range(10):
+            shift = np.array([-0.4 * k, 0.0, 0.0])          # sweep sensor in the ref frame
+            obj = _points_in_boxes(rng, boxes, npts, shift)
+            xyz = np.concatenate([_lidar_rings(rng, n_points - len(obj)), obj])
+            pts = np.zeros((len(xyz), 5), np.float32)
+            pts[:, :3] = xyz
+            pts[:, 3] = rng.uniform(0, 255, len(xyz))
+            pts[:, 4] = rng.integers(0, 32, len(xyz))
+            name = f'sample{s:04d}_{k}.bin'
+            sub = 'samples' if k == 0 else 'sweeps'
+            pts.tofile(root / sub / 'LIDAR_TOP' / name)
+            if k:
+                tm = np.eye(4, dtype=np.float32)
+                tm[:3, 3] = shift
+                sweeps.append({'lidar_path': f'sweeps/LIDAR_TOP/{name}',
+                               'transform_matrix': tm, 'time_lag': 0.05 * k})
+        yaw = 0.3 * s
+        ref_to_global = np.eye(4, dtype=np.float32)
+        ref_to_global[:2, :2] = [[np.cos(yaw), -np.sin(yaw)], [np.sin(yaw), np.cos(yaw)]]
+        ref_to_global[:3, 3] = [400.0 + 10 * s, 1200.0 - 5 * s, 0.0]
+        infos.append({
+            'lidar_path': f'samples/LIDAR_TOP/sample{s:04d}_0.bin',
+            'token': f'{s:032x}',
+            'timestamp': 1.5e9 + 0.5 * s,
+            'ref_to_global': ref_to_global,
+            'sweeps': sweeps,
+            'gt_boxes': np.concatenate([boxes, np.zeros((len(boxes), 2), np.float32)], 1),
+            'gt_names': names,
+            'num_lidar_pts': npts,
+        })
+    for split, part in (('train', infos[:n_train]), ('val', infos[n_train:])):
+        with open(root / f'nuscenes_infos_10sweeps_{split}.pkl', 'wb') as f:
+            pickle.dump(part, f)
+    return data_path

@@ -20,6 +20,16 @@ Point-stream leaves map to ``backbone_3d.SA_modules.{i}.mlps.{j}.{3k}`` and
 FP modules in the order they are applied, last level first, so
 ``FPModule_{j}`` is the reference's ``FP_modules[len - 1 - j]``; the length
 is the number of distinct ``FPModule_*`` names among the variables.
+
+The plain ``BaseBEVBackbone`` (PointPillar) names its modules by class:
+``_Block_{i}/ConvBNReLU_{j}`` is level i's conv j (``blocks.{i}``, as the
+scale backbone's ``blocks_{i}``), and the upsamplings are numbered per
+class in level order, ``ConvBNReLU_{j}`` for an UPSAMPLE_STRIDES below 1 and
+``DeconvBNReLU_{j}`` for one of 1 or more (the last one the extra deblock,
+if any). A level is coarser than the one before it, so its upsampling
+stride is no smaller: the strided convs are the first levels, and
+``DeconvBNReLU_{j}`` is ``deblocks.{n + j}`` where n counts the
+``ConvBNReLU_*`` names directly under ``backbone_2d``.
 """
 
 import numpy as np
@@ -54,7 +64,7 @@ def _idx(name):
     return int(name.rsplit('_', 1)[1])
 
 
-def _translate(p, num_fp_modules):
+def _translate(p, num_fp_modules, num_conv_deblocks):
     """flax path (collection dropped) -> (torch key, transform), or None."""
     leaf = p[-1]
     if p[0] == 'backbone_3d':
@@ -82,7 +92,13 @@ def _translate(p, num_fp_modules):
         return 'map_to_bev_module.memory.weight', _identity
     if p[0] == 'backbone_2d':
         group, i = p[1].rsplit('_', 1) if '_' in p[1] else (p[1], None)
-        if group == 'blocks':
+        if group == 'ConvBNReLU':           # a strided-conv upsampling
+            if p[2].startswith('Conv'):
+                return f'backbone_2d.deblocks.{i}.0.weight', _conv
+            return f'backbone_2d.deblocks.{i}.1.{_BN[leaf]}', _identity
+        if group == 'DeconvBNReLU':
+            group, i = 'deblocks', num_conv_deblocks + int(i)
+        if group in ('blocks', '_Block'):
             j = _idx(p[2])    # [pad, conv, bn, relu] + [conv, bn, relu]*
             if p[3].startswith('Conv'):
                 return f'backbone_2d.blocks.{i}.{1 + 3 * j}.weight', _conv
@@ -118,13 +134,17 @@ def from_flax_variables(flat_numpy):
 
     Raises KeyError on a leaf that has no reference key.
     """
-    num_fp_modules = len({path.split('/')[2] for path in flat_numpy
-                          if path.split('/')[1:2] == ['backbone_3d']
-                          and path.split('/')[2].startswith('FPModule_')})
+    def count(module, prefix):
+        return len({path.split('/')[2] for path in flat_numpy
+                    if path.split('/')[1:2] == [module]
+                    and path.split('/')[2].startswith(prefix)})
+
+    num_fp_modules = count('backbone_3d', 'FPModule_')
+    num_conv_deblocks = count('backbone_2d', 'ConvBNReLU_')
     state = {}
     for path, value in flat_numpy.items():
         parts = path.split('/')[1:]
-        mapped = _translate(parts, num_fp_modules)
+        mapped = _translate(parts, num_fp_modules, num_conv_deblocks)
         if mapped is None:
             raise KeyError(f'no reference key for flax leaf {path}')
         key, transform = mapped

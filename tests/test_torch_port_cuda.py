@@ -122,6 +122,25 @@ def test_segment_sweep_kernel_edges(cuda, op, max_seg, c, r):
     assert _kernels.launch_counts()['segment_sweep'] == before + 1
 
 
+@pytest.mark.parametrize('c', [4, 11, 64])
+@pytest.mark.parametrize('op', ['max', 'sum'])
+def test_segment_sweep_kernel_nuscenes_shapes(cuda, op, c):
+    """K1 at pointpillar_nuscenes.yaml's shapes: max_seg 20 over the rows of
+    a batch of 4 frames of 10 sweeps (R = 4 x 339,523, not a multiple of
+    16), at the 4 and 64 channels its sweeps take and the 11 decorated
+    channels of 5-channel points."""
+    rng = np.random.default_rng(c + 20)
+    r = 4 * 339523
+    slot = _sweep_layout(rng, r, 20)
+    x = rng.normal(size=(c, r)).astype(np.float32)
+    x[:, slot > r + 100] = -1e9 if op == 'max' else 0.0
+    before = _kernels.launch_counts()['segment_sweep']
+    got, want = _both(segment_sweep, torch.from_numpy(x).to(cuda),
+                      torch.from_numpy(slot).to(cuda), 20, op)
+    assert torch.equal(got, want)
+    assert _kernels.launch_counts()['segment_sweep'] == before + 1
+
+
 @pytest.mark.parametrize('m,c,k', [(2000, 64, 20), (64, 32, 4), (300, 16, 128)])
 def test_memory_lookup_kernel(cuda, m, c, k):
     rng = np.random.default_rng(m)
@@ -155,6 +174,28 @@ def test_bev_canvas_kernel(cuda, dtype, c, ny, nx):
                       ny, nx, dtype)
     assert got.dtype == dtype and torch.equal(got, want)
     assert int((got[1].abs().sum(-1) > 0).sum()) == 10      # every other cell zero
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_bev_canvas_kernel_nuscenes_grid(cuda, dtype):
+    """K3 at pointpillar_nuscenes.yaml's canvas: 512 x 512 cells of 64
+    channels (256-byte f32 rows), 30,000 pillar slots a frame, a batch of
+    4 (one frame with few pillars)."""
+    rng = np.random.default_rng(512)
+    b, v, c, ny, nx = 4, 30000, 64, 512, 512
+    feat = torch.from_numpy(rng.normal(size=(b, v, c)).astype(np.float32)).to(cuda)
+    coords = torch.zeros(b, v, 3, dtype=torch.int32)
+    mask = torch.zeros(b, v, dtype=torch.bool)
+    for i, n in enumerate((30000, 29000, 30000, 100)):
+        cells = np.sort(rng.choice(ny * nx, n, replace=False))
+        coords[i, :n, 1] = torch.from_numpy(cells // nx)
+        coords[i, :n, 2] = torch.from_numpy(cells % nx)
+        mask[i, :n] = True
+    before = _kernels.launch_counts()['bev_canvas']
+    got, want = _both(canvas_from_sorted, feat, coords.to(cuda), mask.to(cuda),
+                      ny, nx, dtype)
+    assert got.shape == (b, ny, nx, c) and got.dtype == dtype and torch.equal(got, want)
+    assert _kernels.launch_counts()['bev_canvas'] == before + 1
 
 
 def test_kernels_without_backward_refuse_grad(cuda):

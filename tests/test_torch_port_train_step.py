@@ -38,6 +38,8 @@ Tolerances and why (f32 everywhere):
   stay within 1e-6 relative).
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -70,17 +72,21 @@ def train_cfg(cfg=None):
     return cfg
 
 
-def uniform_points(rng, b, n, pcr):
-    """(B, N, 4) points uniform over the range (intensity in [0, 1))."""
-    pts = np.zeros((b, n, 4), np.float32)
+def uniform_points(rng, b, n, pcr, channels=4):
+    """(B, N, channels) points uniform over the range (intensity in [0, 1);
+    a fifth channel, the time lag of nuScenes sweeps, in [0, 0.5))."""
+    pts = np.zeros((b, n, channels), np.float32)
     lo, hi = np.asarray(pcr[0:3]), np.asarray(pcr[3:6])
     pts[..., :3] = lo + rng.uniform(0.02, 0.98, (b, n, 3)) * (hi - lo)
     pts[..., 3] = rng.uniform(0, 1, (b, n))
+    if channels == 5:
+        pts[..., 4] = rng.uniform(0, 0.5, (b, n))
     return pts
 
 
-def gt_boxes(rng, b, pcr, n=4):
-    """(B, n, 8) car boxes inside the range, class 1; the last row of the
+def gt_boxes(rng, b, pcr, n=4, num_classes=1):
+    """(B, n, 8) car-sized boxes inside the range, class 1 (with
+    ``num_classes`` > 1, drawn from 1..num_classes); the last row of the
     last sample is padding (zeros)."""
     gt = np.zeros((b, n, 8), np.float32)
     lo, hi = np.asarray(pcr[:3]), np.asarray(pcr[3:])
@@ -88,7 +94,7 @@ def gt_boxes(rng, b, pcr, n=4):
     gt[..., 2] = -1.0
     gt[..., 3:6] = [3.9, 1.6, 1.56] * rng.uniform(0.9, 1.1, (b, n, 3))
     gt[..., 6] = rng.uniform(-np.pi, np.pi, (b, n))
-    gt[..., 7] = 1
+    gt[..., 7] = 1 if num_classes == 1 else rng.integers(1, num_classes + 1, (b, n))
     gt[-1, -1] = 0
     return gt
 
@@ -96,10 +102,12 @@ def gt_boxes(rng, b, pcr, n=4):
 class TrainPair:
     """The JAX network and the port's train network with the same weights."""
 
-    def __init__(self, cfg, batch=2, n_points=256, seed=0, host_batch=None):
+    def __init__(self, cfg, batch=2, n_points=256, seed=0, host_batch=None,
+                 cls_bias=None):
         """``host_batch``: a batch of the data layer (its numpy arrays are
         taken) in place of seeded points voxelized by the JAX device
-        voxelizer."""
+        voxelizer. ``cls_bias``: the cls head's bias (fresh init puts every
+        score at 0.01, below SCORE_THRESH)."""
         self.cfg = cfg
         self.meta = DatasetMeta(cfg.DATA_CONFIG, cfg.CLASS_NAMES, mode='train')
         m = self.meta
@@ -109,10 +117,12 @@ class TrainPair:
             self.jbatch = {k: jnp.asarray(v) for k, v in host_batch.items()
                            if isinstance(v, np.ndarray)}
         else:
-            self.points = uniform_points(rng, batch, n_points, m.point_cloud_range)
+            self.points = uniform_points(rng, batch, n_points, m.point_cloud_range,
+                                         channels=m.num_point_features)
             self.mask = np.ones((batch, n_points), bool)
             self.mask[:, -7:] = False
-            self.gt = gt_boxes(rng, batch, m.point_cloud_range)
+            self.gt = gt_boxes(rng, batch, m.point_cloud_range,
+                               num_classes=len(cfg.CLASS_NAMES))
             pts, mask = jnp.asarray(self.points), jnp.asarray(self.mask)
             vox = jax_voxelize(pts, mask, tuple(float(v) for v in m.point_cloud_range),
                                tuple(float(v) for v in m.voxel_size),
@@ -121,7 +131,10 @@ class TrainPair:
                                grid_size_static=tuple(int(g) for g in m.grid_size))
             self.jbatch = {'points': pts, 'point_valid_mask': mask, **vox,
                            'gt_boxes': jnp.asarray(self.gt)}
-        self.jnet = jax_build_network(cfg.MODEL, len(cfg.CLASS_NAMES), m)
+        # the JAX builder reads the point channels off the dataset's encoder
+        jmeta = types.SimpleNamespace(**vars(m), point_feature_encoder=types.SimpleNamespace(
+            num_point_features=m.num_point_features))
+        self.jnet = jax_build_network(cfg.MODEL, len(cfg.CLASS_NAMES), jmeta)
         variables = self.jnet.init(jax.random.PRNGKey(seed), self.jbatch, train=True)
         flat = {'/'.join(k): np.asarray(v) for k, v in
                 traverse_util.flatten_dict(variables).items()}
@@ -133,6 +146,9 @@ class TrainPair:
             elif key.endswith('/scale') or (key.endswith('/bias') and 'BatchNorm' in key):
                 flat[key] = (flat[key] + rng.normal(0, 0.1, flat[key].shape)
                              ).astype(np.float32)
+        if cls_bias is not None:
+            key = 'params/dense_head/conv_cls/bias'
+            flat[key] = np.full_like(flat[key], cls_bias)
         self.flat = flat
         self.variables = traverse_util.unflatten_dict(
             {tuple(k.split('/')): jnp.asarray(v) for k, v in flat.items()})
@@ -381,3 +397,28 @@ def test_gradients_reach_the_vfe_and_the_point_stream(pair):
         assert grads[name] is not None and float(grads[name].abs().max()) > 0, name
     for p in pair.tnet.module.parameters():
         p.grad = None
+
+
+def test_gather_mode_backwards_repeat_their_bits(pair, monkeypatch):
+    """The gather mode's gathers (each pillar's top-k points in the
+    attentive pooling, their reconstructions in the memory path) go through
+    ``gather_rows``, as the point stream's do: two backwards from the same
+    state give the same bits with deterministic algorithms off, each
+    through the in-order backward (K12's plain version here) 4 times for
+    the point stream, once for the pooling's one chunk of pillars and once
+    for the memory path."""
+    from hvpr_tpu_torch.ops import gather_rows
+    calls = []
+    backward = gather_rows.gather_rows_backward
+    monkeypatch.setattr(gather_rows, 'gather_rows_backward',
+                        lambda *a: calls.append(a[2]) or backward(*a))
+    assert not torch.are_deterministic_algorithms_enabled()
+    runs = []
+    for _ in range(2):
+        pair.reset()
+        pair.tnet.init_training(pair.cfg.OPTIMIZATION, TOTAL_STEPS)
+        runs.append(loss_and_grads(pair.tnet.train_state, pair.tbatch())[1])
+    pair.reset()
+    assert len(calls) == 2 * 6, calls
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)

@@ -6,6 +6,7 @@ values (fresh init leaves them at 0/1, which would not test BN), and the same
 numbers are carried into the port with ``from_flax_variables``.
 """
 
+import contextlib
 import os
 
 import jax
@@ -132,6 +133,20 @@ class Pair:
     def torch_batch(self, jbatch):
         """The JAX batch's arrays as CPU tensors (exact same inputs)."""
         return {k: torch.from_numpy(np.array(v)) for k, v in jbatch.items()}
+
+
+@contextlib.contextmanager
+def torch_threads(n):
+    """Run the block with ``n`` torch intra-op threads. The port's plain
+    NMS loop and rotated IoU on the CPU are many small ops: on a host whose
+    cores the test workers share, 8 threads a worker made them ~10x slower
+    than one (a 3-class NMS of 512 candidates: 9.8 s against 0.86)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
 
 
 def to_np(x):
