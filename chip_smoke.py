@@ -111,6 +111,34 @@ random weights, ``tools/cfgs/kitti_models/hvpr.yaml`` first:
   result string; (c) ``torchrun`` of the train CLI over NCCL on every card
   (on one card a group of one). Each kernel entry gains rank 0's
   ``ddp_launches`` of (a).
+- second: the sparse voxel path at the published widths of upstream
+  OpenPCDet's ``tools/cfgs/kitti_models/second.yaml`` (``second_cfg``: a
+  1408 x 1600 x 40 grid, MeanVFE, the sparse VoxelBackBone8x, HeightCompression,
+  BaseBEVBackbone, 3 classes) at batch 4 on host-voxelized
+  ``realistic_scans``: (a) an eval forward with AnchorHeadSingle that must
+  keep every site at the default cap and equal the port's CPU forward of
+  scan 0 (SECOND_RTOL), with each sparse level's sites, bytes and time,
+  the stage medians, the peak, and the sparse backbone timed again at the
+  full 40,000-voxel eval cap (its device time split into the products and
+  the rest); (b) AnchorHeadMulti (a head a class, a 64-channel shared
+  conv), its head held to the CPU; (c) ATSS training under adam_onecycle:
+  two backwards bit-equal without deterministic algorithms, K12 (one
+  launch a differentiable row gather of the sparse convs) against its
+  plain version, 2 timed steps. No TPU kernel lies on this path: the eval
+  forms launch nothing.
+- nofp: PointNet2MSG_NOFP at hvpr.yaml's SA_CONFIG, batch 4: K4 and K5
+  against their plain versions (exactly), timed beside their bounds, two
+  launches each a forward.
+- demo: ``python -m hvpr_tpu_torch.tools.demo`` in a subprocess (hvpr.yaml,
+  a seeded ``.pth``, 2 ``.bin`` scans, --save_3d, --save_preds): its
+  detections equal bit for bit to the padded pipeline's here (K2 once a
+  scan), its PLY files written; then ``python -m hvpr_tpu_torch.tools.vis``
+  on a synthetic KITTI tree. A PNG needs matplotlib: without it, none is
+  expected.
+
+``python3 chip_smoke.py --only second,nofp,demo`` (any of the phase names
+of PHASES) runs the build and those phases alone, for development: it
+prints no kernels line and no last line.
 
 Device times by kernel (torch.profiler) are printed for K2, K3, K4 (per
 SA level, and per level and radius the same kernel for that radius alone,
@@ -123,8 +151,10 @@ selected sets, K3 beside ``torch.zeros`` + ``index_put_``, K9 beside
 ``scaled_dot_product_attention``.
 
 It prints a ``{"kernels": [...]}`` JSON line (times, bounds, launches,
-errors; each entry also the launches of every other path, and K1's and
-K3's the ``nuscenes`` shapes' times and bounds), the card's name and power limit as nvidia-smi reports them, and
+errors; each entry also the launches of every other path, K1's and K3's
+the ``nuscenes`` shapes' times and bounds, K4's and K5's the ``nofp``
+shapes', K12's the ``second`` train step's), the card's name and power
+limit as nvidia-smi reports them, and
 last ``{"ok": true, "device": {...}}``. Any failed check exits nonzero.
 Without a CUDA device it exits 2 at once. It leaves no process running:
 the DataLoader's fork server and resource tracker are stopped after the
@@ -258,9 +288,10 @@ def device_breakdown(fn, reps=3):
 
 def seed_weights(module, seed, box_std=None):
     """Seeded random weights: He-normal convs/linears (the point stream's
-    1x1 convs too), the memory uniform in +-1/sqrt(C), BN running statistics
-    and affine terms perturbed so that BN is exercised, and the cls bias at
-    0 so that thousands of anchors clear SCORE_THRESH and reach NMS.
+    1x1 convs and the sparse convs' (taps, C_in, C_out) weights too), the
+    memory uniform in +-1/sqrt(C), BN running statistics and affine terms
+    perturbed so that BN is exercised, and the cls bias at 0 so that
+    thousands of anchors clear SCORE_THRESH and reach NMS.
     ``box_std``: the box head's weights normal at this std instead (the
     reference's init is 0.001): nuScenes' raw intensities (0-255) carry
     He-normal activations to box residuals whose exp overflows f32."""
@@ -273,6 +304,8 @@ def seed_weights(module, seed, box_std=None):
             elif name.endswith('memory.weight'):
                 bound = p.shape[1] ** -0.5
                 v = (torch.rand(p.shape, generator=gen) * 2 - 1) * bound
+            elif p.dim() == 3:          # a sparse conv's (taps, C_in, C_out)
+                v = torch.randn(p.shape, generator=gen) * (2.0 / (p.shape[0] * p.shape[1])) ** 0.5
             elif p.dim() >= 2:
                 fan_in = p[0].numel() if 'deblocks' not in name else p.shape[0]
                 v = torch.randn(p.shape, generator=gen) * (2.0 / fan_in) ** 0.5
@@ -2501,6 +2534,768 @@ def ddp_phase(smi):
     return outs['gloo'][0]['launches']
 
 
+SECOND_BATCH = 4
+SECOND_POINTS = 20000              # points a scan of the second phase: ~19,700 voxels,
+                                   # KITTI's in-range count (16-20k)
+SECOND_CAP_POINTS = 43000          # points a scan that fill the eval cap: 40,000 voxels
+SECOND_TRAIN_STEPS = 2
+SECOND_BOX_STD = 0.001             # the box convs' seeded weights (the reference's init)
+# card against the port's CPU forward on the same scan and weights: the
+# convolutions and products sum in other orders (no TF32: both f32); allowed
+# 1e-3 of the output's largest magnitude
+SECOND_RTOL = 1e-3
+DEMO_SCANS = 2
+DEMO_POINTS = 20000                # sample_points draws hvpr.yaml's 16,384 of them
+
+
+def second_cfg(head='AnchorHeadSingle', assigner='AxisAlignedTargetAssigner'):
+    """The SECOND configuration of upstream OpenPCDet's
+    ``tools/cfgs/kitti_models/second.yaml`` at its published widths (cited,
+    not read): range [0, -40, -3, 70.4, 40, 1], voxels 0.05 x 0.05 x 0.1 m
+    (1408 x 1600 x 40), 5 points a voxel, 16,000 voxels in training and
+    40,000 in eval, Car / Pedestrian / Cyclist anchors at stride 8; MeanVFE
+    -> sparse VoxelBackBone8x (16 -> 32/64/64 -> 128) -> HeightCompression
+    (256) -> BaseBEVBackbone ([5, 5] layers, strides [1, 2], [128, 256]
+    filters, upsampled [1, 2] to [256, 256]) -> ``head``, adam_onecycle.
+    ``head`` AnchorHeadMulti: one RPN head a class over a 64-channel shared
+    conv, as upstream's multi-head configs."""
+    from hvpr_tpu_torch.config import ConfigDict
+    classes = ['Car', 'Pedestrian', 'Cyclist']
+
+    def anchor(name, size, z, matched, unmatched):
+        return {'class_name': name, 'anchor_sizes': [size], 'anchor_rotations': [0, 1.57],
+                'anchor_bottom_heights': [z], 'align_center': False,
+                'feature_map_stride': 8, 'matched_threshold': matched,
+                'unmatched_threshold': unmatched}
+    dense_head = {
+        'NAME': head, 'CLASS_AGNOSTIC': False, 'USE_DIRECTION_CLASSIFIER': True,
+        'DIR_OFFSET': 0.78539, 'DIR_LIMIT_OFFSET': 0.0, 'NUM_DIR_BINS': 2,
+        'ANCHOR_GENERATOR_CONFIG': [anchor('Car', [3.9, 1.6, 1.56], -1.78, 0.6, 0.45),
+                                    anchor('Pedestrian', [0.8, 0.6, 1.73], -0.6, 0.5, 0.35),
+                                    anchor('Cyclist', [1.76, 0.6, 1.73], -0.6, 0.5, 0.35)],
+        'TARGET_ASSIGNER_CONFIG': {'NAME': assigner, 'TOPK': 9, 'POS_FRACTION': -1.0,
+                                   'SAMPLE_SIZE': 512, 'NORM_BY_NUM_EXAMPLES': False,
+                                   'MATCH_HEIGHT': False, 'BOX_CODER': 'ResidualCoder'},
+        'LOSS_CONFIG': {'LOSS_WEIGHTS': {'cls_weight': 1.0, 'loc_weight': 2.0,
+                                         'dir_weight': 0.2, 'code_weights': [1.0] * 7}}}
+    if head == 'AnchorHeadMulti':
+        dense_head['SHARED_CONV_NUM_FILTER'] = 64
+        dense_head['RPN_HEAD_CFGS'] = [{'HEAD_CLS_NAME': [c]} for c in classes]
+    return ConfigDict({
+        'CLASS_NAMES': classes,
+        'DATA_CONFIG': {
+            'POINT_CLOUD_RANGE': [0, -40, -3, 70.4, 40, 1],
+            'POINT_FEATURE_ENCODING': {'encoding_type': 'absolute_coordinates_encoding',
+                                       'used_feature_list': ['x', 'y', 'z', 'intensity'],
+                                       'src_feature_list': ['x', 'y', 'z', 'intensity']},
+            'DATA_PROCESSOR': [{'NAME': 'transform_points_to_voxels',
+                                'VOXEL_SIZE': [0.05, 0.05, 0.1], 'MAX_POINTS_PER_VOXEL': 5,
+                                'MAX_NUMBER_OF_VOXELS': {'train': 16000, 'test': 40000}}]},
+        'MODEL': {
+            'NAME': 'PointPillar',
+            'VFE': {'NAME': 'MeanVFE'},
+            'BACKBONE_3D': {'NAME': 'VoxelBackBone8x'},
+            'MAP_TO_BEV': {'NAME': 'HeightCompression', 'NUM_BEV_FEATURES': 256},
+            'BACKBONE_2D': {'NAME': 'BaseBEVBackbone', 'LAYER_NUMS': [5, 5],
+                            'LAYER_STRIDES': [1, 2], 'NUM_FILTERS': [128, 256],
+                            'UPSAMPLE_STRIDES': [1, 2], 'NUM_UPSAMPLE_FILTERS': [256, 256]},
+            'DENSE_HEAD': dense_head,
+            'POST_PROCESSING': {'RECALL_THRESH_LIST': [0.3, 0.5, 0.7], 'SCORE_THRESH': 0.1,
+                                'OUTPUT_RAW_SCORE': False, 'EVAL_METRIC': 'kitti',
+                                'NMS_CONFIG': {'MULTI_CLASSES_NMS': False,
+                                               'NMS_TYPE': 'nms_gpu', 'NMS_THRESH': 0.01,
+                                               'NMS_PRE_MAXSIZE': 4096,
+                                               'NMS_POST_MAXSIZE': 500}}},
+        'OPTIMIZATION': {'BATCH_SIZE_PER_GPU': 4, 'NUM_EPOCHS': 80,
+                         'OPTIMIZER': 'adam_onecycle', 'LR': 0.003, 'WEIGHT_DECAY': 0.01,
+                         'MOMENTUM': 0.9, 'MOMS': [0.95, 0.85], 'PCT_START': 0.4,
+                         'DIV_FACTOR': 10, 'DECAY_STEP_LIST': [35, 45], 'LR_DECAY': 0.1,
+                         'LR_CLIP': 0.0000001, 'LR_WARMUP': False, 'WARMUP_EPOCH': 1,
+                         'GRAD_NORM_CLIP': 10}})
+
+
+def second_network(cfg, meta, device, train=False):
+    """The SECOND composition (``tests/test_second_style.py``'s SecondNet):
+    a PointPillar detector whose forward runs the 3D backbone after the VFE,
+    as a ``Network`` on ``device``, with seeded weights (the box convs at
+    SECOND_BOX_STD)."""
+    import torch
+    from hvpr_tpu_torch.models import Network
+    from hvpr_tpu_torch.models.detectors.pointpillar import PointPillar
+
+    class SecondNet(PointPillar):
+        def stages(self):
+            return (self.vfe, self.backbone_3d, self.map_to_bev_module, self.backbone_2d,
+                    self.dense_head)
+
+    module = SecondNet(
+        model_cfg=cfg.MODEL, num_class=len(cfg.CLASS_NAMES), class_names=cfg.CLASS_NAMES,
+        grid_size=tuple(int(g) for g in meta.grid_size),
+        point_cloud_range=tuple(float(v) for v in meta.point_cloud_range),
+        voxel_size=tuple(float(v) for v in meta.voxel_size),
+        num_point_features=meta.num_point_features,
+        max_points_per_voxel=meta.max_points_per_voxel, point_stream=True)
+    seed_weights(module, seed=0, box_std=SECOND_BOX_STD)
+    head = module.dense_head
+    if hasattr(head, 'rpn_heads'):          # AnchorHeadMulti: its box convs
+        gen = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for h in head.rpn_heads:
+                per = 3 if h.use_dir else 2
+                for k in range(len(h.class_anchor_counts)):
+                    w = h.convs[per * k + 1].weight
+                    w.copy_(torch.randn(w.shape, generator=gen) * SECOND_BOX_STD)
+    module = module.to(device).train(train)
+    return Network(module, meta, cfg.MODEL.POST_PROCESSING, len(cfg.CLASS_NAMES),
+                   torch.device(device))
+
+
+def padded_voxels(points, meta):
+    """(B, N, 4) scans -> the data layer's padded voxel batch (numpy): the
+    first-seen MAX_NUMBER_OF_VOXELS voxels of each, 5 points a voxel."""
+    import numpy as np
+    from hvpr_tpu_torch.ops.voxelizer import VoxelGeneratorNumpy
+    gen = VoxelGeneratorNumpy(meta.voxel_size, meta.point_cloud_range,
+                              meta.max_points_per_voxel, meta.max_voxels)
+    b, _, c = points.shape
+    v, p = meta.max_voxels, meta.max_points_per_voxel
+    out = {'voxels': np.zeros((b, v, p, c), np.float32),
+           'voxel_coords': np.zeros((b, v, 3), np.int32),
+           'voxel_num_points': np.zeros((b, v), np.int32)}
+    for i in range(b):
+        vox, coords, cnt = gen.generate(points[i])
+        out['voxels'][i, :len(vox)] = vox
+        out['voxel_coords'][i, :len(vox)] = coords
+        out['voxel_num_points'][i, :len(vox)] = cnt
+    out['voxel_mask'] = out['voxel_num_points'] > 0
+    return out
+
+
+def sparse_levels(backbone, run):
+    """Run ``run()`` with the sparse backbone's stages observed: per stage
+    (conv_input ... conv_out) its valid sites a scan, site slots, channels
+    and the median milliseconds over the calls (synchronized around it)."""
+    import torch
+    seen, handles = {}, []
+    for name in backbone.stage_names:
+        stage = getattr(backbone, name)
+
+        def pre(mod, inp, name=name):
+            torch.cuda.synchronize()
+            seen.setdefault(name, {'t': []})['t0'] = time.perf_counter()
+
+        def post(mod, inp, out, name=name):
+            torch.cuda.synchronize()
+            rec = seen[name]
+            rec['t'].append((time.perf_counter() - rec.pop('t0')) * 1e3)
+            rec['sites'] = out[2].sum(dim=1).tolist()
+            rec['slots'], rec['channels'] = out[0].shape[1], out[0].shape[2]
+        handles += [stage.register_forward_pre_hook(pre), stage.register_forward_hook(post)]
+    try:
+        run()
+    finally:
+        for h in handles:
+            h.remove()
+    return {k: dict(v, ms=statistics.median(v['t'])) for k, v in seen.items()}
+
+
+def _print_levels(label, levels, smi=None):
+    for name, rec in levels.items():
+        nbytes = [s * rec['channels'] * 4 for s in rec['sites']]
+        print(f'second {label}: {name}: {rec["channels"]} channels, valid sites a scan '
+              f'{rec["sites"]} of {rec["slots"]} slots, features {nbytes} bytes a scan '
+              f'({rec["slots"] * rec["channels"] * 4} allocated), {rec["ms"]:.3f} ms'
+              + (f', on {smi}' if smi else ''))
+
+
+def _rel_err(got, want):
+    """max |got - want| over the largest |want|."""
+    return float((got.double() - want.double()).abs().max()) / max(
+        float(want.double().abs().max()), 1e-30)
+
+
+def _k12_bound(calls):
+    """K12's bound over captured calls, as the train phase counts it: the
+    rows' gradient and their int64 targets read once, the source gradient
+    written once, an f32 add an element."""
+    ops = nbytes = 0
+    for (grad, index, n), _ in calls:
+        es = grad.element_size()
+        ops += grad.numel()
+        nbytes += grad.numel() * es + index.numel() * 8 + n * grad.shape[1] * es
+    return bound(ops, F32_FLOPS_PER_S, nbytes)
+
+
+def device_report(fn, wall_ms, reps=2):
+    """'products P, the rest R, busy B of W (idle share I); largest: ...'
+    of ``fn()`` (torch.profiler device ms a call): the cuBLAS products
+    against every other kernel, and their sum against ``wall_ms``."""
+    dev = device_times(fn, reps=reps)
+    if not dev:
+        return 'not measured'
+    products = sum(v for k, v in dev.items()
+                   if any(w in k.lower() for w in ('gemm', 'gemv', 'splitk'))
+                   or k.startswith('Kernel'))
+    busy = sum(dev.values())
+    top = ', '.join(f'{k} {v:.3f}' for k, v in sorted(dev.items(), key=lambda kv: -kv[1])[:6])
+    return (f'products {products:.3f}, the rest {busy - products:.3f}, busy {busy:.3f} of '
+            f'{wall_ms:.3f} (idle share {1 - busy / wall_ms:.3f}); largest: {top}')
+
+
+def second_phase(smi):
+    """The sparse voxel path at SECOND's published widths (second_cfg) on
+    4 seeded ``realistic_scans`` of SECOND_POINTS points, host-voxelized
+    into padded batches: (a) an eval forward with AnchorHeadSingle, whose
+    sites must all be kept at the default cap, its raw outputs on scan 0
+    held to the port's CPU forward of that scan (SECOND_RTOL), the sites a
+    level and each stage's time printed, and the sparse backbone timed
+    again on scans that fill the 40,000-voxel cap; (b) an eval forward
+    with AnchorHeadMulti, its head held to the CPU on the card's BEV map;
+    (c) ATSS training (TOPK 9) under adam_onecycle: two backwards from the
+    same state bit-equal without deterministic algorithms, the sparse
+    convs' row-gather backwards (K12) held against their plain version
+    (bit for bit), then SECOND_TRAIN_STEPS timed steps. No TPU kernel of
+    the JAX package lies on this path (its sparse convs are XLA): the eval
+    forms must launch no kernel and a train step K12 only, once a
+    differentiable row gather. Returns ({'a', 'b', 'c'}: launch counts,
+    K12's entry at the path's shapes)."""
+    import numpy as np
+    import torch
+    from hvpr_tpu_torch.models import DatasetMeta, load_data_to_gpu
+    from hvpr_tpu_torch.models.backbones_3d import sparse_backbone
+    from hvpr_tpu_torch.models.detectors.detector3d_template import post_processing
+    from hvpr_tpu_torch.ops import _kernels, gather_rows, sparse_conv
+    from hvpr_tpu_torch.parallel import loss_and_grads
+    from hvpr_tpu_torch.utils.scans import realistic_scans_with_boxes
+
+    cfg = second_cfg()
+    meta = DatasetMeta(cfg.DATA_CONFIG, cfg.CLASS_NAMES, mode='test')
+    pts, gt = realistic_scans_with_boxes(np.random.default_rng(0), SECOND_BATCH,
+                                         SECOND_POINTS, meta.point_cloud_range)
+    host = padded_voxels(pts, meta)
+    batch = load_data_to_gpu(host, 'cuda')
+    print(f'second: grid {tuple(int(g) for g in meta.grid_size)} (x, y, z), batch '
+          f'{SECOND_BATCH}, {SECOND_POINTS} points a scan, voxels a scan '
+          f'{host["voxel_mask"].sum(1).tolist()} of {meta.max_voxels} slots')
+    launches = {}
+
+    # (a) AnchorHeadSingle: the main path with the counts from zero
+    net = second_network(cfg, meta, 'cuda')
+    bb = net.module.backbone_3d
+    _kernels.reset_launch_counts()
+    with torch.no_grad():
+        out = net.module(batch)
+        det = post_processing(out, net.post_cfg, net.num_class)
+    torch.cuda.synchronize()
+    launches['a'] = _kernels.launch_counts()
+    if any(launches['a'].values()):
+        fail(f'the second eval path launched {launches["a"]}, expected no kernel')
+    dropped = out['sparse_sites_dropped'].tolist()
+    print(f'second (a): sparse_sites_dropped {dropped} at the default cap '
+          f'(MAX_SITES 2 x {meta.max_voxels})')
+    if any(dropped):
+        fail(f'second (a): {dropped} sites dropped at the default cap')
+    enc = out['encoded_spconv_tensor']
+    nx, ny = (int(g) // 8 for g in meta.grid_size[:2])
+    if tuple(enc.shape) != (SECOND_BATCH, 2, ny, nx, 128) or \
+            tuple(out['spatial_features'].shape[1:]) != (ny, nx, 256):
+        fail(f'second (a): encoded {tuple(enc.shape)}, BEV '
+             f'{tuple(out["spatial_features"].shape)}')
+    for k in ('batch_cls_preds', 'batch_box_preds'):
+        if not torch.isfinite(out[k]).all():
+            fail(f'second (a): non-finite {k}')
+    kept = det['pred_mask'].sum(1).tolist()
+    if not torch.isfinite(det['pred_boxes'][det['pred_mask']]).all() or not all(kept):
+        fail(f'second (a): detections kept {kept}, or not finite')
+    print(f'second (a): outputs {tuple(out["batch_cls_preds"].shape)} cls, '
+          f'{tuple(out["batch_box_preds"].shape)} boxes, detections kept {kept}')
+
+    # scan 0 through the port on the CPU, the same weights
+    state = {k: v.detach().cpu() for k, v in net.module.state_dict().items()}
+    cpu = second_network(cfg, meta, 'cpu')
+    cpu.module.load_state_dict(state)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cpu_out = cpu.module({k: torch.from_numpy(v[:1]) for k, v in host.items()})
+    cpu_s = time.perf_counter() - t0
+    errs = {k: _rel_err(out[k][:1].cpu(), cpu_out[k])
+            for k in ('pillar_features', 'encoded_spconv_tensor', 'spatial_features_2d',
+                      'batch_cls_preds', 'batch_box_preds')}
+    print(f'second (a): card vs the CPU forward of scan 0 ({cpu_s:.1f} s), max error over '
+          f'the largest magnitude: ' + ', '.join(f'{k} {v:.3g}' for k, v in errs.items())
+          + f' (allowed {SECOND_RTOL})')
+    if max(errs.values()) > SECOND_RTOL or not torch.equal(
+            out['sparse_sites_dropped'][:1].cpu(), cpu_out['sparse_sites_dropped']):
+        fail('second (a): the card differs from the CPU')
+    del cpu, cpu_out
+
+    # stage times and the peak, the counts untouched
+    stages = [('vfe', net.module.vfe), ('backbone_3d', bb),
+              ('map_to_bev', net.module.map_to_bev_module),
+              ('backbone_2d', net.module.backbone_2d), ('dense_head', net.module.dense_head)]
+    times = {name: [] for name, _ in stages}
+    times['post_processing'] = []
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        net.module(batch)
+        fwd_peak = torch.cuda.max_memory_allocated()
+        levels = sparse_levels(bb, lambda: [
+            _timed_stages(stages, batch, net, times) for _ in range(3)])
+    peak = torch.cuda.max_memory_allocated()
+    bev = {'spatial_features': out['spatial_features']}
+    peaks = {}
+    with torch.no_grad():
+        for name, fn in (('backbone_3d', lambda: bb(net.module.vfe(dict(batch)))),
+                         ('backbone_2d', lambda: net.module.backbone_2d(dict(bev)))):
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            fn()
+            peaks[name] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        fwd_ms = cuda_ms(lambda: net.module(batch), reps=3, warmup=1)
+        report = device_report(lambda: net.module(batch), fwd_ms)
+        flag_ms = {}
+        for tf32 in (False, True):
+            with cli_flags(conv_tf32=tf32):
+                key = 'TF32' if tf32 else 'f32'
+                flag_ms[key] = cuda_ms(lambda: net.module.backbone_2d(dict(bev)), reps=3,
+                                       warmup=1)
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                net.module.backbone_2d(dict(bev))
+                peaks[f'backbone_2d, cuDNN\'s own choice, {key}'] = (
+                    torch.cuda.max_memory_allocated() - base) / 2**30
+    _print_levels('(a) timed', levels, smi)
+    print('second (a): stage medians ms: ' + ', '.join(
+        f'{k} {statistics.median(v):.3f}' for k, v in times.items())
+        + f'; the sparse backbone outside its stages (site sort, densify) '
+        f'{statistics.median(times["backbone_3d"]) - sum(r["ms"] for r in levels.values()):.3f}; '
+        f'backbone_2d with cuDNN\'s own choice (not its deterministic one) in f32 '
+        f'{flag_ms["f32"]:.3f}, in TF32 (torch\'s default) {flag_ms["TF32"]:.3f}; peak {fwd_peak / 2**30:.2f} GiB the forward, {peak / 2**30:.2f} '
+        f'with post-processing; above their inputs (GiB): '
+        + ', '.join(f'{k} {v:.2f}' for k, v in peaks.items()) + f'; on {smi}')
+    print(f'second (a): the forward {fwd_ms:.3f} ms, device ms (torch.profiler): {report}; '
+          f'on {smi}')
+
+    # the sparse backbone at the eval cap's load: 40,000 voxels a scan
+    cap_pts, _ = realistic_scans_with_boxes(np.random.default_rng(1), SECOND_BATCH,
+                                            SECOND_CAP_POINTS, meta.point_cloud_range)
+    cap_batch = load_data_to_gpu(padded_voxels(cap_pts, meta), 'cuda')
+    with torch.no_grad():
+        cap_out = net.module.vfe(dict(cap_batch))
+        cap_drop = bb(dict(cap_out))['sparse_sites_dropped'].tolist()
+        bb.model_cfg['MAX_SITES'] = 4 * meta.max_voxels
+        try:
+            ms = cuda_ms(lambda: bb(dict(cap_out)), reps=3, warmup=1)
+            levels = sparse_levels(bb, lambda: bb(dict(cap_out)))
+            # the per-tap products (cuBLAS) against the rest: the lookups,
+            # row gathers, masks and the output sites' sorts
+            report = device_report(lambda: bb(dict(cap_out)), ms)
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            bb(dict(cap_out))
+            bb_peak = torch.cuda.max_memory_allocated() - base
+        finally:
+            del bb.model_cfg['MAX_SITES']
+    _print_levels('at the eval cap', levels)
+    print(f'second: the sparse backbone at {int(cap_batch["voxel_mask"].sum()) // SECOND_BATCH} '
+          f'voxels a scan: the default cap drops {cap_drop} sites; with MAX_SITES '
+          f'{4 * meta.max_voxels} it keeps all, {ms:.3f} ms a forward of {SECOND_BATCH} '
+          f'scans, {bb_peak / 2**30:.2f} GiB above its inputs; device ms a forward '
+          f'(torch.profiler): {report}; on {smi}')
+    del cap_batch, cap_out, net, out, det
+
+    # (b) AnchorHeadMulti
+    cfg_m = second_cfg(head='AnchorHeadMulti')
+    net = second_network(cfg_m, meta, 'cuda')
+    _kernels.reset_launch_counts()
+    with torch.no_grad():
+        out = net.module(batch)
+        det = post_processing(out, net.post_cfg, net.num_class)
+    torch.cuda.synchronize()
+    launches['b'] = _kernels.launch_counts()
+    if any(launches['b'].values()):
+        fail(f'the second multi-head path launched {launches["b"]}, expected no kernel')
+    head_cpu = second_network(cfg_m, meta, 'cpu').module.dense_head
+    head_cpu.load_state_dict({k: v.cpu() for k, v in net.module.dense_head.state_dict().items()})
+    with torch.no_grad():
+        ref = head_cpu({'spatial_features_2d': out['spatial_features_2d'][:1].cpu()})
+    own = ref['batch_cls_preds'] > -1e8
+    if not torch.equal(own, out['batch_cls_preds'][:1].cpu() > -1e8):
+        fail('second (b): the heads own other classes on the card')
+    errs = {'own cls logits': _rel_err(out['batch_cls_preds'][:1].cpu()[own],
+                                       ref['batch_cls_preds'][own]),
+            'boxes': _rel_err(out['batch_box_preds'][:1].cpu(), ref['batch_box_preds'])}
+    kept = det['pred_mask'].sum(1).tolist()
+    with torch.no_grad():
+        head_ms = cuda_ms(lambda: net.module.dense_head(dict(out)), reps=5, warmup=1)
+    print(f'second (b) AnchorHeadMulti ({len(net.module.dense_head.rpn_heads)} heads, shared '
+          f'conv 64): detections kept {kept}; head {head_ms:.3f} ms; card vs CPU head on the '
+          f'card\'s map of scan 0: ' + ', '.join(f'{k} {v:.3g}' for k, v in errs.items())
+          + f'; on {smi}')
+    if max(errs.values()) > SECOND_RTOL or not all(kept):
+        fail('second (b): the multi-head outputs differ from the CPU, or nothing kept')
+    del net, out, det, batch
+
+    # (c) ATSS training: 16,000 voxels a scan
+    cfg_t = second_cfg(assigner='ATSS')
+    meta_t = DatasetMeta(cfg_t.DATA_CONFIG, cfg_t.CLASS_NAMES, mode='train')
+    tbatch = dict(load_data_to_gpu(padded_voxels(pts, meta_t), 'cuda'),
+                  gt_boxes=torch.from_numpy(gt).cuda())
+    net = second_network(cfg_t, meta_t, 'cuda', train=True)
+    state0 = {k: v.clone() for k, v in net.module.state_dict().items()}
+
+    def fresh():
+        net.module.load_state_dict(state0)
+        net.init_training(cfg_t.OPTIMIZATION, TOTAL_STEPS)
+
+    # the differentiable row gathers of a forward (each has one K12 backward)
+    grad_gathers = [0]
+
+    def counting(fn):
+        def wrapped(features, idx):
+            grad_gathers[0] += int(features.requires_grad)
+            return fn(features, idx)
+        return wrapped
+    saved = [(m, m.gather_rows) for m in (sparse_conv, sparse_backbone)]
+    for m, fn in saved:
+        m.gather_rows = counting(fn)
+    try:
+        twice = []
+        for i in range(2):
+            fresh()
+            grad_gathers[0] = 0
+            _kernels.reset_launch_counts()
+            if i == 0:
+                k12 = _first_calls_by_shape(gather_rows, 'gather_rows_backward',
+                                            lambda: twice.append(
+                                                loss_and_grads(net.train_state, tbatch)))
+            else:
+                twice.append(loss_and_grads(net.train_state, tbatch))
+            torch.cuda.synchronize()
+            one = _kernels.launch_counts()
+    finally:
+        for m, fn in saved:
+            m.gather_rows = fn
+    (out1, g1), (_, g2) = twice
+    names = [n for n, _ in net.module.named_parameters()]
+    differ = [n for n, a, b in zip(names, g1, g2) if not torch.equal(a, b)]
+    print(f'second (c) ATSS: loss {out1["loss"].item():.6g} ('
+          + ', '.join(f'{k} {v.item():.6g}' for k, v in out1['tb_dict'].items())
+          + f'); sparse_sites_dropped {out1["sparse_sites_dropped"].tolist()} at the default '
+          f'cap (MAX_SITES 2 x {meta_t.max_voxels}); two backwards without deterministic '
+          f'algorithms: {len(differ)} of {len(names)} gradient leaves differ')
+    if differ:
+        fail(f'second (c): two backwards differ in {differ[:5]}')
+    if one != {k: (grad_gathers[0] if k == 'gather_grad' else 0) for k in one}:
+        fail(f'second (c): a backward launched {one}, expected K12 {grad_gathers[0]} times')
+    del twice, out1, g1, g2
+
+    # K12 at the path's shapes against its plain version (on the CPU, where
+    # its index_add_ sums in order: the same bits)
+    err = ms = plain_ms = lib_ms = 0.0
+    for (grad, index, n), _ in k12:
+        got = gather_rows.gather_rows_backward(grad, index, n)
+        want = gather_rows.gather_rows_backward_plain(grad.cpu(), index.cpu(), n)
+        err = max(err, float((got.cpu() - want).abs().max()))
+        ms += cuda_ms(lambda: gather_rows.gather_rows_backward(grad, index, n), reps=5)
+        with _kernels.plain_versions():
+            plain_ms += cuda_ms(lambda: gather_rows.gather_rows_backward(grad, index, n),
+                                reps=3, warmup=1)
+        acc = torch.zeros(n, grad.shape[1], device='cuda')
+        lib_ms += cuda_ms(lambda: acc.zero_().index_add_(0, index, grad), reps=5)
+    if err != 0.0:
+        fail(f'second (c): K12 differs from its plain version by {err}')
+    b_ms, b_by = _k12_bound(k12)
+    k12_entry = {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms, 'bound_ms': b_ms,
+                 'bound_by': b_by, 'library_ms': lib_ms,
+                 'shapes': [tuple(g.shape) for (g, _i, _n), _ in k12]}
+    print(f'second (c): K12 at {len(k12)} distinct shapes of the step {k12_entry["shapes"]}: '
+          f'max_abs_err {err}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ '
+          f'{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); on {smi}')
+    del k12
+
+    # the timed steps, the counts from zero
+    fresh()
+    _kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for _ in range(SECOND_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = net.train_step(tbatch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if not all(torch.isfinite(v).all() for v in metrics.values()):
+            fail(f'second (c): non-finite metrics {metrics}')
+    launches['c'] = _kernels.launch_counts()
+    want = {k: (SECOND_TRAIN_STEPS * one['gather_grad'] if k == 'gather_grad' else 0)
+            for k in launches['c']}
+    if launches['c'] != want:
+        fail(f'second (c): {SECOND_TRAIN_STEPS} steps launched {launches["c"]}, expected {want}')
+    peak = torch.cuda.max_memory_allocated()
+    print(f'second (c): {SECOND_TRAIN_STEPS} adam_onecycle steps, ms {step_ms}, loss '
+          f'{float(metrics["loss"]):.6g}, grad_norm {float(metrics["grad_norm"]):.6g}, '
+          f'K12 {one["gather_grad"]} launches a step, peak {peak / 2**30:.2f} GiB; a step\'s '
+          f'device ms (torch.profiler): '
+          + device_report(lambda: net.train_step(tbatch), statistics.median(step_ms), reps=1)
+          + f'; on {smi}')
+    del net, tbatch, state0
+    return launches, k12_entry
+
+
+def _timed_stages(stages, batch, net, times):
+    """One eval forward stage by stage, each synchronized around it."""
+    import torch
+    from hvpr_tpu_torch.models.detectors.detector3d_template import post_processing
+    b = dict(batch)
+    for name, stage in stages:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = stage(b)
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    post_processing(b, net.post_cfg, net.num_class)
+    torch.cuda.synchronize()
+    times['post_processing'].append((time.perf_counter() - t0) * 1e3)
+
+
+def _first_calls_by_shape(mod, attr, run):
+    """Run ``run()`` with ``mod.attr`` recorded: the first call of each
+    distinct shape of its tensor arguments, cloned ([(args, kwargs)])."""
+    import torch
+    fn = getattr(mod, attr)
+    calls = {}
+
+    def wrapped(*args, **kwargs):
+        key = tuple(tuple(a.shape) for a in args if isinstance(a, torch.Tensor))
+        if key not in calls:
+            calls[key] = (tuple(a.detach().clone() if isinstance(a, torch.Tensor) else a
+                                for a in args), dict(kwargs))
+        return fn(*args, **kwargs)
+    setattr(mod, attr, wrapped)
+    try:
+        run()
+    finally:
+        setattr(mod, attr, fn)
+    return list(calls.values())
+
+
+def nofp_phase(smi):
+    """PointNet2MSG_NOFP (the SA stack without FP) at hvpr.yaml's SA_CONFIG
+    on 4 seeded ``realistic_scans`` of 16,384 points: each K4 (ball query,
+    both radii of a level in one sweep) and K5 (chunked FPS) call held
+    against its plain version (exactly), timed beside its bound, the forward
+    equal to the one through the plain versions bit for bit, and the path
+    run with the counts from zero (K4 and K5 twice each, nothing else).
+    Returns (launch counts, {kernel: entry at these shapes})."""
+    import numpy as np
+    import torch
+    from hvpr_tpu_torch.config import ConfigDict
+    from hvpr_tpu_torch.models import DatasetMeta
+    from hvpr_tpu_torch.models.backbones_3d.pointnet2_backbone import PointNet2MSG_NOFP
+    from hvpr_tpu_torch.ops import _kernels, pn2_select, pointnet2
+    from hvpr_tpu_torch.utils.scans import realistic_scans
+
+    cfg = load_cfg()
+    meta = DatasetMeta(cfg.DATA_CONFIG, cfg.CLASS_NAMES, mode='train')
+    b3d = cfg.MODEL.BACKBONE_3D
+    module = PointNet2MSG_NOFP(ConfigDict({'NAME': 'PointNet2MSG_NOFP',
+                                           'SA_CONFIG': b3d.SA_CONFIG,
+                                           'COMPUTE_DTYPE': b3d.get('COMPUTE_DTYPE', 'fp32')}),
+                               meta.num_point_features)
+    seed_weights(module, seed=0)
+    module = module.cuda().eval()
+    pts = realistic_scans(np.random.default_rng(0), TRAIN_BATCH, N_POINTS,
+                          meta.point_cloud_range)
+    batch = {'points': torch.from_numpy(pts).cuda(),
+             'point_valid_mask': torch.ones(TRAIN_BATCH, N_POINTS, dtype=torch.bool,
+                                            device='cuda')}
+
+    def run():
+        with torch.no_grad():
+            return module(dict(batch))
+    wrappers = {'ball_query': (pointnet2, 'ball_query_bucket2', pn2_select.ball_query_bucket2),
+                'fps_chunks': (pointnet2, 'fps_chunks', pn2_select.fps_chunks)}
+    out = {}
+    calls = capture_calls([(m, a, k) for k, (m, a, _) in wrappers.items()],
+                          lambda: out.update(run()))
+    with _kernels.plain_versions():
+        plain = run()
+    torch.cuda.synchronize()
+    feats = out['point_features']
+    if tuple(feats.shape) != (TRAIN_BATCH, int(b3d.SA_CONFIG.NPOINTS[-1]),
+                              module.num_point_features) or not torch.isfinite(feats).all():
+        fail(f'nofp: point_features {tuple(feats.shape)}, or not finite')
+    if not all(torch.equal(out[k], plain[k]) for k in
+               ('point_features', 'point_coords', 'point_valid_mask')):
+        fail('nofp: the forward differs from the one through the plain versions')
+
+    entries = {}
+    for name, (_, _, fn) in wrappers.items():
+        err = ms = plain_ms = 0.0
+        plain_outs = []
+        for args, kwargs in calls[name]:
+            got = fn(*args, **kwargs)
+            with _kernels.plain_versions():
+                want = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            plain_outs.append(want)
+            for g, w in zip(flat(got), flat(want)):
+                err = max(err, float((g.double() - w.double()).abs().max()))
+            ms += cuda_ms(lambda: fn(*args, **kwargs), reps=10, warmup=2)
+            with _kernels.plain_versions():
+                plain_ms += cuda_ms(lambda: fn(*args, **kwargs), reps=3, warmup=1)
+        if err != 0.0:
+            fail(f'nofp: {name} differs from its plain version by {err}')
+        b_ms, b_by, _ = _train_bounds(name, calls[name], plain_outs, None, None)
+        entries[name] = {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
+                         'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None}
+        shapes = [tuple(tuple(a.shape) for a in args if isinstance(a, torch.Tensor))
+                  for args, _ in calls[name]]
+        print(f'nofp: {name} {len(calls[name])} calls a forward at {shapes}: max_abs_err '
+              f'{err}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms '
+              f'({b_by}); on {smi}')
+    del calls
+
+    _kernels.reset_launch_counts()
+    run()
+    torch.cuda.synchronize()
+    launches = _kernels.launch_counts()
+    want = {k: (2 if k in wrappers else 0) for k in launches}
+    if launches != want:
+        fail(f'the nofp path launched {launches}, expected {want}')
+    for name in wrappers:
+        entries[name]['launches'] = launches[name]
+    fwd_ms = cuda_ms(run, reps=5, warmup=1)
+    print(f'nofp: PointNet2MSG_NOFP forward {fwd_ms:.3f} ms at batch {TRAIN_BATCH} '
+          f'({N_POINTS} points a scan, NPOINTS {list(b3d.SA_CONFIG.NPOINTS)}, FPS_CHUNKS '
+          f'{b3d.SA_CONFIG.get("FPS_CHUNKS")}), point_features {tuple(feats.shape)}; '
+          f'launches {launches}; on {smi}')
+    return launches, entries
+
+
+@contextlib.contextmanager
+def cli_flags(conv_tf32=True):
+    """torch's default backend flags, those of a CLI in its own process
+    (this script turns TF32 off and cuDNN's deterministic choice on);
+    ``conv_tf32=False`` keeps the convolutions in f32."""
+    import torch
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = conv_tf32, False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def _run_tool(module, args, timeout=600):
+    """``python -m module args`` from the repository root; its output."""
+    proc = subprocess.run([sys.executable, '-m', module, *args], cwd=ROOT,
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        fail(f'{module} exited {proc.returncode}:\n{proc.stdout[-3000:]}\n'
+             f'{proc.stderr[-3000:]}')
+    return proc.stdout + proc.stderr
+
+
+def demo_phase(smi):
+    """The demo and vis entry points, each in a subprocess on the card, as
+    a user runs them: ``python -m hvpr_tpu_torch.tools.demo`` (hvpr.yaml, a
+    ``.pth`` of seeded weights, a directory of DEMO_SCANS ``.bin``
+    realistic scans, --save_3d and --save_preds), whose boxes, scores and
+    labels must equal bit for bit those of the padded pipeline run here on
+    the same scans and weights (its DemoDataset, ``Network.eval_forward``,
+    the counts from zero: K2 once a scan, nothing else), and whose PLY
+    files must exist; then ``python -m hvpr_tpu_torch.tools.vis`` on a
+    synthetic KITTI tree (2 val scenes), whose PLY files (and PNGs, where
+    matplotlib is installed) must exist. Returns the launch counts."""
+    import importlib.util
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    from hvpr_tpu_torch.models import build_network
+    from hvpr_tpu_torch.ops import _kernels
+    from hvpr_tpu_torch.tools.demo import DemoDataset
+    from hvpr_tpu_torch.tools.eval_utils import _forward
+    from hvpr_tpu_torch.utils.checkpoint import load_params_from_file
+    from hvpr_tpu_torch.utils.scans import realistic_scans
+
+    cfg = load_cfg()
+    has_mpl = importlib.util.find_spec('matplotlib') is not None
+    build_dir = Path(ROOT) / 'build'
+    build_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        tmp = Path(tmp)
+        root, ckpt = write_eval_tree(tmp, cfg, n_val=2)
+        scans = tmp / 'scans'
+        scans.mkdir()
+        pts = realistic_scans(np.random.default_rng(3), DEMO_SCANS, DEMO_POINTS,
+                              np.asarray(cfg.DATA_CONFIG.POINT_CLOUD_RANGE, np.float32))
+        for i, p in enumerate(pts):
+            p.tofile(scans / f'{i:06d}.bin')
+        t0 = time.perf_counter()
+        log = _run_tool('hvpr_tpu_torch.tools.demo', [
+            '--cfg_file', CFG, '--ckpt', str(ckpt), '--data_path', str(scans),
+            '--save_3d', str(tmp / 'demo_3d'), '--save_preds', str(tmp / 'demo_preds')])
+        demo_s = time.perf_counter() - t0
+        plys = sorted((tmp / 'demo_3d').glob('*.ply'))
+        pngs = sorted((tmp / 'demo_3d').glob('*.png'))
+        if len(plys) != DEMO_SCANS or len(pngs) != (DEMO_SCANS if has_mpl else 0):
+            fail(f'demo: {len(plys)} PLY and {len(pngs)} PNG files written')
+
+        # the padded pipeline here, on the same scans and weights
+        with cli_flags():
+            dataset = DemoDataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, root_path=scans)
+            net = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), dataset, device='cuda')
+            load_params_from_file(net.module, ckpt)
+            _kernels.reset_launch_counts()
+            hosts = [_forward(net, dataset.collate_batch([dataset[i]]), keep_gt=False)[0]
+                     for i in range(len(dataset))]
+            torch.cuda.synchronize()
+            launches = _kernels.launch_counts()
+        want = {k: (DEMO_SCANS if k == 'memory_lookup' else 0) for k in launches}
+        if launches != want:
+            fail(f'the demo path launched {launches}, expected {want}')
+        kept = []
+        for i, h in enumerate(hosts):
+            saved = np.load(tmp / 'demo_preds' / f'demo_{i:04d}.npz')
+            m = h['pred_mask'][0]
+            ours = {'boxes': h['pred_boxes'][0][m], 'scores': h['pred_scores'][0][m],
+                    'labels': h['pred_labels'][0][m]}
+            if any(not np.array_equal(saved[k], ours[k]) for k in ours):
+                fail(f'demo: scan {i}: the CLI\'s detections differ from the padded '
+                     f'pipeline\'s')
+            kept.append(len(ours['boxes']))
+        del net
+        print(f'demo: python -m hvpr_tpu_torch.tools.demo on {DEMO_SCANS} scans in '
+              f'{demo_s:.1f} s (process start, imports and the card\'s first use '
+              f'included): detections {kept} equal bit for bit to the padded pipeline\'s; '
+              f'{len(plys)} PLY, {len(pngs)} PNG files (matplotlib '
+              f'{"present" if has_mpl else "absent: PNGs skipped"}); '
+              f'launches {launches}; on {smi}')
+        if 'Demo done.' not in log:
+            fail('demo: the CLI did not finish its loop')
+
+        t0 = time.perf_counter()
+        _run_tool('hvpr_tpu_torch.tools.vis', [
+            '--cfg_file', CFG, '--ckpt', str(ckpt), '--out_dir', str(tmp / 'vis'),
+            '--max_samples', '2', '--workers', '0',
+            '--set', 'DATA_CONFIG.DATA_PATH', str(root)])
+        files = sorted(p.name for p in (tmp / 'vis').iterdir())
+        if len([f for f in files if f.endswith('.ply')]) != 2 or \
+                len([f for f in files if f.endswith('.png')]) != (2 if has_mpl else 0):
+            fail(f'vis: wrote {files}')
+        print(f'vis: python -m hvpr_tpu_torch.tools.vis wrote {files} in '
+              f'{time.perf_counter() - t0:.1f} s')
+    return launches
+
+
 def _descendants(pid):
     """{pid: parent pid} of every process below ``pid``."""
     parents = {}
@@ -2555,19 +3350,32 @@ def stop_descendants():
               file=sys.stderr)
 
 
-def main():
+PHASES = ('inference', 'multiclass', 'pointpillar', 'nuscenes', 'eval_cli', 'train',
+          'train_cli', 'ddp', 'second', 'nofp', 'demo')
+
+
+def main(argv=None):
+    """Every phase, or with ``--only a,b`` those phases alone (a partial run
+    for development: it prints no kernels line and no last line)."""
     import torch
 
+    argv = sys.argv[1:] if argv is None else argv
+    only = None
+    if argv:
+        if len(argv) != 2 or argv[0] != '--only' or not set(argv[1].split(',')) <= set(PHASES):
+            print(f'usage: chip_smoke.py [--only {",".join(PHASES)}]', file=sys.stderr)
+            return 2
+        only = set(argv[1].split(','))
     if not torch.cuda.is_available():
         print('chip_smoke: torch sees no CUDA device', file=sys.stderr)
         return 2
     try:
-        return run_phases()
+        return run_phases(only)
     finally:
         stop_descendants()
 
 
-def run_phases():
+def run_phases(only=None):
     import torch
 
     # cuBLAS is deterministic only with a fixed workspace, set before its
@@ -2598,6 +3406,22 @@ def run_phases():
                           '--format=csv,noheader'], capture_output=True,
                          text=True, timeout=60).stdout.strip().splitlines()[0]
     print(f'card: {smi}')
+
+    if only is not None:
+        for name, phase in (('second', second_phase), ('nofp', nofp_phase),
+                            ('demo', demo_phase), ('inference', inference_phase),
+                            ('multiclass', multiclass_phase),
+                            ('pointpillar', pointpillar_phase),
+                            ('nuscenes', nuscenes_phase), ('eval_cli', eval_cli_phase),
+                            ('train_cli', train_cli_phase), ('ddp', ddp_phase)):
+            if name in only:
+                t0 = time.perf_counter()
+                phase(smi)
+                print(f'{name} phase: {time.perf_counter() - t0:.1f} s')
+        if 'train' in only:
+            train_phase(smi, 'fused')
+        print(f'partial run of {sorted(only)}: passed')
+        return 0
 
     t0 = time.perf_counter()
     entries, launches = inference_phase(smi)
@@ -2635,6 +3459,15 @@ def run_phases():
     t0 = time.perf_counter()
     ddp_launches = ddp_phase(smi)
     print(f'ddp phase: {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    second_launches, k12_second = second_phase(smi)
+    print(f'second phase: {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    nofp_launches, nofp_entries = nofp_phase(smi)
+    print(f'nofp phase: {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    demo_launches = demo_phase(smi)
+    print(f'demo phase: {time.perf_counter() - t0:.1f} s')
     from hvpr_tpu_torch.datasets import stop_worker_server
     stop_worker_server()    # no loader runs from here on
     print('step 1 from the same state, fused - gather: ' + ', '.join(
@@ -2670,6 +3503,15 @@ def run_phases():
         if name in nusc_entries:
             kernels[-1]['nuscenes'] = {k: nusc_entries[name][k] for k in (
                 'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')}
+        kernels[-1]['second_launches'] = second_launches['a'][name]
+        kernels[-1]['second_multihead_launches'] = second_launches['b'][name]
+        kernels[-1]['second_train_launches'] = second_launches['c'][name]
+        kernels[-1]['nofp_launches'] = nofp_launches[name]
+        kernels[-1]['demo_launches'] = demo_launches[name]
+        if name in nofp_entries:
+            kernels[-1]['nofp'] = nofp_entries[name]
+        if name == 'gather_grad':
+            kernels[-1]['second'] = k12_second
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

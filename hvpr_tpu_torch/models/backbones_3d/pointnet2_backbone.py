@@ -1,7 +1,8 @@
 """PointNet++ MSG point-stream backbone (training only).
 
 Port of ``hvpr_tpu/models/backbones_3d/pointnet2_backbone.py``
-(``SharedMLP``, ``SAModuleMSG``, ``FPModule``, ``PointNet2MSG``): set
+(``SharedMLP``, ``SAModuleMSG``, ``FPModule``, ``PointNet2MSG``,
+``PointNet2MSG_NOFP`` and the disabled ``PointNet2Backbone``): set
 abstraction levels (FPS, ball query per radius, grouped shared MLP, masked
 max-pool) and feature propagation back to every point, on dense (B, N, C)
 tensors with validity masks. The HVPR detector runs it only in training.
@@ -131,27 +132,33 @@ class FPModule(nn.Module):
         return self.mlp(interpolated, unknown_mask)
 
 
+def sa_stack(sa, feat_ch, compute_dtype, fps_chunks):
+    """The SA levels of SA_CONFIG ``sa`` over ``feat_ch`` point feature
+    channels (FPS_CHUNKS ``fps_chunks`` where it sets none): (ModuleList,
+    the channels of each level's output)."""
+    mods, chans = nn.ModuleList(), []
+    for k in range(len(sa['NPOINTS'])):
+        mod = SAModuleMSG(
+            npoint=int(sa['NPOINTS'][k]), radii=list(sa['RADIUS'][k]),
+            nsamples=list(sa['NSAMPLE'][k]),
+            mlps=[list(m) for m in sa['MLPS'][k]], in_channels=feat_ch,
+            use_xyz=sa.get('USE_XYZ', True),
+            fps_chunks=int(sa.get('FPS_CHUNKS', fps_chunks)),
+            ball_query_semantics=str(sa.get('BALL_QUERY', 'auto')),
+            compute_dtype=compute_dtype)
+        mods.append(mod)
+        feat_ch = mod.out_channels
+        chans.append(feat_ch)
+    return mods, chans
+
+
 class PointNet2MSG(nn.Module):
 
     def __init__(self, model_cfg, input_channels):
         super().__init__()
-        sa = model_cfg['SA_CONFIG']
         cd = _dtype_of(model_cfg.get('COMPUTE_DTYPE', 'fp32'))
-        feat_ch = input_channels - 3
-        skip = [feat_ch]
-        self.SA_modules = nn.ModuleList()
-        for k in range(len(sa['NPOINTS'])):
-            mod = SAModuleMSG(
-                npoint=int(sa['NPOINTS'][k]), radii=list(sa['RADIUS'][k]),
-                nsamples=list(sa['NSAMPLE'][k]),
-                mlps=[list(m) for m in sa['MLPS'][k]], in_channels=feat_ch,
-                use_xyz=sa.get('USE_XYZ', True),
-                fps_chunks=int(sa.get('FPS_CHUNKS', 1)),
-                ball_query_semantics=str(sa.get('BALL_QUERY', 'auto')),
-                compute_dtype=cd)
-            self.SA_modules.append(mod)
-            feat_ch = mod.out_channels
-            skip.append(feat_ch)
+        self.SA_modules, chans = sa_stack(model_cfg['SA_CONFIG'], input_channels - 3, cd, 1)
+        skip = [input_channels - 3] + chans
         fp_mlps = [list(m) for m in model_cfg['FP_MLPS']]
         self.FP_modules = nn.ModuleList()
         for i, mlp in enumerate(fp_mlps):
@@ -178,3 +185,40 @@ class PointNet2MSG(nn.Module):
         batch_dict['point_features'] = l_feats[0].float()
         batch_dict['point_coords'] = l_xyz[0]
         return batch_dict
+
+
+class PointNet2MSG_NOFP(nn.Module):
+    """The SA(MSG) stack without feature propagation: the features live at
+    the last SA level's points (``point_features``, ``point_coords`` and
+    ``point_valid_mask`` of that level). FPS_CHUNKS defaults to 16 here, as
+    in the JAX module."""
+
+    def __init__(self, model_cfg, input_channels):
+        super().__init__()
+        cd = _dtype_of(model_cfg.get('COMPUTE_DTYPE', 'fp32'))
+        self.SA_modules, chans = sa_stack(model_cfg['SA_CONFIG'], input_channels - 3, cd, 16)
+        self.num_point_features = chans[-1]
+
+    def forward(self, batch_dict):
+        points = batch_dict['points']
+        mask = batch_dict.get('point_valid_mask')
+        if mask is None:
+            mask = torch.ones(points.shape[:2], dtype=torch.bool, device=points.device)
+        xyz = points[..., 0:3].float()
+        feats = points[..., 3:] if points.shape[-1] > 3 else None
+        for sa_mod in self.SA_modules:
+            xyz, feats, mask = sa_mod(xyz, feats, mask)
+        batch_dict['point_features'] = feats.float()
+        batch_dict['point_coords'] = xyz
+        batch_dict['point_valid_mask'] = mask
+        return batch_dict
+
+
+class PointNet2Backbone:
+    """The stack-variant PointNet++ backbone, disabled upstream ('DO NOT USE
+    THIS CURRENTLY SINCE IT MAY HAVE POTENTIAL BUGS') and in the JAX
+    package; registered so that a config naming it fails the same way."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            'PointNet2Backbone (stack variant) is disabled upstream; use PointNet2MSG')

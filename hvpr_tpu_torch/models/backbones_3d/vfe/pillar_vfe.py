@@ -2,7 +2,8 @@
 
 Port of ``hvpr_tpu/models/backbones_3d/vfe/pillar_vfe.py``
 (``decorate_flat_features``, ``decorate_pillar_features``, ``PFNLayer``,
-``PillarVFE``, ``PillarVFE_Scale``); a batch with ``flat_points`` (the device voxelizer)
+``PillarVFE``, ``PillarVFE_Scale``, and ``MeanVFE``, the SECOND family's
+per-voxel mean); a batch with ``flat_points`` (the device voxelizer)
 takes the flat branch, one with ``voxels`` (host-voxelized, the data layer's
 batches) the padded one. Both share the weights. Rows stay channel-major
 (C, R): in the flat layout R = B*N sorted points, in the padded one
@@ -276,4 +277,24 @@ class PillarVFE_Scale(PillarVFE):
 
         batch_dict['pillar_features'] = features
         batch_dict['pillar_scale_features'] = scale_t.t().reshape(b, v, -1)
+        return batch_dict
+
+
+class MeanVFE(nn.Module):
+    """Per-voxel mean of the raw point features of a padded batch
+    (``voxels`` (B, V, P, C)), the SECOND family's VFE; no weights."""
+
+    def __init__(self, model_cfg, num_point_features, voxel_size=None,
+                 point_cloud_range=None, max_points_per_voxel=32):
+        super().__init__()
+        self.num_point_features = num_point_features
+
+    def get_output_feature_dim(self):
+        return self.num_point_features
+
+    def forward(self, batch_dict):
+        voxels = batch_dict['voxels']
+        counts = torch.clamp(batch_dict['voxel_num_points'][..., None].to(voxels.dtype),
+                             min=1.0)
+        batch_dict['pillar_features'] = voxels.sum(dim=2) / counts
         return batch_dict

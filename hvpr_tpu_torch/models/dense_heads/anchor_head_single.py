@@ -6,7 +6,9 @@ concatenated along the output axis, the map read once). In eval the anchors
 decode the residuals and the direction bins fix the heading. In training the
 heads run on both maps (memory and point) and ``get_loss`` sums focal,
 smooth-L1 and direction losses of both paths with the memory-mimicking MSE
-against the stop-gradient point features. Anchors are flattened
+against the stop-gradient point features. The targets come from the
+axis-aligned or the ATSS assigner (TARGET_ASSIGNER_CONFIG.NAME
+``AxisAlignedTargetAssigner`` or ``ATSS``). Anchors are flattened
 in (ny, nx, class, size, rot) order. DENSE_HEAD.COMPUTE_DTYPE bf16 rounds the
 map and the kernels to bf16 and accumulates in f32, as the JAX head's
 ``preferred_element_type=f32`` matmul does.
@@ -20,6 +22,7 @@ from torch import nn
 
 from ...utils import box_coder_utils, common_utils, loss_utils
 from .target_assigner.anchor_generator import AnchorGenerator
+from .target_assigner.atss_target_assigner import ATSSTargetAssigner
 from .target_assigner.axis_aligned_target_assigner import AxisAlignedTargetAssigner
 
 
@@ -34,6 +37,42 @@ def build_anchors(model_cfg, grid_size, point_cloud_range):
     return generator.generate_anchors(feature_map_size)
 
 
+def residual_coder(target_cfg):
+    """TARGET_ASSIGNER_CONFIG's box coder (ResidualCoder only)."""
+    if target_cfg['BOX_CODER'] != 'ResidualCoder':
+        raise NotImplementedError(target_cfg['BOX_CODER'])
+    return box_coder_utils.ResidualCoder(num_dir_bins=target_cfg.get('NUM_DIR_BINS', 6),
+                                         **target_cfg.get('BOX_CODER_CONFIG', {}))
+
+
+def register_anchors(head, anchors_list):
+    """The per-class anchor grids as ``head``'s buffers: ``anchors`` (A, 7)
+    flattened in (ny, nx, class, size, rot) order, and ``class_anchors_{i}``
+    each class's grid (the target assigner's input)."""
+    per_loc = []
+    for a in anchors_list:
+        nz, ny, nx, ns, nr, c = a.shape
+        per_loc.append(a.reshape(nz * ny * nx, ns * nr, c))
+    flat = np.concatenate(per_loc, axis=1).reshape(-1, per_loc[0].shape[-1])
+    head.register_buffer('anchors', torch.from_numpy(flat), persistent=False)
+    for i, a in enumerate(anchors_list):
+        head.register_buffer(f'class_anchors_{i}', torch.from_numpy(a), persistent=False)
+    head.num_anchor_classes = len(anchors_list)
+
+
+def class_anchors(head):
+    return [getattr(head, f'class_anchors_{i}') for i in range(head.num_anchor_classes)]
+
+
+def apply_direction(batch_box, dir_labels, dir_offset, dir_limit_offset, num_bins):
+    """Decoded boxes with each heading moved into its predicted direction bin."""
+    period = 2 * np.pi / num_bins
+    dir_rot = common_utils.limit_period(batch_box[..., 6] - dir_offset, dir_limit_offset,
+                                        period)
+    heading = dir_rot + dir_offset + period * dir_labels.to(batch_box.dtype)
+    return torch.cat([batch_box[..., :6], heading[..., None], batch_box[..., 7:]], dim=-1)
+
+
 class AnchorHeadSingle(nn.Module):
     """Keys follow the reference: ``conv_cls``, ``conv_box``, ``conv_dir_cls``."""
 
@@ -43,29 +82,21 @@ class AnchorHeadSingle(nn.Module):
         self.model_cfg = model_cfg
         self.num_class = num_class
         target_cfg = model_cfg['TARGET_ASSIGNER_CONFIG']
-        if target_cfg['BOX_CODER'] != 'ResidualCoder':
-            raise NotImplementedError(target_cfg['BOX_CODER'])
-        self.box_coder = box_coder_utils.ResidualCoder(
-            num_dir_bins=target_cfg.get('NUM_DIR_BINS', 6),
-            **target_cfg.get('BOX_CODER_CONFIG', {}))
+        self.box_coder = residual_coder(target_cfg)
         anchors_list, num_per_loc = build_anchors(model_cfg, grid_size,
                                                   point_cloud_range)
-        per_loc = []
-        for a in anchors_list:
-            nz, ny, nx, ns, nr, c = a.shape
-            per_loc.append(a.reshape(nz * ny * nx, ns * nr, c))
-        flat = np.concatenate(per_loc, axis=1).reshape(-1, per_loc[0].shape[-1])
-        self.register_buffer('anchors', torch.from_numpy(flat), persistent=False)
-        for i, a in enumerate(anchors_list):
-            self.register_buffer(f'class_anchors_{i}', torch.from_numpy(a),
-                                 persistent=False)
-        self.num_anchor_classes = len(anchors_list)
+        register_anchors(self, anchors_list)
         na = sum(num_per_loc)
-        if target_cfg['NAME'] != 'AxisAlignedTargetAssigner':
+        if target_cfg['NAME'] == 'AxisAlignedTargetAssigner':
+            self.target_assigner = AxisAlignedTargetAssigner(
+                model_cfg, class_names, self.box_coder,
+                match_height=target_cfg.get('MATCH_HEIGHT', False))
+        elif target_cfg['NAME'] == 'ATSS':
+            self.target_assigner = ATSSTargetAssigner(
+                target_cfg['TOPK'], self.box_coder,
+                match_height=target_cfg.get('MATCH_HEIGHT', False))
+        else:
             raise NotImplementedError(target_cfg['NAME'])
-        self.target_assigner = AxisAlignedTargetAssigner(
-            model_cfg, class_names, self.box_coder,
-            match_height=target_cfg.get('MATCH_HEIGHT', False))
         loss_w = model_cfg['LOSS_CONFIG']['LOSS_WEIGHTS']
         self.cls_loss_func = loss_utils.SigmoidFocalClassificationLoss(alpha=0.25, gamma=2.0)
         self.reg_loss_func = loss_utils.WeightedSmoothL1Loss(
@@ -106,16 +137,10 @@ class AnchorHeadSingle(nn.Module):
         batch_box = self.box_coder.decode(box_preds.reshape(b, num_anchors, -1),
                                           self.anchors[None])
         if dir_preds is not None:
-            dir_offset = self.model_cfg['DIR_OFFSET']
-            dir_limit_offset = self.model_cfg['DIR_LIMIT_OFFSET']
-            num_bins = int(self.model_cfg['NUM_DIR_BINS'])
-            dir_labels = dir_preds.reshape(b, num_anchors, -1).argmax(dim=-1)
-            period = 2 * np.pi / num_bins
-            dir_rot = common_utils.limit_period(
-                batch_box[..., 6] - dir_offset, dir_limit_offset, period)
-            heading = dir_rot + dir_offset + period * dir_labels.to(batch_box.dtype)
-            batch_box = torch.cat([batch_box[..., :6], heading[..., None],
-                                   batch_box[..., 7:]], dim=-1)
+            batch_box = apply_direction(
+                batch_box, dir_preds.reshape(b, num_anchors, -1).argmax(dim=-1),
+                self.model_cfg['DIR_OFFSET'], self.model_cfg['DIR_LIMIT_OFFSET'],
+                int(self.model_cfg['NUM_DIR_BINS']))
         return batch_cls, batch_box
 
     def forward(self, batch_dict):
@@ -124,9 +149,8 @@ class AnchorHeadSingle(nn.Module):
         if self.training:
             feat_pt = batch_dict.get('spatial_features_point_2d')
             pt = self._heads(feat_pt) if feat_pt is not None else (None,) * 3
-            targets = self.target_assigner.assign_targets(
-                [getattr(self, f'class_anchors_{i}')
-                 for i in range(self.num_anchor_classes)], batch_dict['gt_boxes'])
+            targets = self.target_assigner.assign_targets(class_anchors(self),
+                                                          batch_dict['gt_boxes'])
             batch_dict['loss'], batch_dict['tb_dict'] = self.get_loss(
                 (cls_preds, box_preds, dir_preds), pt, targets, batch_dict)
             return batch_dict

@@ -3,11 +3,17 @@
 Port of ``hvpr_tpu/models/detectors/detector3d_template.py``: the module
 topology backbone_3d -> vfe -> map_to_bev -> backbone_2d -> dense_head built
 from the config, each module's input channels taken from the one before it
-as the JAX template threads them, and ``post_processing`` (sigmoid ->
+as the JAX template threads them (a voxel backbone takes the VFE's output
+channels, BACKBONE_2D takes MAP_TO_BEV.NUM_BEV_FEATURES), and
+``post_processing`` (sigmoid ->
 class-agnostic or per-class rotated NMS -> fixed-shape detections, plus
 recall records when ``gt_boxes`` are given). The modules of the HVPR
-(``MixAnchor_Memory``) and PointPillar detectors are ported; the
-point-stream ``backbone_3d`` runs only in training.
+(``MixAnchor_Memory``) and PointPillar detectors are ported with every
+module of the JAX package's registries; the point-stream ``backbone_3d``
+runs only in training. PointPillar never calls ``backbone_3d``, as in the
+JAX package: a SECOND-style network (MeanVFE -> sparse VoxelBackBone8x ->
+HeightCompression -> BaseBEVBackbone -> head) is a PointPillar subclass
+whose forward runs the 3D backbone after the VFE.
 """
 
 import torch
@@ -15,21 +21,39 @@ from torch import nn
 
 from ...ops.rotated_iou import boxes_iou3d
 from ..backbones_2d.base_bev_backbone import BaseBEVBackbone, BaseBEVBackboneScale
+from ..backbones_2d.map_to_bev.height_compression import HeightCompression
 from ..backbones_2d.map_to_bev.pointpillar_scatter import (
     PointPillarScatter, PointPillarScatterAggMemory1Scale)
-from ..backbones_3d.pointnet2_backbone import PointNet2MSG
-from ..backbones_3d.vfe.pillar_vfe import PillarVFE, PillarVFE_Scale
+from ..backbones_3d.pointnet2_backbone import (PointNet2Backbone, PointNet2MSG,
+                                               PointNet2MSG_NOFP)
+from ..backbones_3d.sparse_backbone import VoxelBackBone8xSparse
+from ..backbones_3d.spconv_backbone import UNetV2, VoxelBackBone8x, VoxelResBackBone8x
+from ..backbones_3d.vfe.pillar_vfe import MeanVFE, PillarVFE, PillarVFE_Scale
+from ..dense_heads.anchor_head_multi import AnchorHeadMulti
 from ..dense_heads.anchor_head_single import AnchorHeadSingle
 from ..model_utils.model_nms_utils import class_agnostic_nms, multi_classes_nms
 
-_BACKBONES_3D = {'PointNet2MSG': PointNet2MSG}
-_VFES = {'PillarVFE': PillarVFE, 'PillarVFE_Scale': PillarVFE_Scale}
-_MAP_TO_BEV = {'PointPillarScatter': PointPillarScatter,
+# the JAX package's registries, names and aliases alike
+_BACKBONES_3D = {
+    'PointNet2MSG': PointNet2MSG,
+    'PointNet2MSG_NOFP': PointNet2MSG_NOFP,
+    'PointNet2Backbone': PointNet2Backbone,
+    'VoxelBackBone8x': VoxelBackBone8xSparse,         # sparse convs, production grids
+    'VoxelBackBone8xDense': VoxelBackBone8x,          # dense 3D convs, coarse grids
+    'VoxelResBackBone8x': VoxelResBackBone8x,
+    'VoxelBackBone8x_voxelrcnn': VoxelBackBone8xSparse,
+    'UNetV2': UNetV2,
+}
+_VOXEL_BACKBONES = ('VoxelBackBone8x', 'VoxelBackBone8xDense', 'VoxelResBackBone8x',
+                    'VoxelBackBone8x_voxelrcnn', 'UNetV2')
+_VFES = {'MeanVFE': MeanVFE, 'PillarVFE': PillarVFE, 'PillarVFE_Scale': PillarVFE_Scale}
+_MAP_TO_BEV = {'HeightCompression': HeightCompression,
+               'PointPillarScatter': PointPillarScatter,
                'PointPillarScatter_Agg_Memory_1_scale':
                PointPillarScatterAggMemory1Scale}
 _BACKBONES_2D = {'BaseBEVBackbone': BaseBEVBackbone,
                  'BaseBEVBackbone_Scale': BaseBEVBackboneScale}
-_DENSE_HEADS = {'AnchorHeadSingle': AnchorHeadSingle}
+_DENSE_HEADS = {'AnchorHeadSingle': AnchorHeadSingle, 'AnchorHeadMulti': AnchorHeadMulti}
 
 
 def _pick(registry, name, kind):
@@ -51,13 +75,20 @@ class Detector3DTemplate(nn.Module):
         super().__init__()
         self.model_cfg = model_cfg
         self.num_class = num_class
-        b3d_cfg = model_cfg.get('BACKBONE_3D') if point_stream else None
-        self.backbone_3d = None if b3d_cfg is None else _pick(
-            _BACKBONES_3D, b3d_cfg['NAME'], 'BACKBONE_3D')(b3d_cfg, num_point_features)
         vfe_cfg = model_cfg['VFE']
-        self.vfe = _pick(_VFES, vfe_cfg['NAME'], 'VFE')(
+        vfe = _pick(_VFES, vfe_cfg['NAME'], 'VFE')(
             vfe_cfg, num_point_features, voxel_size, point_cloud_range,
             max_points_per_voxel)
+        b3d_cfg = model_cfg.get('BACKBONE_3D') if point_stream else None
+        if b3d_cfg is None:
+            self.backbone_3d = None
+        elif b3d_cfg['NAME'] in _VOXEL_BACKBONES:     # on the VFE's voxel features
+            self.backbone_3d = _pick(_BACKBONES_3D, b3d_cfg['NAME'], 'BACKBONE_3D')(
+                b3d_cfg, vfe.get_output_feature_dim(), grid_size)
+        else:                                         # on the raw points
+            self.backbone_3d = _pick(_BACKBONES_3D, b3d_cfg['NAME'], 'BACKBONE_3D')(
+                b3d_cfg, num_point_features)
+        self.vfe = vfe
         bev_cfg = model_cfg['MAP_TO_BEV']
         self.map_to_bev_module = _pick(_MAP_TO_BEV, bev_cfg['NAME'], 'MAP_TO_BEV')(
             bev_cfg, grid_size)

@@ -97,9 +97,10 @@ class MaskedBatchNorm(nn.BatchNorm1d):
 
 
 class SplitBatchNorm(nn.BatchNorm2d):
-    """BatchNorm over NCHW, f32 output. In training the batch is ``splits``
-    stacked groups, each normalized by its own biased statistics; the running
-    stats take the groups in order."""
+    """BatchNorm over NCHW (or NCDHW: the dense 3D backbones' volumes), f32
+    output. In training the batch is ``splits`` stacked groups, each
+    normalized by its own biased statistics; the running stats take the
+    groups in order."""
 
     def __init__(self, num_features):
         super().__init__(num_features, eps=BN_EPS)
@@ -112,18 +113,19 @@ class SplitBatchNorm(nn.BatchNorm2d):
         if b % splits:
             raise ValueError(f'batch {b} does not split into {splits}')
         xs = x.float().reshape(splits, b // splits, *x.shape[1:])
-        red = (1, 3, 4)
+        red = (1, *range(3, xs.ndim))               # batch and spatial axes
         world = get_dist_info()[1]
         if world > 1:
-            n = world * xs.shape[1] * xs.shape[3] * xs.shape[4]
+            n = world * xs[0, :, 0].numel()
             mean = all_reduce_sum(xs.sum(dim=red, keepdim=True)) / n
             var = all_reduce_sum(((xs - mean) ** 2).sum(dim=red, keepdim=True)) / n
         else:
             mean = xs.mean(dim=red, keepdim=True)                # (s, 1, C, 1, 1)
             var = ((xs - mean) ** 2).mean(dim=red, keepdim=True)
         y = (xs - mean) * torch.rsqrt(var + self.eps)
-        y = (y.reshape(x.shape) * self.weight[:, None, None]
-             + self.bias[:, None, None])
+        per_channel = (-1,) + (1,) * (x.ndim - 2)
+        y = (y.reshape(x.shape) * self.weight.reshape(per_channel)
+             + self.bias.reshape(per_channel))
         _update_running(self, mean.detach().reshape(splits, -1),
                         var.detach().reshape(splits, -1))
         return y

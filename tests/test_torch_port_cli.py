@@ -12,9 +12,16 @@ loaded through ``load_params_from_file``. Both read the same host batches
 Tolerances: boxes within 1e-4 (f32, the two forwards differ in summation
 order only, as in ``test_torch_port_mini.py``), scores within 1e-5; the
 number of detections a frame and the names are equal; so are the recall
-counts and the AP dict (to 1e-9): the detections agree to 1e-4 and none
-of them sits that close to an IoU threshold of the evaluator on this
-fixture, so the matches are the same.
+counts and the AP and recall keys of the result dict (to 1e-9): they
+depend only on which detections match, the detections agree to 1e-4 and
+none of them sits that close to an IoU threshold of the evaluator on this
+fixture, so the matches are the same. The AOS keys (``*_aos/*``) are not
+discrete: AOS sums (1 + cos dtheta) / 2 over the matched boxes, so it moves
+with the headings, which are held to 1e-4 only (summation order on the
+CPU, which differs between a lone run and a pytest-xdist worker, moves a
+heading in its last bits). Their bound follows from the heading
+tolerance: |d/dtheta (1 + cos dtheta) / 2| <= 1/2, times 100 for percent,
+times 1e-4.
 """
 
 import logging
@@ -39,6 +46,8 @@ from hvpr_tpu_torch.tools import eval_utils, test as test_cli
 from hvpr_tpu_torch.utils.checkpoint import load_params_from_file, save_checkpoint
 
 EPOCH = 3
+BOX_ATOL = 1e-4                      # the boxes' tolerance, the headings' too
+AOS_ATOL = 0.5 * 100 * BOX_ATOL      # max |d AOS / d heading| in percent, times it: 5e-3
 
 
 @pytest.fixture(scope='module')
@@ -97,7 +106,7 @@ def test_detections_match_jax(results):
         assert g['frame_id'] == w['frame_id']
         assert len(g['name']) == len(w['name'])
         np.testing.assert_array_equal(g['name'], w['name'])
-        np.testing.assert_allclose(g['boxes_lidar'], w['boxes_lidar'], rtol=0, atol=1e-4)
+        np.testing.assert_allclose(g['boxes_lidar'], w['boxes_lidar'], rtol=0, atol=BOX_ATOL)
         np.testing.assert_allclose(g['score'], w['score'], rtol=0, atol=1e-5)
 
 
@@ -105,8 +114,10 @@ def test_recall_and_ap_match_jax(results):
     jret, pret, _ = results
     assert {k for k in pret if not k.startswith('eval_time/')} == set(jret)
     assert 'Car_3d/moderate_R40' in jret and 'recall/roi_0.3' in jret
+    assert any('_aos/' in k for k in jret)
     for k, v in jret.items():
-        np.testing.assert_allclose(float(pret[k]), float(v), rtol=0, atol=1e-9, err_msg=k)
+        atol = AOS_ATOL if '_aos/' in k else 1e-9
+        np.testing.assert_allclose(float(pret[k]), float(v), rtol=0, atol=atol, err_msg=k)
     assert pret['eval_time/scans_per_s'] > 0
 
 
