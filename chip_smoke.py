@@ -129,12 +129,12 @@ random weights, ``tools/cfgs/kitti_models/hvpr.yaml`` first:
 - nofp: PointNet2MSG_NOFP at hvpr.yaml's SA_CONFIG, batch 4: K4 and K5
   against their plain versions (exactly), timed beside their bounds, two
   launches each a forward.
-- demo: ``python -m hvpr_tpu_torch.tools.demo`` in a subprocess (hvpr.yaml,
-  a seeded ``.pth``, 2 ``.bin`` scans, --save_3d, --save_preds): its
-  detections equal bit for bit to the padded pipeline's here (K2 once a
-  scan), its PLY files written; then ``python -m hvpr_tpu_torch.tools.vis``
-  on a synthetic KITTI tree. A PNG needs matplotlib: without it, none is
-  expected.
+- demo: the demo CLI's ``main`` (hvpr.yaml, a seeded ``.pth``, 2 ``.bin``
+  scans, --save_3d), its launches counted from zero (K2 once a scan): its
+  detections equal bit for bit to the padded pipeline's here, its PLY
+  files written; then ``python -m hvpr_tpu_torch.tools.vis`` in a
+  subprocess on a synthetic KITTI tree. A PNG needs matplotlib: without
+  it, none is expected.
 
 ``python3 chip_smoke.py --only second,nofp,demo`` (any of the phase names
 of PHASES) runs the build and those phases alone, for development: it
@@ -3203,16 +3203,17 @@ def _run_tool(module, args, timeout=600):
 
 
 def demo_phase(smi):
-    """The demo and vis entry points, each in a subprocess on the card, as
-    a user runs them: ``python -m hvpr_tpu_torch.tools.demo`` (hvpr.yaml, a
-    ``.pth`` of seeded weights, a directory of DEMO_SCANS ``.bin``
-    realistic scans, --save_3d and --save_preds), whose boxes, scores and
-    labels must equal bit for bit those of the padded pipeline run here on
-    the same scans and weights (its DemoDataset, ``Network.eval_forward``,
-    the counts from zero: K2 once a scan, nothing else), and whose PLY
-    files must exist; then ``python -m hvpr_tpu_torch.tools.vis`` on a
+    """The demo and vis entry points on the card: the demo's ``main`` (what
+    ``python -m hvpr_tpu_torch.tools.demo`` runs) here, under torch's
+    default backend flags and with the counts from zero just before it
+    (hvpr.yaml, a ``.pth`` of seeded weights, a directory of DEMO_SCANS
+    ``.bin`` realistic scans, --save_3d): K2 once a scan and nothing else;
+    the detections it returns must equal bit for bit those of the padded
+    pipeline run here on the same scans and weights (its DemoDataset,
+    ``Network.eval_forward``), and its PLY files must exist. Then ``python
+    -m hvpr_tpu_torch.tools.vis`` in a subprocess, as a user runs it, on a
     synthetic KITTI tree (2 val scenes), whose PLY files (and PNGs, where
-    matplotlib is installed) must exist. Returns the launch counts."""
+    matplotlib is installed) must exist. Returns the demo's launch counts."""
     import importlib.util
     import tempfile
     from pathlib import Path
@@ -3221,7 +3222,7 @@ def demo_phase(smi):
     import torch
     from hvpr_tpu_torch.models import build_network
     from hvpr_tpu_torch.ops import _kernels
-    from hvpr_tpu_torch.tools.demo import DemoDataset
+    from hvpr_tpu_torch.tools import demo
     from hvpr_tpu_torch.tools.eval_utils import _forward
     from hvpr_tpu_torch.utils.checkpoint import load_params_from_file
     from hvpr_tpu_torch.utils.scans import realistic_scans
@@ -3239,48 +3240,46 @@ def demo_phase(smi):
                               np.asarray(cfg.DATA_CONFIG.POINT_CLOUD_RANGE, np.float32))
         for i, p in enumerate(pts):
             p.tofile(scans / f'{i:06d}.bin')
-        t0 = time.perf_counter()
-        log = _run_tool('hvpr_tpu_torch.tools.demo', [
-            '--cfg_file', CFG, '--ckpt', str(ckpt), '--data_path', str(scans),
-            '--save_3d', str(tmp / 'demo_3d'), '--save_preds', str(tmp / 'demo_preds')])
-        demo_s = time.perf_counter() - t0
-        plys = sorted((tmp / 'demo_3d').glob('*.ply'))
-        pngs = sorted((tmp / 'demo_3d').glob('*.png'))
-        if len(plys) != DEMO_SCANS or len(pngs) != (DEMO_SCANS if has_mpl else 0):
-            fail(f'demo: {len(plys)} PLY and {len(pngs)} PNG files written')
-
-        # the padded pipeline here, on the same scans and weights
         with cli_flags():
-            dataset = DemoDataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, root_path=scans)
-            net = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), dataset, device='cuda')
-            load_params_from_file(net.module, ckpt)
             _kernels.reset_launch_counts()
-            hosts = [_forward(net, dataset.collate_batch([dataset[i]]), keep_gt=False)[0]
-                     for i in range(len(dataset))]
+            t0 = time.perf_counter()
+            got = demo.main(['--cfg_file', CFG, '--ckpt', str(ckpt), '--data_path', str(scans),
+                             '--save_3d', str(tmp / 'demo_3d')])
             torch.cuda.synchronize()
+            demo_s = time.perf_counter() - t0
             launches = _kernels.launch_counts()
         want = {k: (DEMO_SCANS if k == 'memory_lookup' else 0) for k in launches}
         if launches != want:
             fail(f'the demo path launched {launches}, expected {want}')
+        plys = sorted((tmp / 'demo_3d').glob('*.ply'))
+        pngs = sorted((tmp / 'demo_3d').glob('*.png'))
+        if len(got) != DEMO_SCANS or len(plys) != DEMO_SCANS or \
+                len(pngs) != (DEMO_SCANS if has_mpl else 0):
+            fail(f'demo: {len(got)} scans, {len(plys)} PLY and {len(pngs)} PNG files written')
+
+        # the padded pipeline here, on the same scans and weights
+        with cli_flags():
+            dataset = demo.DemoDataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, root_path=scans)
+            net = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), dataset, device='cuda')
+            load_params_from_file(net.module, ckpt)
+            hosts = [_forward(net, dataset.collate_batch([dataset[i]]), keep_gt=False)[0]
+                     for i in range(len(dataset))]
         kept = []
-        for i, h in enumerate(hosts):
-            saved = np.load(tmp / 'demo_preds' / f'demo_{i:04d}.npz')
+        for i, (g, h) in enumerate(zip(got, hosts)):
             m = h['pred_mask'][0]
             ours = {'boxes': h['pred_boxes'][0][m], 'scores': h['pred_scores'][0][m],
                     'labels': h['pred_labels'][0][m]}
-            if any(not np.array_equal(saved[k], ours[k]) for k in ours):
+            if any(not np.array_equal(g[k], ours[k]) for k in ours):
                 fail(f'demo: scan {i}: the CLI\'s detections differ from the padded '
                      f'pipeline\'s')
             kept.append(len(ours['boxes']))
         del net
-        print(f'demo: python -m hvpr_tpu_torch.tools.demo on {DEMO_SCANS} scans in '
-              f'{demo_s:.1f} s (process start, imports and the card\'s first use '
-              f'included): detections {kept} equal bit for bit to the padded pipeline\'s; '
+        print(f'demo: hvpr_tpu_torch.tools.demo.main on {DEMO_SCANS} scans in '
+              f'{demo_s:.1f} s (the network\'s build and the .pth load included): '
+              f'detections {kept} equal bit for bit to the padded pipeline\'s; '
               f'{len(plys)} PLY, {len(pngs)} PNG files (matplotlib '
               f'{"present" if has_mpl else "absent: PNGs skipped"}); '
               f'launches {launches}; on {smi}')
-        if 'Demo done.' not in log:
-            fail('demo: the CLI did not finish its loop')
 
         t0 = time.perf_counter()
         _run_tool('hvpr_tpu_torch.tools.vis', [

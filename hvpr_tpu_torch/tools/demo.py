@@ -6,7 +6,7 @@ repository root:
 
     python -m hvpr_tpu_torch.tools.demo --cfg_file tools/cfgs/kitti_models/hvpr.yaml \\
         --ckpt checkpoint_epoch_80.pth --data_path scans/ [--ext .bin] \\
-        [--save_bev DIR] [--save_3d DIR] [--save_preds DIR] [--device cpu]
+        [--save_bev DIR] [--save_3d DIR] [--device cpu]
 
 ``DemoDataset`` reads every ``*.bin`` (float32 x, y, z, intensity) or
 ``*.npy`` file of ``--data_path`` in sorted order, or the one file it names,
@@ -14,11 +14,11 @@ through the config's data processors (scene i's host draws, the point
 sampling, seeded with i); each scene runs alone through
 ``Network.eval_forward`` on ``--device`` (``cuda`` unless the caller
 passes ``cpu``) with the ``.pth`` weights of ``--ckpt``. The detections are
-logged (the first ten a scene); ``--save_bev`` writes a BEV PNG a scene,
-``--save_3d`` a 3D render PNG and an ASCII ``.ply`` (points and box
-wireframes) a scene, ``--save_preds`` an ``.npz`` of the kept boxes, scores
-and labels a scene. A PNG needs matplotlib: without it the PNG is skipped
-with a message, and the ``.ply`` and ``.npz`` files are written all the same.
+logged (the first ten a scene) and ``main`` returns them; ``--save_bev``
+writes a BEV PNG a scene, ``--save_3d`` a 3D render PNG and an ASCII
+``.ply`` (points and box wireframes) a scene. A PNG needs matplotlib:
+without it the PNG is skipped with a message, and the ``.ply`` is written
+all the same.
 """
 
 import argparse
@@ -77,8 +77,6 @@ def parse_config(argv=None):
                         help='directory for a BEV PNG a scene')
     parser.add_argument('--save_3d', type=str, default=None,
                         help='directory for a 3D render PNG and a .ply a scene')
-    parser.add_argument('--save_preds', type=str, default=None,
-                        help='directory for an .npz of the detections a scene')
     parser.add_argument('--device', type=str, default='cuda',
                         help="device of the network: 'cuda' (default) or 'cpu'")
     parser.add_argument('--set', dest='set_cfgs', default=None, nargs=argparse.REMAINDER)
@@ -112,7 +110,7 @@ def main(argv=None):
         load_params_from_file(net.module, args.ckpt, logger=logger)
         logger.info('Loaded checkpoint %s', args.ckpt)
 
-    outs = {d: Path(d) for d in (args.save_bev, args.save_3d, args.save_preds) if d}
+    outs = {d: Path(d) for d in (args.save_bev, args.save_3d) if d}
     for d in outs.values():
         d.mkdir(parents=True, exist_ok=True)
     results = []
@@ -137,8 +135,6 @@ def main(argv=None):
                  ref_boxes=det['boxes'], save_path=outs[args.save_3d] / f'demo_{idx:04d}_3d.png')
             visual_utils.export_scene_ply(pts, det['boxes'],
                                           save_path=str(outs[args.save_3d] / f'demo_{idx:04d}.ply'))
-        if args.save_preds:
-            np.savez(outs[args.save_preds] / f'demo_{idx:04d}.npz', **det)
     logger.info('Demo done.')
     return results
 

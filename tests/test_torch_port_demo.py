@@ -10,8 +10,8 @@ seeded with i as the port's demo seeds them. Tolerances, as in
 ``test_torch_port_cli.py``: the same number of detections and labels a
 scene, boxes within 1e-4 (f32, summation order), scores within 1e-5.
 Then vis writes a PNG and a ``.ply`` a scene of the tree's val split, and
-without matplotlib the demo skips its PNGs and still writes the ``.ply``
-and ``.npz`` files. Torch runs on one intra-op thread (the plain NMS's
+without matplotlib the demo skips its PNGs and still writes the
+``.ply``. Torch runs on one intra-op thread (the plain NMS's
 small ops on a host whose cores the test workers share).
 """
 
@@ -79,7 +79,7 @@ def test_demo_matches_jax_demo_forward(setup):
     out = base / 'demo_out'
     got = demo.main(['--cfg_file', CFG, '--data_path', str(scans), '--ckpt', str(ckpt),
                      '--device', 'cpu', '--save_bev', str(out / 'bev'),
-                     '--save_3d', str(out / '3d'), '--save_preds', str(out / 'preds')])
+                     '--save_3d', str(out / '3d')])
     want = jax_demo(pair, scans, ckpt)
     assert len(got) == len(want) == 2
     assert sum(len(w['boxes']) for w in want) > 0
@@ -89,9 +89,6 @@ def test_demo_matches_jax_demo_forward(setup):
         np.testing.assert_allclose(g['boxes'], w['boxes'], rtol=0, atol=1e-4)
         np.testing.assert_allclose(g['scores'], w['scores'], rtol=0, atol=1e-5)
     for i, g in enumerate(got):
-        saved = np.load(out / 'preds' / f'demo_{i:04d}.npz')
-        for k in ('boxes', 'scores', 'labels'):
-            np.testing.assert_array_equal(saved[k], g[k])
         assert (out / 'bev' / f'demo_{i:04d}.png').stat().st_size > 0
         assert (out / '3d' / f'demo_{i:04d}_3d.png').stat().st_size > 0
         ply = (out / '3d' / f'demo_{i:04d}.ply').read_text().splitlines()
@@ -104,8 +101,8 @@ def test_demo_without_matplotlib_writes_ply_and_npz(setup, monkeypatch):
     out = base / 'demo_nompl'
     demo.main(['--cfg_file', CFG, '--data_path', str(scans / '000000.bin'),
                '--ckpt', str(ckpt), '--device', 'cpu', '--save_bev', str(out),
-               '--save_3d', str(out), '--save_preds', str(out)])
-    assert sorted(p.name for p in out.iterdir()) == ['demo_0000.npz', 'demo_0000.ply']
+               '--save_3d', str(out)])
+    assert sorted(p.name for p in out.iterdir()) == ['demo_0000.ply']
 
 
 def test_vis_writes_pictures(setup):
