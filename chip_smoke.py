@@ -135,6 +135,17 @@ random weights, ``tools/cfgs/kitti_models/hvpr.yaml`` first:
   files written; then ``python -m hvpr_tpu_torch.tools.vis`` in a
   subprocess on a synthetic KITTI tree. A PNG needs matplotlib: without
   it, none is expected.
+- options: hvpr.yaml at full width with every option the shipped configs
+  leave off (``options_cfg``: the sequential DUAL_PASS, MATCH_HEIGHT,
+  POS_FRACTION subsampling, NORM_BY_NUM_EXAMPLES, the sincos box coder,
+  TOPK_MODE approx, the adam and sgd optimizers): 4 adam steps (the
+  warmup, then a decay) and 2 sgd steps at batch 4 through the kernels,
+  counts from zero, equal to the plain steps bit for bit; the subsample's
+  counts within their cap and budget; the step timed with and without
+  MATCH_HEIGHT; the sequential backbone against the stacked one (bf16 and
+  f32); the batch-8 pipeline with approx (K1 and K3, no K2) equal to the
+  plain and the exact runs; the train CLI resumed from epoch 1 equal to
+  the uninterrupted run's epoch 2 checkpoint.
 
 ``python3 chip_smoke.py --only second,nofp,demo`` (any of the phase names
 of PHASES) runs the build and those phases alone, for development: it
@@ -153,7 +164,8 @@ selected sets, K3 beside ``torch.zeros`` + ``index_put_``, K9 beside
 It prints a ``{"kernels": [...]}`` JSON line (times, bounds, launches,
 errors; each entry also the launches of every other path, K1's and K3's
 the ``nuscenes`` shapes' times and bounds, K4's and K5's the ``nofp``
-shapes', K12's the ``second`` train step's), the card's name and power
+shapes', K12's the ``second`` train step's; ``options_launches``: the
+options phase's adam steps and forward), the card's name and power
 limit as nvidia-smi reports them, and
 last ``{"ok": true, "device": {...}}``. Any failed check exits nonzero.
 Without a CUDA device it exits 2 at once. It leaves no process running:
@@ -3295,6 +3307,412 @@ def demo_phase(smi):
     return launches
 
 
+OPTIONS_POS_FRACTION = 0.25        # the options phase's subsampling: 128 foregrounds at
+OPTIONS_SAMPLE_SIZE = 512          # most, 512 labelled anchors a scan
+OPTIONS_BINDING_POS_FRACTION = 0.1  # (a): a cap of 51, below the scans' 72-78 foregrounds
+OPTIONS_ITERS_EACH_EPOCH = 2       # (a): DECAY_STEP_LIST [1] and WARMUP_EPOCH 1 in steps
+OPTIONS_ADAM_STEPS = 4             # (a): 2 warmup steps, then 2 past the decay
+OPTIONS_SGD_STEPS = 2
+OPTIONS_TIMED_STEPS = 3            # (a): timed steps with and without MATCH_HEIGHT
+OPTIONS_CLI_TRAIN_SCENES = 8       # (d): 2 steps an epoch at batch 4
+OPTIONS_CLI_VAL_SCENES = 4
+OPTIONS_CLI_WORKERS = 2
+# (b): the sequential and the stacked pass run the same bf16 convs at batch
+# B and 2B (cuDNN may pick other algorithms for each, and the split BN sums
+# its statistics in another order): a flipped bf16 rounding moves a value
+# by 2^-8 of itself and a few compound through the levels; allowed: 4 bf16
+# ulps of the largest output, 2^-6 of it
+DUAL_PASS_ATOL_FRAC = 2.0 ** -6
+# the same comparison with the backbone in f32 (TF32 off): sums of up to
+# 3 x 3 x 512 products in another order, 2^-24 a rounding, through ~16
+# convolutions: ~2e-5 of the largest; allowed 1e-4
+DUAL_PASS_F32_ATOL_FRAC = 1e-4
+
+
+def options_cfg(optimizer='adam'):
+    """hvpr.yaml at full width with every option of this phase: the
+    sequential DUAL_PASS, MATCH_HEIGHT, POS_FRACTION / SAMPLE_SIZE
+    subsampling, NORM_BY_NUM_EXAMPLES, the sincos box coder (code_weights
+    8 wide), TOPK_MODE approx, and ``optimizer`` (adam or sgd) with a
+    decay at epoch 1 and a 1-epoch cosine warmup."""
+    cfg = load_cfg()
+    model = cfg.MODEL
+    model.BACKBONE_2D.DUAL_PASS = 'sequential'
+    model.MAP_TO_BEV.TOPK_MODE = 'approx'
+    target = model.DENSE_HEAD.TARGET_ASSIGNER_CONFIG
+    target.MATCH_HEIGHT = True
+    target.POS_FRACTION = OPTIONS_POS_FRACTION
+    target.SAMPLE_SIZE = OPTIONS_SAMPLE_SIZE
+    target.NORM_BY_NUM_EXAMPLES = True
+    target.BOX_CODER_CONFIG = {'encode_angle_by_sincos': True}
+    model.DENSE_HEAD.LOSS_CONFIG.LOSS_WEIGHTS['code_weights'] = [1.0] * 8
+    opt = cfg.OPTIMIZATION
+    opt.OPTIMIZER = optimizer
+    opt.DECAY_STEP_LIST = [1]
+    opt.LR_WARMUP = True
+    opt.WARMUP_EPOCH = 1
+    opt.MOMENTUM = 0.9
+    return cfg
+
+
+def _plain(x):
+    """A config as plain dicts and lists (``yaml.safe_dump`` takes them)."""
+    if isinstance(x, dict):
+        return {str(k): _plain(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_plain(v) for v in x]
+    return x
+
+
+def _options_steps(net, cfg, batch, n_steps, state0):
+    """``n_steps`` steps of ``cfg``'s optimizer from ``state0`` under
+    deterministic algorithms: (per step the metrics and the gradients the
+    optimizer took, before its clip; the state after)."""
+    import torch
+    net.module.load_state_dict(state0)
+    net.init_training(cfg.OPTIMIZATION, TOTAL_STEPS, OPTIONS_ITERS_EACH_EPOCH)
+    opt = net.train_state.optimizer
+    grads, opt_step = [], opt.step
+
+    def recording_step(g):
+        grads.append([x.clone() for x in g])
+        return opt_step(g)
+
+    opt.step = recording_step
+    metrics = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for _ in range(n_steps):
+            metrics.append({k: float(v) for k, v in net.train_step(batch).items()})
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        del opt.step
+    return metrics, grads, {k: v.clone() for k, v in net.module.state_dict().items()}
+
+
+def _steps_equal(label, kernel_run, plain_run):
+    """Fail unless two runs of :func:`_options_steps` agree bit for bit."""
+    import numpy as np
+    import torch
+    (mk, gk, sk), (mp, gp, sp) = kernel_run, plain_run
+    differ = [f'step {i} {k}' for i, (a, b) in enumerate(zip(mk, mp)) for k in a if a[k] != b[k]]
+    differ += [f'step {i} gradient {j}' for i, (a, b) in enumerate(zip(gk, gp))
+               for j, (x, y) in enumerate(zip(a, b)) if not torch.equal(x, y)]
+    differ += [k for k in sp if not torch.equal(sk[k], sp[k])]
+    print(f'options ({label}): {len(mk)} kernel steps vs {len(mp)} plain steps: '
+          f'{sum(len(g) for g in gk)} gradient leaves, {len(sp)} weight and statistic '
+          f'tensors, {sum(len(m) for m in mk)} metrics; {len(differ)} differ')
+    if differ:
+        fail(f'options ({label}): the kernel steps differ from the plain steps in {differ[:5]}')
+    for i, m in enumerate(mk):
+        if not all(np.isfinite(v) for v in m.values()):
+            fail(f'options ({label}): step {i} metrics not finite: {m}')
+
+
+def _subsample_counts(head, gt, n_steps):
+    """Per scan the (foregrounds, backgrounds) before subsampling; per step,
+    per scan those of the subsampled labels; and whether each step's labels
+    differ from the step before's."""
+    import torch
+    from hvpr_tpu_torch.models.dense_heads.anchor_head_single import class_anchors
+    asg = head.target_assigner
+    with torch.no_grad():
+        full = asg.pos_fraction
+        asg.pos_fraction = None
+        try:
+            labels = asg.assign_targets(class_anchors(head), gt)['box_cls_labels']
+        finally:
+            asg.pos_fraction = full
+        before = [(int((lab > 0).sum()), int((lab == 0).sum())) for lab in labels]
+        after, redrawn, last = [], [], None
+        for step in range(n_steps):
+            labels = asg.assign_targets(class_anchors(head), gt,
+                                        global_step=step)['box_cls_labels']
+            after.append([(int((lab > 0).sum()), int((lab == 0).sum())) for lab in labels])
+            if last is not None:
+                redrawn.append(not torch.equal(labels, last))
+            last = labels
+    return before, after, redrawn
+
+
+def options_phase(smi):
+    """The options the JAX package accepts and the shipped configs do not
+    set, on hvpr.yaml at full width (:func:`options_cfg`):
+
+    (a) the fused train step at batch 4 on ``realistic_scans_with_boxes``
+        (seed 0) from seeded weights: OPTIONS_ADAM_STEPS ``adam`` steps
+        (2 iterations an epoch: the warmup, then the decay) through the
+        kernels, counts from zero (the main path), must equal as many
+        through the plain versions bit for bit under deterministic
+        algorithms (each step's metrics and gradients, the weights after);
+        then OPTIONS_SGD_STEPS ``sgd`` steps (MOMENTUM 0.9) likewise. Each
+        scan's foregrounds must stay at most the cap and foregrounds plus
+        backgrounds fill SAMPLE_SIZE. Timed steps with MATCH_HEIGHT and
+        without (the assigner's rotated 3D IoU against the nearest-BEV
+        IoU), their peaks, and the assigner alone either way.
+    (b) the BEV backbone's train forward on the step's maps in the
+        sequential and the stacked DUAL_PASS from the same weights: the
+        outputs within DUAL_PASS_ATOL_FRAC of the largest (bf16, as
+        hvpr.yaml runs it), and within DUAL_PASS_F32_ATOL_FRAC with the
+        same weights in f32; both timed. Also the subsample at
+        OPTIONS_BINDING_POS_FRACTION, whose cap binds on these scans.
+    (c) the flat pipeline at batch 8 with TOPK_MODE approx and the sincos
+        head (:func:`flat_phase`: K1 and K3 against their plain versions,
+        no K2, the detections against the plain pipeline's bit for bit),
+        whose detections must equal TOPK_MODE exact's bit for bit.
+    (d) the train CLI in this process with a config file of these options
+        (``adam``) written to a temporary directory, on a synthetic KITTI
+        tree (OPTIONS_CLI_TRAIN_SCENES train, OPTIONS_CLI_VAL_SCENES val),
+        --fix_random_seed, 2 epochs of 2 steps; then a run of another tag
+        given the first run's checkpoint_epoch_1.pth, which resumes from it:
+        its checkpoint_epoch_2.pth must equal the first run's bit for bit
+        (weights, statistics, the Adam moments and steps, count).
+
+    Returns {kernel: launches of (a)'s adam steps and (c)'s forward}."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    import yaml
+    from hvpr_tpu_torch import config
+    from hvpr_tpu_torch.datasets.kitti.kitti_dataset import create_kitti_infos
+    from hvpr_tpu_torch.models import DatasetMeta, build_network
+    from hvpr_tpu_torch.models.backbones_2d.base_bev_backbone import BaseBEVBackboneScale
+    from hvpr_tpu_torch.models.dense_heads.anchor_head_single import class_anchors
+    from hvpr_tpu_torch.ops import _kernels
+    from hvpr_tpu_torch.tools import train
+    from hvpr_tpu_torch.utils.scans import build_kitti_root, realistic_scans, \
+        realistic_scans_with_boxes
+
+    # (a) the train steps
+    cfg = options_cfg('adam')
+    meta = DatasetMeta(cfg.DATA_CONFIG, cfg.CLASS_NAMES, mode='train')
+    net = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), meta, device='cuda', train=True)
+    head = net.module.dense_head
+    if head.box_coder.code_size != 8 or head.anchors.shape[-1] != 8 \
+            or head.conv_box.out_channels != 2 * 8:
+        fail('options: the head is not the 8-wide sincos head')
+    seed_weights(net.module, seed=0)
+    pts, gt = realistic_scans_with_boxes(np.random.default_rng(0), TRAIN_BATCH, N_POINTS,
+                                         meta.point_cloud_range)
+    points = torch.from_numpy(pts).cuda()
+    mask = torch.ones(TRAIN_BATCH, N_POINTS, dtype=torch.bool, device='cuda')
+    gt = torch.from_numpy(gt).cuda()
+    batch = dict(net.voxelize(points, mask), gt_boxes=gt)
+    state0 = {k: v.clone() for k, v in net.module.state_dict().items()}
+
+    # the backbone's inputs of the first step, for (b)
+    maps = {}
+
+    def keep_maps(mod, args):
+        if not maps:
+            maps.update({k: args[0][k].detach().clone() for k in
+                         ('spatial_features', 'spatial_features_point',
+                          'spatial_scale_features')})
+
+    hook = net.module.backbone_2d.register_forward_pre_hook(keep_maps)
+    _kernels.reset_launch_counts()
+    kernel_run = _options_steps(net, cfg, batch, OPTIONS_ADAM_STEPS, state0)
+    launches = _kernels.launch_counts()
+    hook.remove()
+    print(f'options path (adam, {OPTIONS_ADAM_STEPS} steps) launches: {launches}')
+    for name in _kernels.KERNELS:
+        want = STEP_LAUNCHES.get(name, 0) * OPTIONS_ADAM_STEPS
+        if launches[name] != want:
+            fail(f'options: {OPTIONS_ADAM_STEPS} steps launched {name} {launches[name]} '
+                 f'times, expected {want}')
+    lr = [net.train_state.optimizer.lr_fn(s) for s in range(OPTIONS_ADAM_STEPS)]
+    with _kernels.plain_versions():
+        plain_run = _options_steps(net, cfg, batch, OPTIONS_ADAM_STEPS, state0)
+    print('options (adam): step metrics, kernels: ' + '; '.join(
+        f'lr {x:.6g} loss {m["loss"]:.7g} grad_norm {m["grad_norm"]:.7g}'
+        for x, m in zip(lr, kernel_run[0])))
+    _steps_equal('adam', kernel_run, plain_run)
+    if not (lr[0] < lr[1] and lr[2] < lr[1]):
+        fail(f'options: the adam lr {lr} crosses no warmup and decay')
+    del kernel_run, plain_run
+
+    cfg_sgd = options_cfg('sgd')
+    kernel_run = _options_steps(net, cfg_sgd, batch, OPTIONS_SGD_STEPS, state0)
+    with _kernels.plain_versions():
+        plain_run = _options_steps(net, cfg_sgd, batch, OPTIONS_SGD_STEPS, state0)
+    print('options (sgd): step metrics, kernels: ' + '; '.join(
+        f'loss {m["loss"]:.7g} grad_norm {m["grad_norm"]:.7g}' for m in kernel_run[0]))
+    _steps_equal('sgd', kernel_run, plain_run)
+    del kernel_run, plain_run
+
+    cap = int(OPTIONS_POS_FRACTION * OPTIONS_SAMPLE_SIZE)
+    before, after, redrawn = _subsample_counts(head, gt, OPTIONS_ADAM_STEPS)
+    print(f'options: class Car (fg, bg) per scan before subsampling {before}; after, '
+          f'per step: {after} (cap {cap}, SAMPLE_SIZE {OPTIONS_SAMPLE_SIZE}); labels '
+          f'redrawn at each next step: {redrawn}')
+    if not all(redrawn):
+        fail('options: a step repeated the step before\'s subsample')
+    # a cap below these scans' foregrounds, so that the cap binds on the card
+    asg = head.target_assigner
+    asg.pos_fraction = OPTIONS_BINDING_POS_FRACTION
+    try:
+        _, capped, _ = _subsample_counts(head, gt, 1)
+    finally:
+        asg.pos_fraction = OPTIONS_POS_FRACTION
+    tight = int(OPTIONS_BINDING_POS_FRACTION * OPTIONS_SAMPLE_SIZE)
+    print(f'options: at POS_FRACTION {OPTIONS_BINDING_POS_FRACTION} (cap {tight}) the '
+          f'subsampled (fg, bg) per scan {capped[0]}')
+    for (fg, bg), (fg0, bg0) in zip(capped[0], before):
+        if fg != min(tight, fg0) or fg + bg != OPTIONS_SAMPLE_SIZE:
+            fail(f'options: at cap {tight} the subsampled (fg, bg) {(fg, bg)} from {(fg0, bg0)}')
+    for per_step in after:
+        for (fg, bg), (fg0, bg0) in zip(per_step, before):
+            if fg != min(cap, fg0) or (bg0 >= OPTIONS_SAMPLE_SIZE
+                                       and fg + bg != OPTIONS_SAMPLE_SIZE):
+                fail(f'options: subsampled (fg, bg) {(fg, bg)} from {(fg0, bg0)}')
+
+    # timed steps with MATCH_HEIGHT and without, and the assigner alone
+    timed = {}
+    for match_height in (True, False):
+        asg.match_height = match_height
+        net.module.load_state_dict(state0)
+        net.init_training(cfg.OPTIMIZATION, TOTAL_STEPS, OPTIONS_ITERS_EACH_EPOCH)
+        net.train_step(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(OPTIONS_TIMED_STEPS):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            net.train_step(batch)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        with torch.no_grad():
+            assign_ms = cuda_ms(lambda: asg.assign_targets(class_anchors(head), gt,
+                                                           global_step=0), reps=5, warmup=1)
+        timed[match_height] = (statistics.median(times), torch.cuda.max_memory_allocated(),
+                               assign_ms)
+    asg.match_height = True
+    (on_ms, on_peak, on_assign), (off_ms, off_peak, off_assign) = timed[True], timed[False]
+    print(f'options train step (adam, batch {TRAIN_BATCH}): median of {OPTIONS_TIMED_STEPS} '
+          f'{on_ms:.3f} ms with MATCH_HEIGHT, peak {on_peak / 2**30:.3f} GiB; without '
+          f'{off_ms:.3f} ms, peak {off_peak / 2**30:.3f} GiB; the target assigner alone '
+          f'{on_assign:.3f} ms with (rotated 3D IoU, {TRAIN_BATCH} scans x '
+          f'{head.anchors.shape[0]} anchors x {gt.shape[1]} gt slots), {off_assign:.3f} ms '
+          f'without (CUDA events); on {smi}')
+
+    # (b) sequential against stacked: hvpr.yaml's bf16 backbone, then the
+    # same weights in f32
+    bb = net.module.backbone_2d
+    bb_cfg = dict(bb.model_cfg, COMPUTE_DTYPE='fp32')
+    bb_f32 = BaseBEVBackboneScale(bb_cfg, bb.blocks[0][1].in_channels,
+                                  bb.scale_layers[0][1].in_channels).cuda()
+    for label, mod, tol in (('bf16', bb, DUAL_PASS_ATOL_FRAC),
+                            ('f32', bb_f32, DUAL_PASS_F32_ATOL_FRAC)):
+        outs = {}
+        for mode in ('sequential', 'stacked'):
+            mod.model_cfg['DUAL_PASS'] = mode
+            net.module.load_state_dict(state0)
+            mod.load_state_dict(bb.state_dict())
+            mod.train()
+            with torch.no_grad():
+                out = mod(dict(maps))
+                ms = cuda_ms(lambda: mod(dict(maps)), reps=3, warmup=1)
+            outs[mode] = ({k: out[k].float() for k in
+                           ('spatial_features_2d', 'spatial_features_point_2d')}, ms)
+        mod.model_cfg['DUAL_PASS'] = 'sequential'
+        for k, want in outs['sequential'][0].items():
+            got = outs['stacked'][0][k]
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            share = float(((got - want).abs() > 0).float().mean())
+            print(f'options DUAL_PASS ({label}) {k}: stacked vs sequential max abs diff '
+                  f'{err:.6g} ({err / scale:.3g} of the largest {scale:.6g}), {share:.4f} of '
+                  f'the values differ; tolerance {tol:.6g} of the largest')
+            if not (torch.isfinite(got).all() and err <= tol * scale):
+                fail(f'options: the {label} stacked pass differs from the sequential pass '
+                     f'in {k} by {err}')
+        print(f'options BEV backbone train forward ({label}, no grad, batch {TRAIN_BATCH} + '
+              f'{TRAIN_BATCH}): sequential {outs["sequential"][1]:.3f} ms, stacked '
+              f'{outs["stacked"][1]:.3f} ms (CUDA events, median of 3); on {smi}')
+    net.module.load_state_dict(state0)
+    del net, outs, maps, state0, batch, bb_f32
+
+    # (c) inference at batch 8: approx = exact = plain
+    points = torch.from_numpy(realistic_scans(np.random.default_rng(0), BATCH, N_POINTS,
+                                              cfg.DATA_CONFIG.POINT_CLOUD_RANGE)).cuda()
+    mask = torch.ones(BATCH, N_POINTS, dtype=torch.bool, device='cuda')
+    eval_net, _, _, infer_launches, res = flat_phase(smi, 'options', cfg, points, mask,
+                                                     ('segment_sweep', 'bev_canvas'))
+    scatter = eval_net.module.map_to_bev_module
+    if scatter.topk_mode != 'approx':
+        fail(f'options: the eval network runs TOPK_MODE {scatter.topk_mode}')
+    scatter.topk_mode = 'exact'
+    exact = eval_net.pipeline(points, mask)
+    torch.cuda.synchronize()
+    differ = [k for k in res if not torch.equal(res[k], exact[k])]
+    print(f'options: the approx detections vs TOPK_MODE exact: keys that differ {differ}')
+    if differ:
+        fail(f'options: TOPK_MODE approx differs from exact in {differ}')
+    del eval_net, res, exact
+
+    # (d) the train CLI: resume from epoch 1 gives epoch 2's checkpoint
+    build_dir = Path(ROOT) / 'build'
+    build_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        root, _ = build_kitti_root(tmp / 'kitti',
+                                   n_scenes=OPTIONS_CLI_TRAIN_SCENES + OPTIONS_CLI_VAL_SCENES,
+                                   n_train=OPTIONS_CLI_TRAIN_SCENES)
+        create_kitti_infos(root, root)
+        cfg_file = tmp / 'options' / 'hvpr_options.yaml'
+        cfg_file.parent.mkdir()
+        cfg_file.write_text(yaml.safe_dump(_plain(options_cfg('adam'))))
+        config.cfg.ROOT_DIR = tmp
+        common = ['--cfg_file', os.path.relpath(cfg_file, ROOT), '--batch_size',
+                  str(TRAIN_BATCH), '--workers', str(OPTIONS_CLI_WORKERS), '--epochs', '2',
+                  '--fix_random_seed', '--num_epochs_to_eval', '1',
+                  '--set', 'DATA_CONFIG.DATA_PATH', str(root)]
+        group = os.path.relpath(cfg_file.parent, ROOT).split(os.sep)[1:]
+        out = tmp.joinpath('output', *group, 'hvpr_options')
+        walls = {}
+        for tag in ('whole', 'resumed'):
+            if tag == 'resumed':
+                (out / tag / 'ckpt').mkdir(parents=True)
+                shutil.copy(out / 'whole' / 'ckpt' / 'checkpoint_epoch_1.pth',
+                            out / tag / 'ckpt' / 'checkpoint_epoch_1.pth')
+            t1 = time.perf_counter()
+            ret = train.main(['--extra_tag', tag] + common)
+            walls[tag] = (time.perf_counter() - t1, ret)
+        torch.cuda.synchronize()
+        blobs = [torch.load(out / tag / 'ckpt' / 'checkpoint_epoch_2.pth',
+                            map_location='cpu', weights_only=True)
+                 for tag in ('whole', 'resumed')]
+        resumed = walls['resumed'][1]
+        if (resumed['start_epoch'], resumed['start_it']) != (1, OPTIONS_ITERS_EACH_EPOCH):
+            fail(f'options CLI: the second run started at epoch {resumed["start_epoch"]}, '
+                 f'it {resumed["start_it"]}')
+        for blob in blobs:
+            state = blob['optimizer_state']
+            if state is None or 'optim' not in state \
+                    or state['count'] != 2 * OPTIONS_ITERS_EACH_EPOCH:
+                fail('options CLI: checkpoint_epoch_2.pth holds no adam state of 4 steps')
+        differ = _differ(blobs[0], blobs[1])
+        if differ:
+            fail(f'options CLI: the resumed checkpoint_epoch_2.pth differs from the '
+                 f'uninterrupted run\'s in {differ[:5]}')
+        n_opt = len(blobs[0]['optimizer_state']['optim']['state'])
+        phase_s = time.perf_counter() - t0
+    print(f'options CLI: checkpoint_epoch_2.pth of the run resumed from epoch 1 equals the '
+          f'uninterrupted run\'s bit for bit (weights, BN statistics, the Adam state of '
+          f'{n_opt} parameters, count 4); main() {walls["whole"][0]:.2f} s (2 epochs and the '
+          f'evaluation), resumed {walls["resumed"][0]:.2f} s; first lr '
+          f'{walls["whole"][1]["first_lr"]!r}, resumed {resumed["first_lr"]!r}; the CLI '
+          f'part {phase_s:.1f} s; on {smi}')
+    return {k: launches[k] + infer_launches[k] for k in launches}
+
+
 def _descendants(pid):
     """{pid: parent pid} of every process below ``pid``."""
     parents = {}
@@ -3350,7 +3768,7 @@ def stop_descendants():
 
 
 PHASES = ('inference', 'multiclass', 'pointpillar', 'nuscenes', 'eval_cli', 'train',
-          'train_cli', 'ddp', 'second', 'nofp', 'demo')
+          'train_cli', 'ddp', 'second', 'nofp', 'demo', 'options')
 
 
 def main(argv=None):
@@ -3412,7 +3830,8 @@ def run_phases(only=None):
                             ('multiclass', multiclass_phase),
                             ('pointpillar', pointpillar_phase),
                             ('nuscenes', nuscenes_phase), ('eval_cli', eval_cli_phase),
-                            ('train_cli', train_cli_phase), ('ddp', ddp_phase)):
+                            ('train_cli', train_cli_phase), ('ddp', ddp_phase),
+                            ('options', options_phase)):
             if name in only:
                 t0 = time.perf_counter()
                 phase(smi)
@@ -3467,6 +3886,9 @@ def run_phases(only=None):
     t0 = time.perf_counter()
     demo_launches = demo_phase(smi)
     print(f'demo phase: {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    options_launches = options_phase(smi)
+    print(f'options phase: {time.perf_counter() - t0:.1f} s')
     from hvpr_tpu_torch.datasets import stop_worker_server
     stop_worker_server()    # no loader runs from here on
     print('step 1 from the same state, fused - gather: ' + ', '.join(
@@ -3507,6 +3929,7 @@ def run_phases(only=None):
         kernels[-1]['second_train_launches'] = second_launches['c'][name]
         kernels[-1]['nofp_launches'] = nofp_launches[name]
         kernels[-1]['demo_launches'] = demo_launches[name]
+        kernels[-1]['options_launches'] = options_launches[name]
         if name in nofp_entries:
             kernels[-1]['nofp'] = nofp_entries[name]
         if name == 'gather_grad':

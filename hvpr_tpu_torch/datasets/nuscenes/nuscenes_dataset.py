@@ -19,8 +19,9 @@ The port's copy of ``hvpr_tpu/datasets/nuscenes/nuscenes_dataset.py``:
   (BEV centre distance within 0.5, 1, 2 and 4 m), with the JAX package's
   result string.
 
-:func:`create_nuscenes_infos` needs the devkit and raises without it;
-everything else runs from the pickles alone
+:func:`create_nuscenes_infos` walks a raw database with the devkit and
+raises ``ImportError`` without it; everything else runs from the pickles
+alone
 (:func:`hvpr_tpu_torch.utils.scans.build_nuscenes_root` writes a synthetic
 tree with its pickles).
 """
@@ -367,17 +368,48 @@ class NuScenesDataset(DatasetTemplate):
 
 
 def create_nuscenes_infos(version, data_path, save_path, max_sweeps=10):
-    """Offline info builder over a raw nuScenes database. It walks the
-    database with the devkit and raises without it; the walk itself
-    (``fill_infos`` in the JAX package) is not ported."""
+    """Offline info builder: a raw nuScenes database -> the split info
+    pickles (``nuscenes_infos_<max_sweeps>sweeps_<split>.pkl`` in
+    ``save_path``). The database walk needs the nuscenes devkit, and raises
+    ``ImportError`` without it; the geometry of the walk
+    (:func:`.nuscenes_utils.fill_infos`) needs nothing but numpy."""
     try:
-        import nuscenes  # noqa: F401
+        from nuscenes import NuScenes
+        from nuscenes.utils import splits
     except ImportError as e:
         raise ImportError(
             'create_nuscenes_infos requires the nuscenes devkit '
             '(pip install nuscenes-devkit); the runtime dataset only needs '
             'the pickles it produces.') from e
-    raise NotImplementedError(
-        'the devkit walk that builds the info pickles (fill_infos) is not ported; '
-        'hvpr_tpu_torch.utils.scans.build_nuscenes_root writes pickles of the same '
-        'schema for a synthetic tree')
+    from .nuscenes_utils import fill_infos
+
+    nusc = NuScenes(version=version, dataroot=str(data_path), verbose=True)
+    split_names = {
+        'v1.0-trainval': (splits.train, splits.val),
+        'v1.0-test': (splits.test, []),
+        'v1.0-mini': (splits.mini_train, splits.mini_val),
+    }[version]
+    scene_to_split = {}
+    for scene in nusc.scene:
+        if scene['name'] in split_names[0]:
+            scene_to_split[scene['token']] = 0
+        elif scene['name'] in split_names[1]:
+            scene_to_split[scene['token']] = 1
+    tokens = ([], [])
+    for sample in nusc.sample:
+        split = scene_to_split.get(sample['scene_token'])
+        if split is not None:
+            tokens[split].append(sample['token'])
+
+    save_path = Path(save_path)
+    # the test version's one split is its first token bucket
+    split_names_out = (('test', None) if version == 'v1.0-test'
+                       else ('train', 'val'))
+    for split, name in enumerate(split_names_out):
+        if name is None or not tokens[split]:
+            continue
+        infos = fill_infos(nusc, tokens[split], max_sweeps=max_sweeps)
+        out = save_path / f'nuscenes_infos_{max_sweeps}sweeps_{name}.pkl'
+        with open(out, 'wb') as f:
+            pickle.dump(infos, f)
+        print(f'{name}: {len(infos)} infos -> {out}')

@@ -1,13 +1,12 @@
 """nuScenes geometry: quaternions, poses and frame changes (numpy only).
 
-The port's copy of ``hvpr_tpu/datasets/nuscenes/nuscenes_utils.py`` up to
-its info builder: quaternion poses, frame composition (lidar -> ego ->
-global and back), sweep-to-reference transforms and global-frame boxes in
-the reference lidar frame. ``fill_infos``, the walk over a live devkit
-``NuScenes`` database that builds the info dicts from this geometry, is not
-ported: neither machine has the devkit. :func:`hvpr_tpu_torch.utils.scans.
-build_nuscenes_root` writes info pickles of the same schema for a
-synthetic tree.
+The port's copy of ``hvpr_tpu/datasets/nuscenes/nuscenes_utils.py``:
+quaternion poses, frame composition (lidar -> ego -> global and back),
+sweep-to-reference transforms, global-frame boxes in the reference lidar
+frame, and :func:`fill_infos`, the walk over a devkit ``NuScenes`` database
+(any object with its ``get(table, token)``) that builds the info dicts
+from this geometry. :func:`hvpr_tpu_torch.utils.scans.build_nuscenes_root`
+writes info pickles of the same schema for a synthetic tree.
 
 Frames, following the nuScenes convention:
   global   world frame of the map
@@ -127,3 +126,59 @@ def global_boxes_to_lidar(centers, sizes_wlh, yaw_global, ref_cs, ref_pose):
     boxes[:, 5] = sizes_wlh[:, 2]   # h
     boxes[:, 6] = yaw_global + yaw_tm
     return boxes
+
+
+def fill_infos(nusc, sample_tokens, max_sweeps=10):
+    """The info dicts of ``sample_tokens`` (the schema of
+    ``NuScenesDataset.include_nuscenes_data``) from a devkit ``NuScenes``
+    database: the LIDAR_TOP sample data, up to ``max_sweeps - 1`` previous
+    sweeps with their transforms into the reference lidar frame and time
+    lags, and the annotations as lidar-frame boxes with detection class
+    names and lidar point counts."""
+    infos = []
+    for token in sample_tokens:
+        sample = nusc.get('sample', token)
+        sd = nusc.get('sample_data', sample['data']['LIDAR_TOP'])
+        ref_cs = nusc.get('calibrated_sensor', sd['calibrated_sensor_token'])
+        ref_pose = nusc.get('ego_pose', sd['ego_pose_token'])
+        ref_time = sd['timestamp'] * 1e-6
+
+        sweeps = []
+        cur = sd
+        while len(sweeps) < max_sweeps - 1 and cur['prev']:
+            cur = nusc.get('sample_data', cur['prev'])
+            cs = nusc.get('calibrated_sensor', cur['calibrated_sensor_token'])
+            pose = nusc.get('ego_pose', cur['ego_pose_token'])
+            sweeps.append({
+                'lidar_path': cur['filename'],
+                'transform_matrix': sweep_to_ref_transform(
+                    ref_cs, ref_pose, cs, pose).astype(np.float32),
+                'time_lag': ref_time - cur['timestamp'] * 1e-6,
+            })
+
+        anns = [nusc.get('sample_annotation', t) for t in sample['anns']]
+        if anns:
+            gt_boxes = global_boxes_to_lidar(
+                np.array([a['translation'] for a in anns]),
+                np.array([a['size'] for a in anns]),
+                np.array([quaternion_yaw(a['rotation']) for a in anns]),
+                ref_cs, ref_pose)
+            gt_names = np.array([MAP_NAME_FROM_GENERAL_TO_DETECTION.get(
+                a['category_name'], 'ignore') for a in anns])
+            num_pts = np.array([a['num_lidar_pts'] for a in anns])
+        else:
+            gt_boxes = np.zeros((0, 7), np.float32)
+            gt_names = np.zeros(0, dtype='<U32')
+            num_pts = np.zeros(0, np.int64)
+
+        infos.append({
+            'lidar_path': sd['filename'],
+            'token': token,
+            'timestamp': ref_time,
+            'ref_to_global': ref_to_global_transform(ref_cs, ref_pose).astype(np.float32),
+            'sweeps': sweeps,
+            'gt_boxes': gt_boxes,
+            'gt_names': gt_names,
+            'num_lidar_pts': num_pts,
+        })
+    return infos

@@ -121,14 +121,17 @@ class Network:
         post-process, all on the network's device."""
         return self.eval_forward(self.voxelize(points, mask))
 
-    def init_training(self, optim_cfg, total_steps):
-        """Give the network its optimizer (``OPTIMIZATION`` config) and a
-        fresh train state."""
+    def init_training(self, optim_cfg, total_steps, total_iters_each_epoch=None):
+        """Give the network its optimizer (``OPTIMIZATION`` config; OneCycle
+        over ``total_steps``, or the step-decay milestones of ``adam`` and
+        ``sgd`` in epochs of ``total_iters_each_epoch`` steps) and a fresh
+        train state."""
         if self.module.backbone_3d is None and \
                 self.module.model_cfg.get('BACKBONE_3D') is not None:
             raise RuntimeError('build the network with train=True to train it')
         self.train_state = TrainState(
-            self.module, build_optimizer(self.module, optim_cfg, total_steps))
+            self.module, build_optimizer(self.module, optim_cfg, total_steps,
+                                         total_iters_each_epoch))
 
     def train_step(self, batch_dict):
         """One step on a batch with ``gt_boxes`` (B, M, 8): a padded batch

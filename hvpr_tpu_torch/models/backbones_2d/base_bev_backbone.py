@@ -13,9 +13,14 @@ runs the same single pass with batch statistics.
 ``BaseBEVBackboneScale`` (HVPR): per level a strided
 conv block, the scale stream's strided conv, SFM_LAYER_NUMS rounds of conv
 -> CBAM gate by the scale map -> residual, and a transpose-conv upsampling;
-the levels are concatenated. In training (``DUAL_PASS: stacked``, the only
-dual pass ported) one pass runs over [memory map ; point map] stacked on the
-batch axis with per-split BN statistics, the scale stream once and tiled. Takes and returns NHWC tensors
+the levels are concatenated. In training (``DUAL_PASS: stacked``, the
+default) one pass runs over [memory map ; point map] stacked on the batch
+axis with per-split BN statistics, the scale stream once and tiled. Any
+other DUAL_PASS runs the JAX package's sequential shared-weight pass, its
+parity oracle: per level the block on the memory map, the block on the
+point map, the scale block, then the SFM stack and deblock of the memory
+map and those of the point map, in that order, which sets the order of the
+BatchNorm running-statistic updates. Takes and returns NHWC tensors
 (the JAX layout); inside, the NHWC maps permuted to NCHW are channels_last
 memory for cuDNN. These convs are XLA convolutions in the JAX package, not
 TPU kernels, so they run on cuDNN here. BACKBONE_2D.COMPUTE_DTYPE bf16 runs
@@ -153,11 +158,21 @@ class BaseBEVBackboneScale(nn.Module):
         return batch_dict
 
     def _train_forward(self, batch_dict, x, y):
-        mode = str(self.model_cfg.get('DUAL_PASS', 'stacked'))
-        if mode != 'stacked':
-            raise NotImplementedError(f'DUAL_PASS {mode!r} is not ported')
+        x_pt = batch_dict['spatial_features_point'].permute(0, 3, 1, 2)
+        if str(self.model_cfg.get('DUAL_PASS', 'stacked')) != 'stacked':
+            ups, ups_pt = [], []
+            for i, block in enumerate(self.blocks):
+                x = run_sequence(block, x)
+                x_pt = run_sequence(block, x_pt)
+                y = self.scale_layers[i](y)
+                ups.append(self.deblocks[i](self._level(i, x, y)))
+                ups_pt.append(self.deblocks[i](self._level(i, x_pt, y)))
+            batch_dict['spatial_features_2d'] = torch.cat(ups, dim=1).permute(0, 2, 3, 1)
+            batch_dict['spatial_features_point_2d'] = \
+                torch.cat(ups_pt, dim=1).permute(0, 2, 3, 1)
+            return batch_dict
         b = x.shape[0]
-        xx = torch.cat([x, batch_dict['spatial_features_point'].permute(0, 3, 1, 2)])
+        xx = torch.cat([x, x_pt])
         ups = []
         for i, block in enumerate(self.blocks):
             xx = run_sequence(block, xx, splits=2)

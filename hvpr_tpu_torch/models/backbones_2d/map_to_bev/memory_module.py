@@ -16,7 +16,11 @@ sums in order (K12 on the card).
 Modes (MAP_TO_BEV.TOPK_MODE): ``'fused'`` runs
 :func:`ops.memory_lookup.memory_lookup_fused` (kernel K2 on the card) over a
 superset of the exact top-k; ``'exact'`` takes ``torch.topk`` over the full
-logits and is the accuracy oracle. Given the pillar mask, the fused mode
+logits and is the accuracy oracle. ``'approx'`` runs the exact branch: the
+JAX package's ``lax.approx_max_k`` (recall target 0.9) is a partial
+reduction on the TPU only, and off the TPU it returns ``lax.top_k``'s
+indices and values, which the port reproduces; the TPU's recall-0.9
+candidate sets are not. Given the pillar mask, the fused mode
 looks up only valid pillars and leaves zeros in empty slots, which the
 canvas drops: the counterpart of the JAX package's eighth-prefix
 ``lax.switch``, which skips the rows past the last valid pillar.
@@ -92,8 +96,8 @@ class MemoryUnitAgg(nn.Module):
             out = memory_lookup_fused(pillars.reshape(b * v, c).contiguous(),
                                       self.weight.contiguous(), k, row_mask)
             return {'output': out.reshape(b, v, c).to(pillars.dtype)}
-        if mode != 'exact':
-            raise ValueError(f'TOPK_MODE {mode!r} is not ported (fused, exact)')
+        if mode not in ('exact', 'approx'):
+            raise ValueError(f'TOPK_MODE {mode!r} (fused, approx, exact)')
         logits = torch.einsum('bvc,mc->bvm', pillars, self.weight)
         vals, idx = torch.topk(logits, k, dim=-1)
         cand = self.weight.to(torch.bfloat16)[idx]                     # (B, V, k, C)

@@ -49,6 +49,10 @@ from ....ops.scatter import scatter_to_bev
 from ....ops.topk_attend import bucket_threshold, masked_attend
 from .memory_module import MemoryUnitAgg
 
+# MAP_TO_BEV.TOPK_MODE of the memory's eval lookup (EXACT_TOPK: True is an
+# alias of 'exact'); 'approx' runs the exact branch (memory_module.py)
+TOPK_MODES = ('fused', 'approx', 'exact')
+
 
 def _canvas_dtype(model_cfg):
     """MAP_TO_BEV.CANVAS_DTYPE: 'bf16' emits the canvases in bfloat16."""
@@ -132,6 +136,8 @@ class PointPillarScatterAggMemory1Scale(nn.Module):
         mode = str(model_cfg.get('TOPK_MODE', 'fused')).lower()
         if model_cfg.get('EXACT_TOPK', False):
             mode = 'exact'
+        if mode not in TOPK_MODES:
+            raise ValueError(f'TOPK_MODE {mode!r}: one of {TOPK_MODES}')
         self.topk_mode = mode
         self.out_dtype = _canvas_dtype(model_cfg)
         train_mode = str(model_cfg.get('TRAIN_ATTEND_MODE', 'fused')).lower()

@@ -9,7 +9,8 @@ order) its own conv trunk (HEAD_CONV_FILTERS) and, per class of its group,
 column of the (anchor, class) logits, the other columns being -1e9, and the
 heads' anchors concatenate per BEV location in class order: the axis-aligned
 assigner's layout. The losses are the focal, smooth-L1 and direction losses
-of one path.
+of one path. The box coder and the anchors' width follow BOX_CODER as in
+``AnchorHeadSingle``.
 
 Keys: ``shared_conv`` = [conv, bn, relu]; ``rpn_heads.{h}.head_convs.{k}``
 = [conv, bn, relu]; ``rpn_heads.{h}.convs.{n}`` the 1x1 convs in the order
@@ -22,10 +23,10 @@ import math
 import torch
 from torch import nn
 
-from ...utils import loss_utils
+from ...utils import box_coder_utils, loss_utils
 from ..model_utils.layers import ConvBNReLU
 from .anchor_head_single import (apply_direction, build_anchors, class_anchors,
-                                 register_anchors, residual_coder)
+                                 register_anchors)
 from .target_assigner.axis_aligned_target_assigner import AxisAlignedTargetAssigner
 
 
@@ -100,8 +101,9 @@ class AnchorHeadMulti(nn.Module):
         self.num_class = num_class
         class_names = list(class_names)
         target_cfg = model_cfg['TARGET_ASSIGNER_CONFIG']
-        self.box_coder = residual_coder(target_cfg)
-        anchors_list, num_per_loc = build_anchors(model_cfg, grid_size, point_cloud_range)
+        self.box_coder = box_coder_utils.build_box_coder(target_cfg)
+        anchors_list, num_per_loc = build_anchors(model_cfg, grid_size, point_cloud_range,
+                                                  anchor_ndim=self.box_coder.code_size)
         register_anchors(self, anchors_list)
         self.target_assigner = AxisAlignedTargetAssigner(
             model_cfg, class_names, self.box_coder,
@@ -143,8 +145,9 @@ class AnchorHeadMulti(nn.Module):
         dir_preds = (torch.cat([o[2] for o in outs], dim=3).reshape(b, -1, self.num_dir_bins)
                      if self.use_dir else None)
         if self.training:
-            targets = self.target_assigner.assign_targets(class_anchors(self),
-                                                          batch_dict['gt_boxes'])
+            targets = self.target_assigner.assign_targets(
+                class_anchors(self), batch_dict['gt_boxes'],
+                global_step=batch_dict.get('global_step'))
             batch_dict['loss'], batch_dict['tb_dict'] = self.get_loss(
                 cls_preds, box_preds, dir_preds, targets)
             return batch_dict

@@ -9,7 +9,13 @@ smooth-L1 and direction losses of both paths with the memory-mimicking MSE
 against the stop-gradient point features. The targets come from the
 axis-aligned or the ATSS assigner (TARGET_ASSIGNER_CONFIG.NAME
 ``AxisAlignedTargetAssigner`` or ``ATSS``). Anchors are flattened
-in (ny, nx, class, size, rot) order. DENSE_HEAD.COMPUTE_DTYPE bf16 rounds the
+in (ny, nx, class, size, rot) order. The box coder is the one
+TARGET_ASSIGNER_CONFIG.BOX_CODER names (``utils/box_coder_utils.py``); the
+anchors are zero-padded to its code size and ``conv_box`` is that wide. With
+``encode_angle_by_sincos`` (code size 8) the head keeps the reference's
+quirks, as the JAX head does: the sin-difference of the loss takes column 6
+(the cosine residual), and the direction target adds that column to the
+anchor heading. DENSE_HEAD.COMPUTE_DTYPE bf16 rounds the
 map and the kernels to bf16 and accumulates in f32, as the JAX head's
 ``preferred_element_type=f32`` matmul does.
 """
@@ -26,27 +32,25 @@ from .target_assigner.atss_target_assigner import ATSSTargetAssigner
 from .target_assigner.axis_aligned_target_assigner import AxisAlignedTargetAssigner
 
 
-def build_anchors(model_cfg, grid_size, point_cloud_range):
-    """Per-class anchor grids (numpy constants)."""
+def build_anchors(model_cfg, grid_size, point_cloud_range, anchor_ndim=7):
+    """Per-class anchor grids (numpy constants), zero-padded from 7 to
+    ``anchor_ndim`` columns (the box coder's code size)."""
     anchor_cfg = model_cfg['ANCHOR_GENERATOR_CONFIG']
     generator = AnchorGenerator(anchor_range=point_cloud_range,
                                 anchor_generator_config=anchor_cfg)
     feature_map_size = [[int(grid_size[0]) // c['feature_map_stride'],
                          int(grid_size[1]) // c['feature_map_stride']]
                         for c in anchor_cfg]
-    return generator.generate_anchors(feature_map_size)
-
-
-def residual_coder(target_cfg):
-    """TARGET_ASSIGNER_CONFIG's box coder (ResidualCoder only)."""
-    if target_cfg['BOX_CODER'] != 'ResidualCoder':
-        raise NotImplementedError(target_cfg['BOX_CODER'])
-    return box_coder_utils.ResidualCoder(num_dir_bins=target_cfg.get('NUM_DIR_BINS', 6),
-                                         **target_cfg.get('BOX_CODER_CONFIG', {}))
+    anchors_list, num_per_loc = generator.generate_anchors(feature_map_size)
+    if anchor_ndim != 7:
+        anchors_list = [np.concatenate(
+            [a, np.zeros([*a.shape[:-1], anchor_ndim - 7], dtype=a.dtype)], axis=-1)
+            for a in anchors_list]
+    return anchors_list, num_per_loc
 
 
 def register_anchors(head, anchors_list):
-    """The per-class anchor grids as ``head``'s buffers: ``anchors`` (A, 7)
+    """The per-class anchor grids as ``head``'s buffers: ``anchors`` (A, code)
     flattened in (ny, nx, class, size, rot) order, and ``class_anchors_{i}``
     each class's grid (the target assigner's input)."""
     per_loc = []
@@ -82,9 +86,9 @@ class AnchorHeadSingle(nn.Module):
         self.model_cfg = model_cfg
         self.num_class = num_class
         target_cfg = model_cfg['TARGET_ASSIGNER_CONFIG']
-        self.box_coder = residual_coder(target_cfg)
-        anchors_list, num_per_loc = build_anchors(model_cfg, grid_size,
-                                                  point_cloud_range)
+        self.box_coder = box_coder_utils.build_box_coder(target_cfg)
+        anchors_list, num_per_loc = build_anchors(model_cfg, grid_size, point_cloud_range,
+                                                  anchor_ndim=self.box_coder.code_size)
         register_anchors(self, anchors_list)
         na = sum(num_per_loc)
         if target_cfg['NAME'] == 'AxisAlignedTargetAssigner':
@@ -149,8 +153,9 @@ class AnchorHeadSingle(nn.Module):
         if self.training:
             feat_pt = batch_dict.get('spatial_features_point_2d')
             pt = self._heads(feat_pt) if feat_pt is not None else (None,) * 3
-            targets = self.target_assigner.assign_targets(class_anchors(self),
-                                                          batch_dict['gt_boxes'])
+            targets = self.target_assigner.assign_targets(
+                class_anchors(self), batch_dict['gt_boxes'],
+                global_step=batch_dict.get('global_step'))
             batch_dict['loss'], batch_dict['tb_dict'] = self.get_loss(
                 (cls_preds, box_preds, dir_preds), pt, targets, batch_dict)
             return batch_dict

@@ -24,10 +24,11 @@ class ATSSTargetAssigner:
         self.box_coder = box_coder
         self.match_height = match_height
 
-    def assign_targets(self, anchors_list, gt_boxes_with_classes):
+    def assign_targets(self, anchors_list, gt_boxes_with_classes, global_step=None):
         """anchors_list: per set a (nz, ny, nx, ns, nr, C) tensor; gt: (B, M, 8).
         Returns box_cls_labels (B, A), box_reg_targets (B, A, code) and
-        reg_weights (B, A)."""
+        reg_weights (B, A). ``global_step`` is taken for the axis-aligned
+        assigner's call and unused: ATSS draws nothing."""
         gt_boxes = gt_boxes_with_classes[..., :7]
         gt_classes = gt_boxes_with_classes[..., 7].long()
         gt_valid = gt_boxes_with_classes.abs().sum(dim=-1) > 0

@@ -14,7 +14,7 @@ The KITTI tree needs its info pickles
 (``python -m hvpr_tpu_torch.datasets.kitti.kitti_dataset create_kitti_infos
 DATA_PATH``); a nuScenes tree (``tools/cfgs/nuscenes_models/``) its
 ``nuscenes_infos_*sweeps_*.pkl``, which the devkit's info builder writes
-(``create_nuscenes_infos``, not ported past its devkit check) or
+(``create_nuscenes_infos``, which needs the nuscenes devkit) or
 ``hvpr_tpu_torch.utils.scans.build_nuscenes_root`` with a synthetic tree.
 ``--save_to_file`` writes KITTI label files or one ``<token>.json`` of
 nuScenes submission rows a frame. Results go to ``output/<cfg group>/<cfg name>/<extra_tag>/eval/``

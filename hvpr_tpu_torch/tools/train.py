@@ -42,8 +42,10 @@ of X first. After training, the last ``--num_epochs_to_eval`` checkpoints
 are evaluated into ``eval/eval_with_train`` with the port's test CLI.
 
 ``--fix_random_seed`` seeds Python, numpy and torch with 666 (666 + r on
-rank r, so that the ranks draw other augmentations) and makes cuDNN
-deterministic: two such runs give the same checkpoints bit for bit. The
+rank r, so that the ranks draw other augmentations), again with that seed
+plus the epoch as each epoch starts, and makes cuDNN deterministic: two
+such runs give the same checkpoints bit for bit, and a run resumed from
+epoch N's checkpoint gives the uninterrupted run's later ones. The
 train step needs no ``torch.use_deterministic_algorithms`` for that (the
 point stream's gathers sum their gradients without atomics); this CLI
 leaves the switch as it finds it.
@@ -112,7 +114,7 @@ def parse_config(argv=None):
 
 
 def schedule_steps(n_batches, epochs, merge_all_iters_to_one_epoch):
-    """(OneCycle total steps, iterations an epoch) for a loader of
+    """(the schedule's total steps, iterations an epoch) for a loader of
     ``n_batches``: under ``merge_all_iters_to_one_epoch`` the loader
     already spans every epoch."""
     if merge_all_iters_to_one_epoch:
@@ -181,9 +183,10 @@ def _train_and_evaluate(args, cfg, rank, world):
                         device=args.device, train=True)
     total_steps, iters_each_epoch = schedule_steps(
         len(train_loader), args.epochs, args.merge_all_iters_to_one_epoch)
-    net.init_training(cfg.OPTIMIZATION, total_steps)
+    net.init_training(cfg.OPTIMIZATION, total_steps, iters_each_epoch)
     optimizer = net.train_state.optimizer
-    logger.info('OneCycle over %d steps, %d an epoch', total_steps, iters_each_epoch)
+    logger.info('%s over %d steps, %d an epoch', optimizer.schedule_name, total_steps,
+                iters_each_epoch)
 
     if args.pretrained_model is not None:
         load_params_from_file(net.module, args.pretrained_model, logger=logger)
@@ -198,7 +201,8 @@ def _train_and_evaluate(args, cfg, rank, world):
     if in_process_group():
         broadcast_state(net.module)
     first_lr = float(optimizer.lr_fn(optimizer.count))
-    logger.info('OneCycle lr of the first step (it %d): %r', optimizer.count, first_lr)
+    logger.info('%s lr of the first step (it %d): %r', optimizer.schedule_name,
+                optimizer.count, first_lr)
 
     logger.info('**********************Start training %s/%s(%s)**********************',
                 cfg.EXP_GROUP_PATH, cfg.TAG, args.extra_tag)
@@ -208,7 +212,8 @@ def _train_and_evaluate(args, cfg, rank, world):
         logger=logger, train_sampler=train_sampler,
         ckpt_save_interval=args.ckpt_save_interval,
         max_ckpt_save_num=args.max_ckpt_save_num,
-        merge_all_iters_to_one_epoch=args.merge_all_iters_to_one_epoch)
+        merge_all_iters_to_one_epoch=args.merge_all_iters_to_one_epoch,
+        epoch_seed=666 + rank if args.fix_random_seed else None)
     logger.info('**********************End training**********************')
     del net, optimizer, train_loader
 

@@ -3,7 +3,7 @@
 The port's ``tools/train_utils/train_utils.py``: each host batch of the
 data layer goes to the network's device (``load_data_to_gpu``) and through
 ``Network.train_step`` (forward with the losses, backward, the clip and the
-``adam_onecycle`` update). Progress goes to the logger (no progress bar and
+optimizer's update). Progress goes to the logger (no progress bar and
 no tensorboard): at the first iteration and every 10th the loss terms,
 ``loss``, ``lr`` (that of the step just taken) and ``grad_norm`` are read
 (each read synchronizes the device, so no other iteration reads) and
@@ -12,6 +12,12 @@ first rows of the memory are logged, and every ``ckpt_save_interval``
 epochs ``checkpoint_epoch_N.pth`` is written (weights, BN statistics,
 optimizer state, epoch, iteration), keeping at most ``max_ckpt_save_num``
 (the oldest by modification time are removed).
+
+With ``epoch_seed`` (the train CLI's ``--fix_random_seed``) Python, numpy
+and torch are seeded with ``epoch_seed + epoch`` as each epoch starts, so
+an epoch's shuffle and augmentations depend on its index alone: a run
+resumed from ``checkpoint_epoch_N.pth`` trains epoch N + 1 as the
+uninterrupted run does, bit for bit.
 
 ``train_model`` returns the loop's timing: scans per second, the share of
 the loop spent waiting on the DataLoader, both again past the run's first
@@ -27,6 +33,7 @@ scenes (the sampler's ``set_epoch`` each epoch) and logs the metrics that
 import glob
 import json
 import os
+import random
 import statistics
 import time
 
@@ -123,10 +130,11 @@ def train_one_epoch(net, train_loader, accumulated_iter, epoch, log_file, logger
 
 def train_model(net, train_loader, start_epoch, total_epochs, start_iter, ckpt_save_dir,
                 log_file, logger, train_sampler=None, ckpt_save_interval=1,
-                max_ckpt_save_num=30, merge_all_iters_to_one_epoch=False):
+                max_ckpt_save_num=30, merge_all_iters_to_one_epoch=False,
+                epoch_seed=None):
     """Train ``net`` (``init_training`` done) from ``start_epoch`` to
-    ``total_epochs``; returns (the iteration count, the loop's timing
-    dict)."""
+    ``total_epochs``, seeding each epoch with ``epoch_seed + epoch`` when
+    given; returns (the iteration count, the loop's timing dict)."""
     accumulated_iter = start_iter
     timer = _StepTimer(net.device)
     clock = {'start': time.perf_counter(), 'wait_s': 0.0, 'scans': 0,
@@ -140,6 +148,10 @@ def train_model(net, train_loader, start_epoch, total_epochs, start_iter, ckpt_s
         dataloader_iter = iter(train_loader)
         clock['wait_s'] += time.perf_counter() - clock['start']
     for cur_epoch in range(start_epoch, total_epochs):
+        if epoch_seed is not None:
+            random.seed(epoch_seed + cur_epoch)
+            np.random.seed(epoch_seed + cur_epoch)
+            torch.manual_seed(epoch_seed + cur_epoch)
         if train_sampler is not None and hasattr(train_sampler, 'set_epoch'):
             train_sampler.set_epoch(cur_epoch)
 

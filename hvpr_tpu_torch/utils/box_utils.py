@@ -1,5 +1,6 @@
-"""3D box geometry: the host (numpy) box transforms of the KITTI data layer
-and the axis-aligned "nearest BEV" IoU of the target assigner (torch).
+"""3D box geometry: the host (numpy) box transforms of the KITTI data layer,
+the axis-aligned "nearest BEV" IoU of the target assigner (torch), and box
+corners of either.
 
 Port of ``hvpr_tpu/utils/box_utils.py``. Box convention (OpenPCDet):
 ``(x, y, z, dx, dy, dz, heading)`` with (x, y, z) the box center in the
@@ -53,7 +54,7 @@ def in_hull(p, hull):
 
 
 def boxes_to_corners_3d(boxes3d):
-    """(N, 7) boxes -> (N, 8, 3) corners.
+    """(N, 7) boxes (a tensor or a numpy array) -> (N, 8, 3) corners.
 
         7 -------- 4
        /|         /|
@@ -65,10 +66,12 @@ def boxes_to_corners_3d(boxes3d):
 
     Corner order matches the reference (box_utils.py:27-52).
     """
-    template = np.asarray([
+    template = [
         [1, 1, -1], [1, -1, -1], [-1, -1, -1], [-1, 1, -1],
         [1, 1, 1], [1, -1, 1], [-1, -1, 1], [-1, 1, 1],
-    ], dtype=boxes3d.dtype) / 2.0
+    ]
+    template = (boxes3d.new_tensor(template) if isinstance(boxes3d, torch.Tensor)
+                else np.asarray(template, dtype=boxes3d.dtype)) / 2.0
 
     corners3d = boxes3d[:, None, 3:6] * template[None, :, :]
     corners3d = common_utils.rotate_points_along_z(

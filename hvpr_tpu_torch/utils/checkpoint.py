@@ -8,8 +8,8 @@ files (``hvpr_tpu/utils/torch_ckpt.py``), so ``.pth`` is the exchange
 format of the two packages.
 
 A training checkpoint also holds the optimizer's state
-(``AdamOneCycle.state_dict``: the AdamW moments and step, and the OneCycle
-position) and the iteration; :func:`load_checkpoint` restores all of it for
+(its ``state_dict``: the torch optimizer's moments and steps, and the
+schedule's position) and the iteration; :func:`load_checkpoint` restores all of it for
 a resumed run. :func:`load_params_from_file` is the reference's
 shape-checked partial load of the weights alone: a key of the file updates
 the module only where the module has it at the same shape; every other key
@@ -35,7 +35,7 @@ def _to_cpu(obj):
 
 def save_checkpoint(module, filename, epoch=None, it=None, optimizer=None):
     """Write ``module``'s weights and BN statistics, and the state of
-    ``optimizer`` (an ``AdamOneCycle``) if given, on the CPU, with the
+    ``optimizer`` (of ``optimization.build_optimizer``) if given, on the CPU, with the
     epoch and iteration."""
     torch.save({'epoch': epoch, 'it': it,
                 'model_state': _to_cpu(module.state_dict()),

@@ -24,7 +24,13 @@ def limit_period(val, offset=0.5, period=np.pi):
 
 def rotate_points_along_z(points, angle):
     """Rotate (B, N, 3 + C) points by (B,) angles (rad, counter-clockwise
-    around +z); numpy."""
+    around +z); tensors or numpy arrays."""
+    if isinstance(points, torch.Tensor):
+        cosa, sina = torch.cos(angle), torch.sin(angle)
+        zeros, ones = torch.zeros_like(angle), torch.ones_like(angle)
+        rot_matrix = torch.stack([cosa, sina, zeros, -sina, cosa, zeros, zeros, zeros, ones],
+                                 dim=1).reshape(-1, 3, 3).to(points.dtype)
+        return torch.cat([points[:, :, 0:3] @ rot_matrix, points[:, :, 3:]], dim=-1)
     cosa, sina = np.cos(angle), np.sin(angle)
     zeros, ones = np.zeros_like(angle), np.ones_like(angle)
     rot_matrix = np.stack([
@@ -42,6 +48,24 @@ def mask_points_by_range(points, limit_range):
         (points[:, 0] >= limit_range[0]) & (points[:, 0] <= limit_range[3])
         & (points[:, 1] >= limit_range[1]) & (points[:, 1] <= limit_range[4])
     )
+
+
+def get_voxel_centers(voxel_coords, downsample_times, voxel_size, point_cloud_range):
+    """(N, 3) voxel grid coordinates (z, y, x) -> (N, 3) metric voxel
+    centres (x, y, z) at a stride of ``downsample_times``; a tensor or a
+    numpy array."""
+    assert voxel_coords.shape[1] == 3
+    if isinstance(voxel_coords, torch.Tensor):
+        centers = voxel_coords[:, [2, 1, 0]].float()
+        size = torch.tensor(voxel_size, dtype=torch.float32,
+                            device=centers.device) * downsample_times
+        origin = torch.tensor(point_cloud_range[0:3], dtype=torch.float32,
+                              device=centers.device)
+    else:
+        centers = voxel_coords[:, [2, 1, 0]].astype(np.float32)
+        size = np.asarray(voxel_size, dtype=np.float32) * downsample_times
+        origin = np.asarray(point_cloud_range[0:3], dtype=np.float32)
+    return (centers + 0.5) * size + origin
 
 
 def create_logger(log_file=None, rank=0, log_level=logging.INFO):

@@ -42,7 +42,8 @@ ones' ``Conv3DBNReLU_{i}`` are ``blocks.{i}`` (``blocks.{2i}`` beside
 UNetV2's ``ConvTranspose_{j}``/``BatchNorm_{j}`` are ``ups.{j}.0``/``.1``.
 AnchorHeadMulti's ``shared_conv`` and ``heads_{h}`` are ``shared_conv`` and
 ``rpn_heads.{h}`` (``ConvBNReLU_{k}`` -> ``head_convs.{k}``, ``Conv_{n}`` ->
-``convs.{n}``).
+``convs.{n}``). The box convs map at any width: a head with the sincos
+coder (code size 8) has ``na * 8`` output channels on both sides.
 """
 
 import numpy as np
