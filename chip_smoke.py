@@ -147,6 +147,19 @@ random weights, ``tools/cfgs/kitti_models/hvpr.yaml`` first:
   plain and the exact runs; the train CLI resumed from epoch 1 equal to
   the uninterrupted run's epoch 2 checkpoint.
 
+- profile: the port's seven profilers (``hvpr_tpu_torch/tools/profile_*.py``,
+  the counterparts of the JAX package's ``tools/profile_*.py``) at
+  hvpr.yaml's full width and the JAX tools' batches (16 inference, 4
+  train): the stage profile of inference and of the train step, post-
+  processing's parts, the head, the point stream, the memory lookup and the
+  whole step, each region's ms, GFLOP, GB, ``mfu`` and ``hbm_frac`` against
+  the card's published peaks beside its power limit (records under
+  ``chiprun_out/profile/``); the rows must carry the JAX records' keys and
+  no ``mfu`` may pass 1; the profiled forward and step, counted again with
+  every kernel call captured, must report each kernel's work as its work
+  function (the bound column's) gives it for those calls, under its dense
+  formula, and launch K1 x3, K2, K3 x2 and STEP_LAUNCHES.
+
 ``python3 chip_smoke.py --only second,nofp,demo`` (any of the phase names
 of PHASES) runs the build and those phases alone, for development: it
 prints no kernels line and no last line.
@@ -165,7 +178,8 @@ It prints a ``{"kernels": [...]}`` JSON line (times, bounds, launches,
 errors; each entry also the launches of every other path, K1's and K3's
 the ``nuscenes`` shapes' times and bounds, K4's and K5's the ``nofp``
 shapes', K12's the ``second`` train step's; ``options_launches``: the
-options phase's adam steps and forward), the card's name and power
+options phase's adam steps and forward; ``profile_launches``: the profile
+phase's counted forward and step), the card's name and power
 limit as nvidia-smi reports them, and
 last ``{"ok": true, "device": {...}}``. Any failed check exits nonzero.
 Without a CUDA device it exits 2 at once. It leaves no process running:
@@ -193,10 +207,6 @@ N_POINTS = 16384
 TRAIN_STEPS = 5                    # timed fused steps after the two comparison steps
 GATHER_STEPS = 2                   # timed steps of the gather mode
 TOTAL_STEPS = 100                  # the OneCycle schedule's length
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
-BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
-F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
-F64_TC_FLOPS_PER_S = 67e12         # H100 SXM f64 on the tensor cores (DMMA)
 INFER_KERNELS = ('segment_sweep', 'memory_lookup', 'bev_canvas')
 # launches of each train kernel in one step of hvpr.yaml: one ball query per
 # SA level (both radii in one sweep), one FPS per level, one reconstruction
@@ -345,18 +355,27 @@ def flat(out):
 
 def capture_calls(modules_and_names, run):
     """Run ``run()`` with the named wrapper functions recorded: returns
-    {name: [(args, kwargs), ...]} with tensor arguments cloned."""
+    {name: [(args, kwargs), ...]} with tensor arguments cloned. A call made
+    inside a recorded call of the same name (a wrapper that runs itself
+    again under a ``utils.flops.Counter``) is not recorded again."""
     import torch
     calls = {}
     saved = []
+    depth = {}
 
     def recorder(key, fn):
         def wrapped(*args, **kwargs):
+            if depth.get(key):
+                return fn(*args, **kwargs)
             calls.setdefault(key, []).append((
                 tuple(a.detach().clone() if isinstance(a, torch.Tensor) else a
                       for a in args),
                 dict(kwargs)))
-            return fn(*args, **kwargs)
+            depth[key] = 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                depth[key] = 0
         return wrapped
 
     for mod, attr, key in modules_and_names:
@@ -419,19 +438,46 @@ def stage_ms(net, points, mask, reps=5):
     return {name: statistics.median(v) for name, v in times.items()}
 
 
-def bound(ops, flops_per_s, nbytes):
-    """(bound ms, 'operations' or 'bytes') of work of ``ops`` operations at
-    ``flops_per_s`` that moves ``nbytes``."""
-    t_ops, t_bytes = ops / flops_per_s, nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, 'operations' if t_ops > t_bytes else 'bytes'
+def _sweep_work(calls):
+    """K1's work over its captured calls (``utils.flops.segment_sweep_work``:
+    each (C, R) input read and the output written once in f32, the slots
+    read once)."""
+    from hvpr_tpu_torch.utils import flops
+    return flops.total(flops.segment_sweep_work(*a[0].shape) for a, _ in calls)
 
 
 def _sweep_bound(calls):
-    """K1's bound over its captured calls: each (C, R) input read and the
-    output written once in f32, the slots read once, over the memory rate."""
-    nbytes = sum(2 * a[0].numel() * 4 + a[1].numel() * 4 for a, _ in calls)
-    return {'bound_ms': nbytes / HBM_BYTES_PER_S * 1e3, 'bound_by': 'bytes',
-            'library_ms': None}
+    """K1's bound over its captured calls."""
+    from hvpr_tpu_torch.utils import flops
+    b_ms, b_by, _ = flops.work_bound(_sweep_work(calls))
+    return {'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None}
+
+
+def _canvas_work(calls):
+    """K3's work over its captured calls (``utils.flops.bev_canvas_work``:
+    the canvas written once, the valid pillars' rows read once, coords and
+    mask read)."""
+    import torch
+    from hvpr_tpu_torch.utils import flops
+    works = []
+    for a, kw in calls:
+        feat, coords, vmask, ny, nx = a[:5]
+        out_dtype = a[5] if len(a) > 5 else kw.get('out_dtype', torch.float32)
+        works.append(flops.bev_canvas_work(*feat.shape, ny, nx, int(vmask.sum()),
+                                           torch.finfo(out_dtype).bits // 8,
+                                           feat.element_size()))
+    return flops.total(works)
+
+
+def _lookup_work(args, count):
+    """K2's work of one captured call (``utils.flops.memory_lookup_work``)
+    whose selected counts are ``count``: empty pillar slots are not looked
+    up."""
+    from hvpr_tpu_torch.utils import flops
+    pill, memw, _k, row_mask = args[:4]
+    r, c = pill.shape
+    return flops.memory_lookup_work(r, r if row_mask is None else int(row_mask.sum()),
+                                    memw.shape[0], c, float(count.sum()))
 
 
 def _canvas_bound_and_yardstick(calls, label=''):
@@ -441,14 +487,12 @@ def _canvas_bound_and_yardstick(calls, label=''):
     the whole canvas; beside it ``index_put_`` into a canvas zeroed outside
     the window."""
     import torch
-    canvas_bytes, lib_ms, put_ms, yardsticks = 0, 0.0, 0.0, []
+    from hvpr_tpu_torch.utils import flops
+    lib_ms, put_ms, yardsticks = 0.0, 0.0, []
     for a, kw in calls:
         feat, coords, vmask, ny, nx = a[:5]
         out_dtype = a[5] if len(a) > 5 else kw.get('out_dtype', torch.float32)
-        el = torch.finfo(out_dtype).bits // 8
         b, v, cc = feat.shape
-        canvas_bytes += (b * ny * nx * cc * el + int(vmask.sum()) * cc * feat.element_size()
-                         + vmask.numel() * 13)
         bi, vi = torch.nonzero(vmask, as_tuple=True)
         cell = coords[bi, vi, 1].long() * nx + coords[bi, vi, 2].long()
         rows = feat[bi, vi].to(out_dtype)
@@ -466,8 +510,8 @@ def _canvas_bound_and_yardstick(calls, label=''):
           f'canvas zeroed outside the window {put_ms:.4f} ms')
     print(f'bev_canvas{label}: torch.zeros + index_put_, device ms per forward by kernel '
           '(torch.profiler): ' + device_breakdown(lambda: [f() for f in yardsticks]))
-    return {'bound_ms': canvas_bytes / HBM_BYTES_PER_S * 1e3, 'bound_by': 'bytes',
-            'library_ms': lib_ms}
+    b_ms, b_by, _ = flops.work_bound(_canvas_work(calls))
+    return {'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': lib_ms}
 
 
 def flat_phase(smi, label, cfg, points, mask, kernels, reps=5, box_std=None):
@@ -614,6 +658,7 @@ def inference_phase(smi):
     import torch
     from hvpr_tpu_torch.models.backbones_2d.map_to_bev import memory_module
     from hvpr_tpu_torch.ops import _kernels
+    from hvpr_tpu_torch.utils import flops
     from hvpr_tpu_torch.utils.scans import realistic_scans
 
     cfg = load_cfg()
@@ -638,13 +683,10 @@ def inference_phase(smi):
     # bounds and library yardsticks from this run's inputs
     entries['segment_sweep'].update(_sweep_bound(calls['segment_sweep']))
     pill, memw, row_mask = args[0], args[1], args[3]
-    r, c = pill.shape
-    m = memw.shape[0]
-    r_valid = int(row_mask.sum())          # empty pillar slots are not looked up
-    print(f'memory_lookup: {r_valid} of {r} rows are valid pillars')
-    ops = 2.0 * r_valid * m * c + 2.0 * c * float(cnt_k.sum())  # logits + selected output
-    nbytes = 2 * r * c * 4 + m * c * 4 + r
-    b_ms, b_by = bound(ops, BF16_FLOPS_PER_S, nbytes)
+    # empty pillar slots are not looked up
+    print(f'memory_lookup: {int(row_mask.sum())} of {pill.shape[0]} rows are valid pillars')
+    # the valid rows' logits + 2C flops a selected column, on bf16 tensor cores
+    b_ms, b_by, dmma_ms = flops.work_bound(_lookup_work(args, cnt_k))
     lib_ms = _lookup_library_ms(pill, memw, row_mask, th_k)
     entries['memory_lookup'].update(bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
     print(f'memory_lookup: scaled_dot_product_attention over the valid rows with the '
@@ -653,7 +695,7 @@ def inference_phase(smi):
     print(f'memory_lookup: K2 {k2_ms:.4f} ms against the SDPA yardstick {lib_ms:.4f} ms: '
           f'{"below" if k2_ms < lib_ms else "NOT below"} it ({k2_ms / lib_ms:.3f}x); bound '
           f'{b_ms:.4f} ms ({b_by}, bf16 tensor cores), on the FP64 tensor cores '
-          f'{2.0 * r_valid * m * c / F64_TC_FLOPS_PER_S * 1e3:.4f} ms for the logits')
+          f'{dmma_ms:.4f} ms for the logits')
     entries['bev_canvas'].update(_canvas_bound_and_yardstick(calls['bev_canvas']))
     return entries, launches
 
@@ -709,128 +751,71 @@ def train_stage_ms(net, batch, reps=3):
     return {name: statistics.median(v) for name, v in times.items()}
 
 
-def ball_stop(idx, cnt, nsample, n):
-    """(B, S) points a centre's sweep for one radius needs: up to the first
-    hit of its nsample-th bucket, else all ``n``."""
+def _train_work(name, calls, outs, selected, recon_nonzero):
+    """The ``utils.flops.Work`` of one step's calls of train kernel ``name``,
+    from this run's inputs (and, for the ball query, its results, which say
+    where each centre's sweep may stop; for the masked attention,
+    ``selected``: {shared: selected points summed over the valid rows}; for
+    K6, ``recon_nonzero``: the nonzero weights n W needs)."""
     import torch
-    return torch.where(cnt == nsample, idx[..., -1].long() + 1, n)
-
-
-def ball_bytes(xyz, new_xyz, mask, nsamples):
-    """Bytes a ball query moves: points, centres and mask in, idx and cnt
-    out for each nsample."""
-    b, s = new_xyz.shape[:2]
-    return (xyz.numel() + new_xyz.numel()) * 4 + mask.numel() + sum(
-        b * s * (ns + 1) * 4 for ns in nsamples)
-
-
-def _train_bounds(name, calls, plain_outs, selected, recon_nonzero):
-    """(bound ms, bound_by, DMMA bound ms or None) of one step's calls of
-    train kernel ``name``, from this run's inputs (and, for the ball query,
-    the plain results, which say where each centre's sweep may stop; for the
-    masked attention, ``selected``: {shared: selected points summed over the
-    valid rows}; for K6, ``recon_nonzero``: the nonzero weights n W needs).
-    The DMMA bound is the time of the same products on the FP64 tensor
-    cores, where the kernel runs them there (K6, K7, K9's dense sweep)."""
-    import torch
-    from hvpr_tpu_torch.ops.topk_attend import PAIR_CAP
-    ops = nbytes = 0.0
-    dmma_ops = None
-    flops = F32_FLOPS_PER_S
-    for (args, _), out in zip(calls, plain_outs):
+    from hvpr_tpu_torch.ops.topk_attend import PAIR_CAP, pair_counts
+    from hvpr_tpu_torch.utils import flops
+    works = []
+    for (args, _), out in zip(calls, outs):
         if name == 'gather_grad':
-            # the gathered rows' gradient and their int64 targets read once,
-            # the source gradient written once; an f32 add an element
-            grad, index, n = args
-            ops += grad.numel()
-            nbytes += grad.numel() * grad.element_size() + index.numel() * 8 \
-                + n * grad.shape[1] * grad.element_size()
+            grad, _index, n = args
+            works.append(flops.gather_grad_work(*grad.shape, grad.element_size(), n))
         elif name == 'ball_query':
-            # one call a level, both radii: ~8 f32 operations for the
-            # distance and a compare a radius, per (centre, point) pair up
-            # to the point at which the centre has both radii's nsample
-            # distinct buckets (else all N)
+            # one call a level, both radii: up to the point at which the
+            # centre has both radii's nsample distinct buckets (else all N)
             radii, nsamples, xyz, new_xyz, mask = args
-            visited = float(torch.stack([ball_stop(idx, cnt, ns, xyz.shape[1])
+            visited = float(torch.stack([flops.ball_stop(idx, cnt, ns, xyz.shape[1])
                                          for (idx, cnt), ns in zip(out, nsamples)])
                             .amax(dim=0).sum())
-            ops += (8.0 + len(radii)) * visited
-            nbytes += ball_bytes(xyz, new_xyz, mask, nsamples)
+            works.append(flops.ball_query_work(*xyz.shape[:2], new_xyz.shape[1], nsamples,
+                                               visited))
         elif name == 'fps_chunks':
-            # ~10 f32 operations per row and step (3 sub, 3 mul, 2 add,
-            # min, compare)
-            pts, valid, nsamp = args
-            r, l, _ = pts.shape
-            ops += 10.0 * r * l * nsamp
-            nbytes += pts.numel() * 4 + valid.numel() + r * nsamp * 4
-        elif name.startswith('memory_recon'):
-            # products of R x M x C multiply-adds on bf16 tensor cores: the
-            # forward's x W^T and n W over the nonzero weights of n (a sparse
-            # product), the backward's five dense ones (x W^T, dy W^T, dl W,
-            # dl^T x, n^T dy)
+            pts, _valid, nsamp = args
+            works.append(flops.fps_work(*pts.shape[:2], nsamp))
+        elif name == 'memory_recon_fwd':
             x, w = args[0], args[1]
-            r, c = x.shape
-            m = w.shape[0]
-            if name == 'memory_recon_fwd':
-                work = 2.0 * r * m * c + 2.0 * c * recon_nonzero
-                nbytes += (2 * r * c + m * c) * 4
-            else:
-                work = 5 * 2.0 * r * m * c
-                nbytes += (3 * r * c + 2 * m * c) * 4
-            ops += work
-            dmma_ops = (dmma_ops or 0.0) + work
-            flops = BF16_FLOPS_PER_S
+            works.append(flops.memory_recon_fwd_work(x.shape[0], w.shape[0], x.shape[1],
+                                                     recon_nonzero))
+        elif name == 'memory_recon_bwd':
+            x, w = args[0], args[1]
+            works.append(flops.memory_recon_bwd_work(x.shape[0], w.shape[0], x.shape[1]))
         else:
-            # the dense (R, N) score product s of the R valid rows on bf16
-            # tensor cores; K9 and K10 add 2 C flops a selected point for
-            # the value product (out, or dval), and where the tables are
-            # split 2 C more for its logit l, which only the selected
-            # points need; K9's pair pass makes no dense product but for its
-            # overflow rows
             pill, table = args[0], args[1]
             b, v, c = pill.shape
             n = table.shape[1]
             row_mask = args[{'bucket_threshold': 4, 'masked_attend_fwd': 6,
                              'masked_attend_pairs': 6, 'masked_attend_bwd': 9}[name]]
-            r = float(row_mask.sum())
-            io = pill.numel() + table.numel() + b * n + b * v       # in, f32
-            outs = b * v * c * 4 + 3 * b * v * 4 + b * v * PAIR_CAP * 6
+            r = int(row_mask.sum())
             if name == 'bucket_threshold':
-                ops += 2.0 * r * n * c
-                dmma_ops = (dmma_ops or 0.0) + 2.0 * r * n * c
-                nbytes += io * 4 + b * v + b * v * 4
-                flops = BF16_FLOPS_PER_S
-            elif name == 'masked_attend_fwd':         # + out, mx, den, count, pairs
+                works.append(flops.bucket_threshold_work(b, v, n, c, r))
+            elif name == 'masked_attend_fwd':
                 shared = args[5]
-                work = 2.0 * r * n * c + (1 if shared else 2) * 2.0 * c * selected[shared]
-                ops += work
-                dmma_ops = (dmma_ops or 0.0) + work
-                io += 0 if shared else table.numel()
-                nbytes += io * 4 + b * v + outs
-                flops = BF16_FLOPS_PER_S
+                works.append(flops.masked_attend_fwd_work(b, v, n, c, r, selected[shared],
+                                                          shared, PAIR_CAP))
             elif name == 'masked_attend_pairs':
-                # the selection's count and listed indices in, each selected
-                # value row read once
                 shared, (sel_cnt, _) = args[5], args[7]
-                ovf = float(((sel_cnt > PAIR_CAP) & row_mask).sum())
-                listed = float(torch.where((sel_cnt <= PAIR_CAP) & row_mask, sel_cnt, 0).sum())
-                per = 1 if shared else 2
-                ops += per * 2.0 * c * selected[shared] + per * 2.0 * c * n * ovf
-                nbytes += (r * c + args[2].numel() + b * n + b * v * 2) * 4 + b * v \
-                    + listed * 4 + outs
-                flops = BF16_FLOPS_PER_S
+                works.append(flops.masked_attend_pairs_work(
+                    b, v, n, c, r, selected[shared], shared, *pair_counts(sel_cnt, row_mask),
+                    PAIR_CAP))
             else:
-                # the reduce over the listed pairs: reads the valid rows of
-                # dout and the pairs, writes dval; 2 C flops a pair; the
-                # overflow rows' scores (and split logits) at every point
                 shared, cnt = args[8], args[12]
-                n_ovf = float(((cnt > PAIR_CAP) & row_mask).sum())
-                listed = float(torch.where((cnt <= PAIR_CAP) & row_mask, cnt, 0).sum())
-                ops += 2.0 * c * selected[shared] + (1 if shared else 2) * 2.0 * c * n * n_ovf
-                nbytes += r * c * 4 + listed * 6 + b * n * c * 4
-                flops = F32_FLOPS_PER_S
-    b_ms, b_by = bound(ops, flops, nbytes)
-    return b_ms, b_by, None if dmma_ops is None else dmma_ops / F64_TC_FLOPS_PER_S * 1e3
+                works.append(flops.masked_attend_bwd_work(b, v, n, c, r, selected[shared],
+                                                          shared, *pair_counts(cnt, row_mask)))
+    return flops.total(works)
+
+
+def _train_bounds(name, calls, outs, selected, recon_nonzero):
+    """(bound ms, bound_by, DMMA bound ms or None) of :func:`_train_work`:
+    the DMMA bound is the time of the same products on the FP64 tensor
+    cores, where the kernel runs them there (K6, K7, K8, K9's dense
+    sweep)."""
+    from hvpr_tpu_torch.utils import flops
+    return flops.work_bound(_train_work(name, calls, outs, selected, recon_nonzero))
 
 
 def _kernel_device_ms(fn, kernel):
@@ -849,14 +834,15 @@ def _ball_query_detail(calls, plain_outs):
     {'device_ms': of the step's calls, 'calls': [per level]}."""
     import torch
     from hvpr_tpu_torch.ops import pn2_select
+    from hvpr_tpu_torch.utils import flops
     levels = []
     for level, ((args, _), out) in enumerate(zip(calls, plain_outs), 1):
         radii, nsamples, xyz, new_xyz, mask = args
-        n = xyz.shape[1]
-        stops = [ball_stop(idx, cnt, ns, n) for (idx, cnt), ns in zip(out, nsamples)]
+        b, n = xyz.shape[:2]
+        s = new_xyz.shape[1]
+        stops = [flops.ball_stop(idx, cnt, ns, n) for (idx, cnt), ns in zip(out, nsamples)]
         both = float(torch.stack(stops).amax(dim=0).sum())
-        b_ms, b_by = bound((8.0 + len(radii)) * both, F32_FLOPS_PER_S,
-                           ball_bytes(xyz, new_xyz, mask, nsamples))
+        b_ms, b_by, _ = flops.work_bound(flops.ball_query_work(b, n, s, nsamples, both))
         ms = cuda_ms(lambda: pn2_select.ball_query_bucket2(*args))
         dev = _kernel_device_ms(lambda: pn2_select.ball_query_bucket2(*args),
                                 'ball_query_kernel')
@@ -865,8 +851,8 @@ def _ball_query_detail(calls, plain_outs):
               f'{dev:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {both:.4g} pairs needed)')
         per_radius = []
         for r, ns, stop, (_, cnt) in zip(radii, nsamples, stops, out):
-            r_ms, r_by = bound(9.0 * float(stop.sum()), F32_FLOPS_PER_S,
-                               ball_bytes(xyz, new_xyz, mask, (ns,)))
+            r_ms, r_by, _ = flops.work_bound(flops.ball_query_work(b, n, s, (ns,),
+                                                                   float(stop.sum())))
             alone = cuda_ms(lambda: pn2_select.ball_query_bucket(r, ns, xyz, new_xyz, mask))
             alone_dev = _kernel_device_ms(
                 lambda: pn2_select.ball_query_bucket(r, ns, xyz, new_xyz, mask),
@@ -895,8 +881,7 @@ def _recon_nonzero(calls):
     cap = lib.hvpr_memory_recon_fwd_cap()
     total = 0.0
     for (x, w, lam), _ in calls:
-        counts = torch.cat([(memory_recon._attention(xc, w, lam)[3].to(torch.bfloat16) != 0)
-                            .sum(dim=1) for xc in x.split(8192)])
+        counts = memory_recon.nonzero_weights(x, w, lam)
         tiles = torch.nn.functional.pad(counts, (0, -len(counts) % 16)).reshape(-1, 16)
         dense = (tiles > cap).any(dim=1) if lam > 0 else torch.ones(len(tiles), dtype=bool)
         total += float(counts.sum())
@@ -994,6 +979,36 @@ EXACT_OUTPUTS = {'bucket_threshold': (0,), 'masked_attend_fwd': (1, 5),
                  'masked_attend_pairs': (1, 5), 'gather_grad': (0,)}
 
 
+def _train_wrappers():
+    """{train kernel: (module, attribute, wrapper)}: where the train step
+    calls each kernel's wrapper (the attribute that :func:`capture_calls`
+    records), and the wrapper."""
+    from hvpr_tpu_torch.models.backbones_2d.map_to_bev import pointpillar_scatter
+    from hvpr_tpu_torch.ops import gather_rows, memory_recon, pn2_select, pointnet2, topk_attend
+    return {'ball_query': (pointnet2, 'ball_query_bucket2', pn2_select.ball_query_bucket2),
+            'fps_chunks': (pointnet2, 'fps_chunks', pn2_select.fps_chunks),
+            'memory_recon_fwd': (memory_recon, 'recon_forward', memory_recon.recon_forward),
+            'memory_recon_bwd': (memory_recon, 'recon_backward', memory_recon.recon_backward),
+            'bucket_threshold': (pointpillar_scatter, 'bucket_threshold',
+                                 topk_attend.bucket_threshold),
+            'masked_attend_fwd': (topk_attend, 'masked_attend_fwd',
+                                  topk_attend.masked_attend_fwd),
+            # the same wrapper; its calls that carry a selection
+            'masked_attend_pairs': (None, None, topk_attend.masked_attend_fwd),
+            'masked_attend_bwd': (topk_attend, 'masked_attend_bwd',
+                                  topk_attend.masked_attend_bwd),
+            'gather_grad': (gather_rows, 'gather_rows_backward',
+                            gather_rows.gather_rows_backward)}
+
+
+def _split_attend_calls(calls):
+    """K9's captured calls split in place: the dense sweep's (no selection)
+    stay under masked_attend_fwd, the pair pass's go to masked_attend_pairs."""
+    fwd = calls.pop('masked_attend_fwd', [])
+    calls['masked_attend_fwd'] = [cl for cl in fwd if cl[0][7] is None]
+    calls['masked_attend_pairs'] = [cl for cl in fwd if cl[0][7] is not None]
+
+
 def train_phase(smi, mode, cfg_path=CFG, n_steps=None):
     """One train step of ``cfg_path`` (hvpr.yaml, or hvpr_multiclass.yaml)
     at batch 4 in TRAIN_ATTEND_MODE ``mode`` through the kernels against one
@@ -1008,8 +1023,7 @@ def train_phase(smi, mode, cfg_path=CFG, n_steps=None):
     import torch
     from hvpr_tpu_torch.models import DatasetMeta, build_network
     from hvpr_tpu_torch.models.backbones_2d.map_to_bev import pointpillar_scatter
-    from hvpr_tpu_torch.ops import (_kernels, gather_rows, memory_recon, pn2_select,
-                                    pointnet2, topk_attend)
+    from hvpr_tpu_torch.ops import _kernels, gather_rows, pointnet2, topk_attend
     from hvpr_tpu_torch.parallel import loss_and_grads
     from hvpr_tpu_torch.utils.scans import realistic_scans_with_boxes
 
@@ -1040,22 +1054,7 @@ def train_phase(smi, mode, cfg_path=CFG, n_steps=None):
         chunk = inspect.signature(
             pointpillar_scatter.attentive_point_pooling).parameters['chunk'].default
         step_launches['gather_grad'] += -(-meta.max_voxels // chunk) + 1
-    wrappers = {'ball_query': (pointnet2, 'ball_query_bucket2', pn2_select.ball_query_bucket2),
-                'fps_chunks': (pointnet2, 'fps_chunks', pn2_select.fps_chunks),
-                'memory_recon_fwd': (memory_recon, 'recon_forward', memory_recon.recon_forward),
-                'memory_recon_bwd': (memory_recon, 'recon_backward',
-                                     memory_recon.recon_backward),
-                'bucket_threshold': (pointpillar_scatter, 'bucket_threshold',
-                                     topk_attend.bucket_threshold),
-                'masked_attend_fwd': (topk_attend, 'masked_attend_fwd',
-                                      topk_attend.masked_attend_fwd),
-                # the same wrapper; its calls that carry a selection
-                'masked_attend_pairs': (None, None, topk_attend.masked_attend_fwd),
-                'masked_attend_bwd': (topk_attend, 'masked_attend_bwd',
-                                      topk_attend.masked_attend_bwd),
-                'gather_grad': (gather_rows, 'gather_rows_backward',
-                                gather_rows.gather_rows_backward)}
-    wrappers = {k: w for k, w in wrappers.items() if k in step_launches}
+    wrappers = {k: w for k, w in _train_wrappers().items() if k in step_launches}
 
     def fresh():
         net.module.load_state_dict(state0)
@@ -1115,11 +1114,7 @@ def train_phase(smi, mode, cfg_path=CFG, n_steps=None):
     if differ:
         fail(f'the {label} kernel step differs from the plain step in {differ[:5]}')
     if fused:
-        # K9's calls: the dense sweep's (no selection), the pair pass's
-        fwd = calls.pop('masked_attend_fwd', [])
-        calls['masked_attend_fwd'] = [cl for cl in fwd if cl[0][7] is None]
-        calls['masked_attend_pairs'] = [cl for cl in fwd if cl[0][7] is not None]
-        del fwd                 # the captures are freed with `calls` below
+        _split_attend_calls(calls)
     for name, per_step in step_launches.items():
         if len(calls.get(name, ())) != per_step:
             fail(f'one {label} train step called {name} {len(calls.get(name, ()))} '
@@ -1358,12 +1353,13 @@ def three_nn_phase(calls):
     Returns ({'three_nn_bucket': entry}, that path's launch counts)."""
     import torch
     from hvpr_tpu_torch.ops import _kernels, pn2_select, pointnet2
+    from hvpr_tpu_torch.utils import flops
 
     if len(calls) != 2:
         fail(f'one fused train step called three_nn {len(calls)} times, expected 2')
     fn = pn2_select.three_nn_bucket
     err = ms = plain_ms = 0.0
-    ops = nbytes = 0.0
+    works = []
     for (unknown, known, known_mask), _ in calls:
         (dist, idx) = fn(unknown, known, known_mask)
         with _kernels.plain_versions():
@@ -1383,15 +1379,11 @@ def three_nn_phase(calls):
         _, idx_x = pointnet2.three_nn(unknown, known, known_mask)
         same = (torch.sort(idx.long(), dim=-1).values
                 == torch.sort(idx_x, dim=-1).values).all(dim=-1)
-        b, n, _ = unknown.shape
-        s = known.shape[1]
         print(f'three_nn_bucket: {tuple(unknown.shape)} x {tuple(known.shape)}, indices and '
               f'distances equal to plain; bucket set = exact three_nn set for '
               f'{float(same.float().mean()):.4f} of the unknown points')
-        # ~10 f32 operations per (unknown, known) pair; inputs and outputs once
-        ops += 10.0 * b * n * s
-        nbytes += (unknown.numel() + known.numel()) * 4 + known_mask.numel() + b * n * 3 * 8
-    b_ms, b_by = bound(ops, F32_FLOPS_PER_S, nbytes)
+        works.append(flops.three_nn_work(*unknown.shape[:2], known.shape[1]))
+    b_ms, b_by, _ = flops.work_bound(flops.total(works))
     print(f'three_nn_bucket: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms for both calls, '
           f'bound {b_ms:.4f} ms ({b_by})')
 
@@ -1418,6 +1410,7 @@ def exact_fps_phase(smi):
     import torch
     from hvpr_tpu_torch.models import DatasetMeta
     from hvpr_tpu_torch.ops import _kernels, pointnet2
+    from hvpr_tpu_torch.utils import flops
     from hvpr_tpu_torch.utils.scans import realistic_scans_with_boxes
 
     cfg = load_cfg()
@@ -1442,10 +1435,8 @@ def exact_fps_phase(smi):
     ms = cuda_ms(run, reps=10, warmup=2)
     with _kernels.plain_versions():
         plain_ms = cuda_ms(run, reps=1, warmup=0)
-    # ~10 f32 operations per row and step; the real bound is the chain of
-    # npoint dependent steps
-    b_ms, b_by = bound(10.0 * TRAIN_BATCH * N_POINTS * EXACT_FPS_NPOINT, F32_FLOPS_PER_S,
-                       xyz.numel() * 4 + mask.numel() + TRAIN_BATCH * EXACT_FPS_NPOINT * 4)
+    # the real bound is the chain of npoint dependent steps
+    b_ms, b_by, _ = flops.work_bound(flops.fps_work(TRAIN_BATCH, N_POINTS, EXACT_FPS_NPOINT))
     _kernels.reset_launch_counts()
     run()
     torch.cuda.synchronize()
@@ -2727,15 +2718,9 @@ def _rel_err(got, want):
 
 
 def _k12_bound(calls):
-    """K12's bound over captured calls, as the train phase counts it: the
-    rows' gradient and their int64 targets read once, the source gradient
-    written once, an f32 add an element."""
-    ops = nbytes = 0
-    for (grad, index, n), _ in calls:
-        es = grad.element_size()
-        ops += grad.numel()
-        nbytes += grad.numel() * es + index.numel() * 8 + n * grad.shape[1] * es
-    return bound(ops, F32_FLOPS_PER_S, nbytes)
+    """K12's bound over captured calls, as the train phase counts it
+    (``utils.flops.gather_grad_work``)."""
+    return _train_bounds('gather_grad', calls, [None] * len(calls), None, None)[:2]
 
 
 def device_report(fn, wall_ms, reps=2):
@@ -3713,6 +3698,188 @@ def options_phase(smi):
     return {k: launches[k] + infer_launches[k] for k in launches}
 
 
+PROFILE_ITERS = 3                  # timed runs of each profiled region, after a warm-up
+PROFILE_BATCH = 16                 # the JAX profilers' batches: inference, training
+PROFILE_TRAIN_BATCH = 4
+PROFILE_TOOLS = ('profile_stages', 'profile_train_stages', 'profile_post', 'profile_head',
+                 'profile_pn2', 'profile_lookup', 'profile_train')
+PROFILE_FORWARD_LAUNCHES = {'segment_sweep': 3, 'memory_lookup': 1, 'bev_canvas': 2}
+
+
+def _jax_record_keys(name):
+    """The keys of a row of the JAX package's record ``name``."""
+    with open(os.path.join(ROOT, name)) as f:
+        return set(json.load(f)['stages'][0])
+
+
+def _dense_formula(name, args):
+    """The dense formula (``utils.flops``, the JAX package's) of one
+    captured call of kernel ``name``, or None where it has none: a backward
+    call's is the value with its forward."""
+    from hvpr_tpu_torch.utils import flops
+    if name == 'memory_lookup':
+        return flops.memory_lookup_fused_flops(args[0].shape[0], *args[1].shape)
+    if name.startswith('memory_recon'):
+        x, w = args[0], args[1]
+        return flops.memory_recon_flops(x.shape[0], w.shape[0], x.shape[1],
+                                        name == 'memory_recon_bwd')
+    if name in ('bucket_threshold', 'masked_attend_fwd', 'masked_attend_pairs',
+                'masked_attend_bwd'):
+        b, v, c = args[0].shape
+        n = args[1].shape[1]
+        if name == 'bucket_threshold':
+            return flops.bucket_threshold_flops(b, v, n, c)
+        shared = args[8] if name == 'masked_attend_bwd' else args[5]
+        return flops.masked_attend_flops(b, v, n, c, shared, name == 'masked_attend_bwd')
+    return None
+
+
+def _check_counted_work(label, counter, works, calls):
+    """Each kernel's counted work (what its wrapper reported to
+    ``counter``) against ``works``, its work function over the captured
+    ``calls`` (the bound column's), and under its dense formula."""
+    from hvpr_tpu_torch.utils import flops
+    for name, want in works.items():
+        got = counter.kernels.get(name)
+        if got is None or got['calls'] != len(calls[name]):
+            fail(f'profile ({label}): {name} reported {got}, captured {len(calls[name])} calls')
+        for key, value in (('ops', want.ops), ('bytes', want.nbytes)):
+            if abs(got[key] - value) > 1e-9 * max(abs(value), 1.0):
+                fail(f'profile ({label}): {name} counted {key} {got[key]}, its work function '
+                     f'over the captured calls {value}')
+        dense = [_dense_formula(name, a) for a, _ in calls[name]]
+        ceiling = None if dense[0] is None else sum(dense)
+        if ceiling is not None and got['ops'] > ceiling:
+            fail(f'profile ({label}): {name} counted {got["ops"]} operations, above its dense '
+                 f'formula {ceiling}')
+        b_ms, b_by, _ = flops.work_bound(want)
+        print(f'profile ({label}) {name}: {got["calls"]} call(s), counted {got["ops"] / 1e9:.6g} '
+              f'GFLOP and {got["bytes"] / 1e9:.6g} GB = its work function over the captured '
+              f'calls; bound {b_ms:.4f} ms ({b_by}); dense formula '
+              + ('none' if ceiling is None else f'{ceiling / 1e9:.6g} GFLOP'))
+
+
+def profile_phase(smi):
+    """The port's profilers (``hvpr_tpu_torch/tools/profile_*.py``) on the
+    card at hvpr.yaml's full width and the JAX tools' batches (16 for
+    inference, 4 for training), PROFILE_ITERS timed runs a region, under
+    torch's default backend flags: each record printed beside the card's
+    power limit and written to ``chiprun_out/profile/``. It fails if a row
+    lacks a key of the JAX record (``STAGE_PROFILE.json``,
+    ``TRAIN_PROFILE.json``), a record names no card or power limit, an
+    ``mfu`` is above 1 (a counting error), or backbone_2d or dense_head
+    counts no flop; an ``hbm_frac`` above 1 is printed as a finding (the
+    counter takes L2 hits as device-memory traffic). Then the profiled
+    forward (batch 16) and one profiled step (batch 4) are counted again
+    with every kernel wrapper call captured: each kernel's counted work
+    must equal its work function over those calls and stay under its dense
+    formula, and the forward must launch K1 x3, K2 and K3 x2, the step
+    STEP_LAUNCHES, nothing else. Returns those two passes' launches."""
+    import importlib
+    import torch
+    from hvpr_tpu_torch.models.backbones_2d.map_to_bev import (
+        memory_module, pointpillar_scatter)
+    from hvpr_tpu_torch.models.backbones_3d.vfe import pillar_vfe
+    from hvpr_tpu_torch.ops import _kernels
+    from hvpr_tpu_torch.tools import profile_stages, profile_train_stages
+    from hvpr_tpu_torch.utils import flops
+
+    keys = {'profile_stages': _jax_record_keys('STAGE_PROFILE.json'),
+            'profile_train_stages': _jax_record_keys('TRAIN_PROFILE.json')}
+    out_dir = os.path.join(ROOT, 'chiprun_out', 'profile')
+    os.makedirs(out_dir, exist_ok=True)
+    kind = torch.cuda.get_device_name(0)
+    records = {}
+    with cli_flags():
+        for name in PROFILE_TOOLS:
+            t0 = time.perf_counter()
+            rec = importlib.import_module(f'hvpr_tpu_torch.tools.{name}').run(
+                device='cuda', iters=PROFILE_ITERS)
+            records[name] = rec
+            with open(os.path.join(out_dir, f'{name}.json'), 'w') as f:
+                json.dump(rec, f, indent=1)
+            rows = rec.get('stages', [rec])
+            print(f'profile {name} ({time.perf_counter() - t0:.1f} s; {rec["power_limit"]}): '
+                  + '; '.join(
+                      ', '.join(f'{k} {v}' for k, v in r.items()
+                                if not isinstance(v, (dict, list)) and k != 'note')
+                      for r in rows))
+            if rec['device'] != kind or not rec['power_limit']:
+                fail(f'profile {name}: device {rec["device"]!r}, power limit '
+                     f'{rec["power_limit"]!r}')
+            for row in rows:
+                missing = keys.get(name, {'mfu', 'hbm_frac', 'bound'}) - set(row)
+                if missing:
+                    fail(f'profile {name}: row {row.get("stage")} lacks {sorted(missing)}')
+                for k in ('mfu', 'cum_mfu'):
+                    if row.get(k) is not None and row[k] > 1.0:
+                        fail(f'profile {name}: {row.get("stage")} {k} {row[k]} above 1: a '
+                             f'counting error')
+                if (row.get('hbm_frac') or 0.0) > 1.0:
+                    print(f'profile {name}: {row.get("stage")} hbm_frac {row["hbm_frac"]} '
+                          f'above 1 (eager per-op bytes; L2 hits counted as device memory)')
+            for k in ('pipeline_mfu', 'train_step_mfu'):
+                if rec.get(k) is not None and rec[k] > 1.0:
+                    fail(f'profile {name}: {k} {rec[k]} above 1: a counting error')
+    gflop = {r['stage']: r['stage_gflop'] for r in records['profile_stages']['stages']}
+    if not gflop['+backbone_2d'] > 0 or not gflop['+dense_head'] > 0:
+        fail(f'profile: backbone_2d or dense_head counts no flop: {gflop}')
+
+    device = torch.device('cuda')
+    cfg = profile_stages.load_config()
+    launches = {}
+    # the profiled forward
+    net = profile_stages.build(cfg, device)
+    points, mask, _ = profile_stages.scans(net, PROFILE_BATCH, N_POINTS, 0, device)
+    net.pipeline(points, mask)
+    counters = []
+    _kernels.reset_launch_counts()
+    calls = capture_calls(
+        [(pillar_vfe, 'segment_sweep', 'segment_sweep'),
+         (memory_module, 'memory_lookup_fused', 'memory_lookup'),
+         (pointpillar_scatter, 'canvas_from_sorted', 'bev_canvas')],
+        lambda: counters.append(profile_stages.counted(lambda: net.pipeline(points, mask))[1]))
+    torch.cuda.synchronize()
+    fwd_launches = _kernels.launch_counts()
+    if fwd_launches != {k: PROFILE_FORWARD_LAUNCHES.get(k, 0) for k in fwd_launches}:
+        fail(f'profile: the counted forward launched {fwd_launches}, expected '
+             f'{PROFILE_FORWARD_LAUNCHES}')
+    works = {'segment_sweep': _sweep_work(calls['segment_sweep']),
+             'memory_lookup': flops.total(
+                 _lookup_work(a, memory_module.memory_lookup_fused(*a, return_stats=True)[2])
+                 for a, _ in calls['memory_lookup']),
+             'bev_canvas': _canvas_work(calls['bev_canvas'])}
+    _check_counted_work(f'forward, batch {PROFILE_BATCH}', counters[0], works, calls)
+    del net, points, mask, calls, counters
+
+    # one profiled step
+    net, data = profile_train_stages.train_setup(cfg, PROFILE_TRAIN_BATCH, device)
+    net.train_step(data)
+    wrappers = _train_wrappers()
+    counters = []
+    _kernels.reset_launch_counts()
+    calls = capture_calls(
+        [(mod, attr, name) for name, (mod, attr, _) in wrappers.items() if mod is not None],
+        lambda: counters.append(profile_stages.counted(lambda: net.train_step(data))[1]))
+    torch.cuda.synchronize()
+    step_launches = _kernels.launch_counts()
+    if step_launches != {k: STEP_LAUNCHES.get(k, 0) for k in step_launches}:
+        fail(f'profile: the counted step launched {step_launches}, expected {STEP_LAUNCHES}')
+    _split_attend_calls(calls)
+    outs = {name: [wrappers[name][2](*a, **kw) for a, kw in calls[name]]
+            for name in ('ball_query', 'masked_attend_fwd', 'masked_attend_pairs')}
+    selected = {a[5]: float(out[3][a[6]].sum())
+                for (a, _), out in zip(calls['masked_attend_fwd'] + calls['masked_attend_pairs'],
+                                       outs['masked_attend_fwd'] + outs['masked_attend_pairs'])}
+    recon_nonzero = _recon_nonzero(calls['memory_recon_fwd'])
+    works = {name: _train_work(name, calls[name], outs.get(name, [None] * len(calls[name])),
+                               selected, recon_nonzero) for name in STEP_LAUNCHES}
+    _check_counted_work(f'step, batch {PROFILE_TRAIN_BATCH}', counters[0], works, calls)
+    print(f'profile: the counted forward launched {fwd_launches}, the counted step '
+          f'{step_launches}, on {smi}')
+    return {k: fwd_launches[k] + step_launches[k] for k in fwd_launches}
+
+
 def _descendants(pid):
     """{pid: parent pid} of every process below ``pid``."""
     parents = {}
@@ -3768,7 +3935,7 @@ def stop_descendants():
 
 
 PHASES = ('inference', 'multiclass', 'pointpillar', 'nuscenes', 'eval_cli', 'train',
-          'train_cli', 'ddp', 'second', 'nofp', 'demo', 'options')
+          'train_cli', 'ddp', 'second', 'nofp', 'demo', 'options', 'profile')
 
 
 def main(argv=None):
@@ -3831,7 +3998,7 @@ def run_phases(only=None):
                             ('pointpillar', pointpillar_phase),
                             ('nuscenes', nuscenes_phase), ('eval_cli', eval_cli_phase),
                             ('train_cli', train_cli_phase), ('ddp', ddp_phase),
-                            ('options', options_phase)):
+                            ('options', options_phase), ('profile', profile_phase)):
             if name in only:
                 t0 = time.perf_counter()
                 phase(smi)
@@ -3889,6 +4056,9 @@ def run_phases(only=None):
     t0 = time.perf_counter()
     options_launches = options_phase(smi)
     print(f'options phase: {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    profile_launches = profile_phase(smi)
+    print(f'profile phase: {time.perf_counter() - t0:.1f} s')
     from hvpr_tpu_torch.datasets import stop_worker_server
     stop_worker_server()    # no loader runs from here on
     print('step 1 from the same state, fused - gather: ' + ', '.join(
@@ -3930,6 +4100,7 @@ def run_phases(only=None):
         kernels[-1]['nofp_launches'] = nofp_launches[name]
         kernels[-1]['demo_launches'] = demo_launches[name]
         kernels[-1]['options_launches'] = options_launches[name]
+        kernels[-1]['profile_launches'] = profile_launches[name]
         if name in nofp_entries:
             kernels[-1]['nofp'] = nofp_entries[name]
         if name == 'gather_grad':

@@ -10,7 +10,9 @@ checkpoints on KITTI trees (``tools/test.py``, the data layer of
 the augmentor of ``datasets/augmentor/``), builds every module of the JAX
 package's registries (the SECOND family's sparse and dense 3D backbones,
 ``AnchorHeadMulti``, ATSS, ...) and runs the demo and vis entry points
-(``tools/demo.py``, ``tools/vis.py``); every TPU kernel of the JAX
+(``tools/demo.py``, ``tools/vis.py``), and counts and profiles its
+stages against the card's peaks (``utils/flops.py``,
+``tools/profile_*.py``); every TPU kernel of the JAX
 package is hand-written CUDA (``csrc/``: K1-K3 for inference, K4-K10 for
 training, and K11, the bucketed 3-NN, which no path calls, as in the JAX
 package), built with nvcc at first use and loaded with ctypes

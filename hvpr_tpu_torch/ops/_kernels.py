@@ -11,7 +11,8 @@ at import time.
 Every wrapper in ``ops/`` calls :func:`launched` right after its kernel
 returns: it raises on a nonzero ``cudaGetLastError()`` and otherwise adds one
 to that kernel's launch count, so a run can show which kernels it went
-through.
+through. At its entry each wrapper also reports its work to an active
+``utils.flops.Counter`` (one check of ``flops.counter`` when none is).
 """
 
 import contextlib

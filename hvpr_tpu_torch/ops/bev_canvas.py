@@ -16,6 +16,7 @@ import ctypes
 
 import torch
 
+from ..utils import flops
 from . import _kernels
 from .scatter import scatter_to_bev
 
@@ -35,6 +36,11 @@ def canvas_from_sorted(features, coords, mask, ny, nx, out_dtype=torch.float32):
         ny, nx: grid size.
         out_dtype: torch.float32 or torch.bfloat16.
     """
+    if flops.counter is not None:
+        return flops.counter.kernel(
+            'bev_canvas', lambda: canvas_from_sorted(features, coords, mask, ny, nx, out_dtype),
+            lambda out: flops.bev_canvas_work(*features.shape, ny, nx, int(mask.sum()),
+                                              out.element_size(), features.element_size()))
     if not _kernels.use_kernel(features):
         return canvas_plain(features, coords, mask, ny, nx, out_dtype)
     _kernels.refuse_grad('bev_canvas', features)

@@ -20,6 +20,7 @@ import ctypes
 
 import torch
 
+from ..utils import flops
 from . import _kernels
 
 
@@ -33,6 +34,10 @@ def gather_rows_backward_plain(grad, index, n):
 
 def gather_rows_backward(grad, index, n):
     """:func:`gather_rows_backward_plain` by kernel K12 on a CUDA tensor."""
+    if flops.counter is not None:
+        return flops.counter.kernel(
+            'gather_grad', lambda: gather_rows_backward(grad, index, n),
+            lambda out: flops.gather_grad_work(*grad.shape, grad.element_size(), n))
     if not _kernels.use_kernel(grad):
         return gather_rows_backward_plain(grad, index, n)
     if grad.dtype not in (torch.float32, torch.bfloat16):

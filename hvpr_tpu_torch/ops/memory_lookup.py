@@ -31,6 +31,7 @@ import ctypes
 
 import torch
 
+from ..utils import flops
 from . import _kernels
 
 NUM_BUCKETS = 128
@@ -92,6 +93,13 @@ def memory_lookup_fused(pillars, memory, k, row_mask=None, return_stats=False):
                          f'pillars {tuple(pillars.shape)}')
     if not 1 <= k <= NUM_BUCKETS:
         raise ValueError(f'memory_lookup: k={k} outside [1, {NUM_BUCKETS}]')
+    if flops.counter is not None:
+        # the work needs the selected counts: this counted call returns them
+        got = flops.counter.kernel(
+            'memory_lookup', lambda: memory_lookup_fused(pillars, memory, k, row_mask, True),
+            lambda out: flops.memory_lookup_work(
+                r, r if row_mask is None else int(row_mask.sum()), m, c, float(out[2].sum())))
+        return got if return_stats else got[0]
     if not _kernels.use_kernel(pillars):
         return memory_lookup_plain(pillars, memory, k, row_mask, return_stats)
     _kernels.refuse_grad('memory_lookup', pillars, memory)

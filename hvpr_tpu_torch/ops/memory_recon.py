@@ -41,6 +41,7 @@ import ctypes
 
 import torch
 
+from ..utils import flops
 from . import _kernels
 
 _EPS = 1e-12       # hard-shrink epsilon
@@ -67,6 +68,13 @@ def _attention(x, w, lam):
     s = torch.clamp(u, min=0.0) * a / (u.abs() + _EPS)
     t_raw = s.double().sum(dim=-1, keepdim=True).float()
     return a, s, t_raw, s / torch.clamp(t_raw, min=_DELTA)
+
+
+def nonzero_weights(x, w, lam):
+    """(R,) count of each row's nonzero bf16(n): the weights K6's sparse
+    ``n W`` runs over."""
+    return torch.cat([(_attention(xc, w, lam)[3].to(torch.bfloat16) != 0).sum(dim=1)
+                      for xc in x.split(_PLAIN_ROWS)])
 
 
 def recon_forward_plain(x, w, lam):
@@ -123,6 +131,11 @@ def _pad8(t):
 
 def recon_forward(x, w, lam):
     """(R, C) f32 rows, (M, C) f32 memory -> (R, C) f32 reconstructions."""
+    if flops.counter is not None:
+        return flops.counter.kernel(
+            'memory_recon_fwd', lambda: recon_forward(x, w, lam),
+            lambda out: flops.memory_recon_fwd_work(
+                x.shape[0], w.shape[0], x.shape[1], float(nonzero_weights(x, w, lam).sum())))
     if not _kernels.use_kernel(x):
         return recon_forward_plain(x, w, lam)
     xb = _pad8(x.to(torch.bfloat16)).contiguous()
@@ -151,6 +164,10 @@ def recon_forward(x, w, lam):
 
 def recon_backward(x, w, dy, lam):
     """(dx (R, C), dW (M, C)) f32 for upstream gradient ``dy`` (R, C)."""
+    if flops.counter is not None:
+        return flops.counter.kernel(
+            'memory_recon_bwd', lambda: recon_backward(x, w, dy, lam),
+            lambda out: flops.memory_recon_bwd_work(x.shape[0], w.shape[0], x.shape[1]))
     if not _kernels.use_kernel(x):
         return recon_backward_plain(x, w, dy, lam)
     xb = x.to(torch.bfloat16).contiguous()

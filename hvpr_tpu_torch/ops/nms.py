@@ -17,6 +17,45 @@ import torch
 from .rotated_iou import boxes_iou_bev
 
 
+def preselect(scores, pre_maxsize):
+    """The live candidates among the ``pre_maxsize`` best scores of one
+    sample: (order, valid), indices in descending score order and which of
+    them score above ``-inf`` (at least one row, as many as are live)."""
+    k = min(pre_maxsize, scores.shape[0])
+    order = torch.sort(scores, descending=True, stable=True).indices[:k]
+    valid = scores[order] > -torch.inf
+    n_live = max(1, int(valid.sum()))
+    return order[:n_live], valid[:n_live]
+
+
+def suppress(iou, valid, thresh):
+    """(K,) bool survivors of greedy suppression over score-sorted boxes
+    with (K, K) IoUs ``iou``: the fixed point of the module docstring."""
+    n_live = valid.shape[0]
+    row = torch.arange(n_live, device=iou.device)
+    suppressed_by = ((iou > thresh) & (row[:, None] < row[None, :])).float()
+    valid_f = valid.float()
+    cur = valid_f
+    for _ in range(n_live):
+        new = valid_f * ((cur @ suppressed_by) <= 0.0).float()
+        if torch.equal(new, cur):
+            break
+        cur = new
+    return cur > 0.0
+
+
+def compact(keep, order, post_maxsize):
+    """(keep_idx, keep_mask) of :func:`nms_bev_fixed` from the survivors
+    ``keep`` of the boxes at ``order``."""
+    kept = torch.nonzero(keep).squeeze(1)[:post_maxsize]
+    keep_idx = torch.full((post_maxsize,), int(order[0]), dtype=torch.int64,
+                          device=order.device)
+    keep_idx[:kept.numel()] = order[kept]
+    keep_mask = torch.zeros(post_maxsize, dtype=torch.bool, device=order.device)
+    keep_mask[:kept.numel()] = True
+    return keep_idx, keep_mask
+
+
 def nms_bev_fixed(boxes, scores, thresh, pre_maxsize=4096, post_maxsize=500):
     """Rotated BEV NMS of one sample.
 
@@ -29,31 +68,8 @@ def nms_bev_fixed(boxes, scores, thresh, pre_maxsize=4096, post_maxsize=500):
         the kept ones hold the index of the top-scored box), keep_mask
         (post_maxsize,) bool, num_kept () int64 survivors before the cap.
     """
-    n = boxes.shape[0]
-    dev = boxes.device
-    k = min(pre_maxsize, n)
-    order = torch.sort(scores, descending=True, stable=True).indices[:k]
-    valid = scores[order] > -torch.inf
-    n_live = max(1, int(valid.sum()))
-    order, valid = order[:n_live], valid[:n_live]
-
+    order, valid = preselect(scores, pre_maxsize)
     boxes_k = boxes[order]
-    iou = boxes_iou_bev(boxes_k, boxes_k)
-    row = torch.arange(n_live, device=dev)
-    suppress = ((iou > thresh) & (row[:, None] < row[None, :])).float()
-    valid_f = valid.float()
-    cur = valid_f
-    for _ in range(n_live):
-        new = valid_f * ((cur @ suppress) <= 0.0).float()
-        if torch.equal(new, cur):
-            break
-        cur = new
-    keep = cur > 0.0
-
-    kept = torch.nonzero(keep).squeeze(1)[:post_maxsize]
-    keep_idx = torch.full((post_maxsize,), int(order[0]), dtype=torch.int64,
-                          device=dev)
-    keep_idx[:kept.numel()] = order[kept]
-    keep_mask = torch.zeros(post_maxsize, dtype=torch.bool, device=dev)
-    keep_mask[:kept.numel()] = True
+    keep = suppress(boxes_iou_bev(boxes_k, boxes_k), valid, thresh)
+    keep_idx, keep_mask = compact(keep, order, post_maxsize)
     return keep_idx, keep_mask, keep.sum()

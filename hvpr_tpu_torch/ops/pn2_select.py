@@ -39,6 +39,7 @@ import ctypes
 
 import torch
 
+from ..utils import flops
 from . import _kernels
 
 NUM_BUCKETS = 128
@@ -129,6 +130,12 @@ def ball_query_bucket(radius, nsample, xyz, new_xyz, mask):
         idx (B, S, nsample) int32, cnt (B, S) int32.
     """
     _check_nsamples(nsample)
+    if flops.counter is not None:
+        return flops.counter.kernel(
+            'ball_query', lambda: ball_query_bucket(radius, nsample, xyz, new_xyz, mask),
+            lambda out: flops.ball_query_work(
+                *xyz.shape[:2], new_xyz.shape[1], (nsample,),
+                float(flops.ball_stop(*out, nsample, xyz.shape[1]).sum())))
     if not _kernels.use_kernel(xyz):
         return ball_query_bucket_plain(radius, nsample, xyz.detach(), new_xyz.detach(), mask)
     xyz, new_xyz, mask, (b, n, s) = _ball_query_inputs(xyz, new_xyz, mask)
@@ -158,6 +165,14 @@ def ball_query_bucket2(radii, nsamples, xyz, new_xyz, mask):
     """
     (r0, r1), (ns0, ns1) = radii, nsamples
     _check_nsamples(ns0, ns1)
+    if flops.counter is not None:
+        # a centre's sweep runs until both radii have their buckets
+        return flops.counter.kernel(
+            'ball_query', lambda: ball_query_bucket2(radii, nsamples, xyz, new_xyz, mask),
+            lambda out: flops.ball_query_work(
+                *xyz.shape[:2], new_xyz.shape[1], nsamples, float(torch.stack(
+                    [flops.ball_stop(idx, cnt, ns, xyz.shape[1])
+                     for (idx, cnt), ns in zip(out, nsamples)]).amax(dim=0).sum())))
     if not _kernels.use_kernel(xyz):
         return tuple(ball_query_bucket_plain(r, ns, xyz.detach(), new_xyz.detach(), mask)
                      for r, ns in ((r0, ns0), (r1, ns1)))
@@ -215,6 +230,10 @@ def three_nn_bucket(unknown, known, known_mask):
     Returns:
         dist (B, N, 3) f32 and idx (B, N, 3) int32, neither with a gradient.
     """
+    if flops.counter is not None:
+        return flops.counter.kernel(
+            'three_nn_bucket', lambda: three_nn_bucket(unknown, known, known_mask),
+            lambda out: flops.three_nn_work(*unknown.shape[:2], known.shape[1]))
     unknown = unknown.detach()
     known = known.detach()
     if not _kernels.use_kernel(known):
@@ -275,6 +294,10 @@ def fps_chunks(pts, valid, nsamp):
     Returns:
         (R, nsamp) int32 local row indices.
     """
+    if flops.counter is not None:
+        return flops.counter.kernel(
+            'fps_chunks', lambda: fps_chunks(pts, valid, nsamp),
+            lambda out: flops.fps_work(*pts.shape[:2], nsamp))
     pts = pts.detach()
     if not _kernels.use_kernel(pts):
         return fps_chunks_plain(pts, valid, nsamp)

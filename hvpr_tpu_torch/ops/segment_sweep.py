@@ -20,6 +20,7 @@ import ctypes
 
 import torch
 
+from ..utils import flops
 from . import _kernels
 from .scatter import segment_broadcast_max_t, segment_sums_t
 
@@ -46,6 +47,10 @@ def segment_sweep(x_t, safe_slot, max_seg=32, op='max'):
     """
     if op not in _OPS:
         raise ValueError(op)
+    if flops.counter is not None:
+        return flops.counter.kernel(
+            'segment_sweep', lambda: segment_sweep(x_t, safe_slot, max_seg, op),
+            lambda out: flops.segment_sweep_work(*x_t.shape))
     if not _kernels.use_kernel(x_t):
         return segment_sweep_plain(x_t, safe_slot, max_seg, op)
     _kernels.refuse_grad('segment_sweep', x_t)

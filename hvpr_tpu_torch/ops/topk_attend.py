@@ -75,6 +75,7 @@ import ctypes
 
 import torch
 
+from ..utils import flops
 from . import _kernels
 
 NUM_BUCKETS = 128
@@ -289,6 +290,28 @@ def _bf16(t):
     return t.detach().to(torch.bfloat16).contiguous()
 
 
+def _selection_counts(cnt, row_mask):
+    """(valid rows, points they select) of a (B, V) selected count."""
+    return int(row_mask.sum()), float(cnt[row_mask].sum())
+
+
+def pair_counts(cnt, row_mask):
+    """(overflow rows, listed pairs) of a (B, V) selected count: the valid
+    rows above the PAIR_CAP list, and the pairs the others list."""
+    listed = (cnt <= PAIR_CAP) & row_mask
+    return int(((cnt > PAIR_CAP) & row_mask).sum()), float(torch.where(listed, cnt, 0).sum())
+
+
+def _fwd_work(pillars, sel_table, shared, row_mask, selection, cnt):
+    """The :class:`flops.Work` of a K9 call that selected ``cnt``."""
+    dims = (*pillars.shape[:2], sel_table.shape[1], pillars.shape[2])
+    if selection is None:
+        return flops.masked_attend_fwd_work(*dims, *_selection_counts(cnt, row_mask), shared,
+                                            PAIR_CAP)
+    return flops.masked_attend_pairs_work(*dims, *_selection_counts(cnt, row_mask), shared,
+                                          *pair_counts(selection[0], row_mask), PAIR_CAP)
+
+
 def bucket_threshold(pillars, table, neg, k, row_mask):
     """Per-pillar top-k score threshold over the pillar's scan (kernel K8).
 
@@ -305,6 +328,11 @@ def bucket_threshold(pillars, table, neg, k, row_mask):
         raise ValueError(
             f'bucket_threshold requires 1 <= k <= {NUM_BUCKETS} (got k={k}): '
             f'the per-bucket-max superset guarantee breaks past the bucket count')
+    if flops.counter is not None:
+        return flops.counter.kernel(
+            'bucket_threshold', lambda: bucket_threshold(pillars, table, neg, k, row_mask),
+            lambda out: flops.bucket_threshold_work(*pillars.shape[:2], table.shape[1],
+                                                    pillars.shape[2], int(row_mask.sum())))
     pillars, table = pillars.detach(), table.detach()
     if not _kernels.use_kernel(pillars):
         return bucket_threshold_plain(pillars, table, neg, k, row_mask)
@@ -331,6 +359,12 @@ def masked_attend_fwd(pillars, sel_table, val_table, neg, thresh, shared,
     pairs (B, V, 128) (see the module docstring). ``selection``: the (count,
     pair_idx) of an earlier call over the same pillars, sel_table, neg,
     thresh and row_mask; K9's pair pass then replaces its dense sweep."""
+    if flops.counter is not None:
+        return flops.counter.kernel(
+            'masked_attend_fwd' if selection is None else 'masked_attend_pairs',
+            lambda: masked_attend_fwd(pillars, sel_table, val_table, neg, thresh, shared,
+                                      row_mask, selection),
+            lambda out: _fwd_work(pillars, sel_table, shared, row_mask, selection, out[3]))
     if not _kernels.use_kernel(pillars):
         return masked_attend_fwd_plain(pillars, sel_table, val_table, neg,
                                        thresh, shared, row_mask, selection)
@@ -379,6 +413,14 @@ def masked_attend_bwd(pillars, sel_table, val_table, neg, thresh, mx, den, dout,
     """Backward of :func:`masked_attend` (kernel K10): the (B, N, C) f32
     gradient of ``val_table`` for upstream gradient ``dout`` (B, V, C), from
     the forward's outputs ``mx``, ``den``, ``cnt`` and pairs."""
+    if flops.counter is not None:
+        return flops.counter.kernel(
+            'masked_attend_bwd',
+            lambda: masked_attend_bwd(pillars, sel_table, val_table, neg, thresh, mx, den,
+                                      dout, shared, row_mask, pair_idx, pair_w, cnt),
+            lambda out: flops.masked_attend_bwd_work(
+                *pillars.shape[:2], sel_table.shape[1], pillars.shape[2],
+                *_selection_counts(cnt, row_mask), shared, *pair_counts(cnt, row_mask)))
     if not _kernels.use_kernel(pillars):
         return masked_attend_bwd_pairs_plain(pillars, sel_table, val_table, neg,
                                              thresh, mx, den, dout, shared,
