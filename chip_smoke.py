@@ -72,7 +72,8 @@ random weights, ``tools/cfgs/kitti_models/hvpr.yaml`` first:
   keep the exact 3-NN, as in the JAX package): on the inputs of the two
   ``pointnet2.three_nn`` calls of one fused step it must equal its plain
   version (indices and distances) and launch once a call; the share of
-  points whose bucket set is the exact set is printed.
+  points whose bucket set is the exact set is printed, and its first
+  design (``FIRST_DESIGNS``, built beside the kernels) is timed beside it.
 - exact FPS (``furthest_point_sample(num_chunks=1)``, K5's long path) over
   the fused batch's 4 whole scans of 16,384 points, npoint 4096: equal to
   its plain version, timed, one launch.
@@ -80,7 +81,10 @@ random weights, ``tools/cfgs/kitti_models/hvpr.yaml`` first:
   plain step as above, two kernel steps without deterministic algorithms
   must give the same bits (the pooling's and the memory path's gathers
   take K12's backward too), and 2 timed steps must launch K4-K7 and K12
-  (13 times a step) and never K8-K10.
+  (13 times a step) and never K8-K10. The fused and ATSS phases print
+  K12's set-up/kernel split at their calls (``k12_split``: wall, host
+  issue, device ms by kernel), this source's and its first design's, and
+  K12's share of the step (``k12_share``).
 - train_cli: the training entry point ``python -m hvpr_tpu_torch.tools.train``
   (its ``main``) at batch 4 with ``--fix_random_seed`` on a synthetic KITTI
   tree of 16 train and 8 val scenes with its infos and gt database, all
@@ -177,7 +181,8 @@ selected sets, K3 beside ``torch.zeros`` + ``index_put_``, K9 beside
 It prints a ``{"kernels": [...]}`` JSON line (times, bounds, launches,
 errors; each entry also the launches of every other path, K1's and K3's
 the ``nuscenes`` shapes' times and bounds, K4's and K5's the ``nofp``
-shapes', K12's the ``second`` train step's; ``options_launches``: the
+shapes', K12's the ``second`` train step's; K11's and K12's
+``ms_before_redesign``, their first designs' time; ``options_launches``: the
 options phase's adam steps and forward; ``profile_launches``: the profile
 phase's counted forward and step), the card's name and power
 limit as nvidia-smi reports them, and
@@ -299,6 +304,178 @@ def device_times(fn, reps=3):
             name = name.split('(')[0].split('<')[0].split()[-1].split('::')[-1]
             out[name] = out.get(name, 0.0) + us / 1e3 / reps
     return out
+
+
+# K12's summing kernel: this source's and the one of its first design (a
+# torch.sort and searchsorted before it); every other device record of a
+# K12 call is its set-up
+K12_SUM_KERNELS = ('k12_sum', 'k12_sum_narrow', 'gather_grad_kernel')
+# the first designs of K12 and K11, as they were before their Hopper
+# redesigns (their C entries as then), timed beside this source in their
+# entries (ms_before_redesign)
+FIRST_DESIGNS = {'gather_grad': 'tools/torch_port/gather_grad_first.cu',
+                 'three_nn_bucket': 'tools/torch_port/three_nn_first.cu'}
+_first = {}
+
+
+def start_first_designs():
+    """Start one nvcc for each of FIRST_DESIGNS into build/; returns
+    {name: (process, library path)}."""
+    from hvpr_tpu_torch.ops import _kernels
+    os.makedirs(os.path.join(ROOT, 'build'), exist_ok=True)
+    procs = {}
+    for name, src in FIRST_DESIGNS.items():
+        so = os.path.join(ROOT, 'build', f'lib{name}_first.so')
+        procs[name] = (subprocess.Popen([_kernels._nvcc(), *_kernels.NVCC_FLAGS, '-o', so,
+                                         os.path.join(ROOT, src)], stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True), so)
+    return procs
+
+
+def load_first_designs(procs):
+    """Fill ``_first`` with the first designs' wrappers (the K12 one with
+    the set-up it had: a stable sort of the 64-bit targets and
+    searchsorted, the ctypes signature set on every call)."""
+    import ctypes
+    import torch
+    from hvpr_tpu_torch.ops import _kernels
+    libs = {}
+    for name, (proc, so) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            fail(f'nvcc failed for the first design of {name}:\n{log}')
+        libs[name] = ctypes.CDLL(so)
+
+    # the parent's wrappers as they were, their checks included, but for
+    # the launch count (the path's counts stay this source's)
+    def gather_grad(grad, index, n):
+        if not _kernels.use_kernel(grad) or grad.dtype not in (torch.float32, torch.bfloat16):
+            fail(f'the first design of gather_grad takes no {grad.dtype} {grad.device}')
+        grad = grad.contiguous()
+        _kernels.check_cuda_input('gather_grad index', index, torch.int64, 1)
+        if index.shape[0] != grad.shape[0]:
+            fail(f'gather_grad: {index.shape[0]} indices for {grad.shape[0]} rows')
+        keys, order = torch.sort(index, stable=True)
+        offsets = torch.searchsorted(keys, torch.arange(n + 1, device=grad.device))
+        out = torch.empty(n, grad.shape[1], dtype=grad.dtype, device=grad.device)
+        fn = libs['gather_grad'].hvpr_gather_grad
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                               ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        if fn(_kernels.ptr(grad), _kernels.ptr(order), _kernels.ptr(offsets), _kernels.ptr(out),
+              n, grad.shape[1], int(grad.dtype == torch.bfloat16), _kernels.stream_handle(grad)):
+            fail('the first design of gather_grad failed to launch')
+        return out
+
+    def three_nn_bucket(unknown, known, mask):
+        unknown = unknown.detach()
+        known = known.detach()
+        if not _kernels.use_kernel(known):
+            fail(f'the first design of three_nn_bucket takes no {known.device} tensor')
+        unknown = unknown.float().contiguous()
+        known = known.float().contiguous()
+        mask = mask.contiguous()
+        _kernels.check_cuda_input('three_nn unknown', unknown, torch.float32, 3)
+        _kernels.check_cuda_input('three_nn known', known, torch.float32, 3)
+        _kernels.check_cuda_input('three_nn known_mask', mask, torch.bool, 2)
+        b, s, _ = known.shape
+        n = unknown.shape[1]
+        if (known.shape[2] != 3 or unknown.shape[0] != b or unknown.shape[2] != 3
+                or mask.shape != (b, s) or len({unknown.device, known.device,
+                                                mask.device}) != 1):
+            fail(f'three_nn: unknown {tuple(unknown.shape)}, known {tuple(known.shape)}')
+        dist = torch.empty(b, n, 3, dtype=torch.float32, device=known.device)
+        idx = torch.empty(b, n, 3, dtype=torch.int32, device=known.device)
+        fn = libs['three_nn_bucket'].hvpr_three_nn
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        if fn(_kernels.ptr(unknown), _kernels.ptr(known), _kernels.ptr(mask), _kernels.ptr(dist),
+              _kernels.ptr(idx), b, n, s, _kernels.stream_handle(known)):
+            fail('the first design of three_nn_bucket failed to launch')
+        return dist, idx
+    _first.update(gather_grad=gather_grad, three_nn_bucket=three_nn_bucket)
+
+
+def k12_split(run, reps=20):
+    """Where the time of ``run()`` (K12 calls through a wrapper) goes: its
+    CUDA-event median (wall), the host's time to issue it (perf_counter,
+    no synchronize after), and torch.profiler's device ms by kernel, split
+    into the summing kernel and the set-up (every other record)."""
+    import torch
+    wall = cuda_ms(run, reps=reps)
+    host = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    dev = device_times(run, reps=5)
+    kernel = sum(v for k, v in dev.items() if k in K12_SUM_KERNELS)
+    return {'wall_ms': wall, 'host_ms': statistics.median(host),
+            'setup_ms': sum(dev.values()) - kernel if dev else None,
+            'kernel_ms': kernel if dev else None, 'by_name': dev}
+
+
+def k12_split_text(split):
+    dev = split['by_name']
+    return (f'wall {split["wall_ms"]:.4f} ms (CUDA events), host issue '
+            f'{split["host_ms"]:.4f} ms; device: '
+            + (f'set-up {split["setup_ms"]:.4f}, kernel {split["kernel_ms"]:.4f} ('
+               + ', '.join(f'{k} {v:.4f}' for k, v in dev.items()) + ')'
+               if dev else 'not measured'))
+
+
+def k12_share(step, reps=3):
+    """(median ms of ``step()``, K12's ms in that step, K12 calls a step):
+    each K12 call's span on the stream between two CUDA events recorded
+    around its wrapper, summed over the step (host clock for the step)."""
+    import torch
+    from hvpr_tpu_torch.ops import gather_rows
+    fn = gather_rows.gather_rows_backward
+    spans = []
+
+    def timed(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args)
+        end.record()
+        spans.append((start, end))
+        return out
+    rows = []
+    gather_rows.gather_rows_backward = timed
+    try:
+        for _ in range(reps):
+            spans.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            rows.append(((time.perf_counter() - t0) * 1e3,
+                         sum(s.elapsed_time(e) for s, e in spans), len(spans)))
+    finally:
+        gather_rows.gather_rows_backward = fn
+    return sorted(rows)[len(rows) // 2]
+
+
+def _k12_split_and_before(entry, calls, where):
+    """Print K12's set-up/kernel split over ``calls`` ([(grad, index, n)]),
+    this source's and its first design's, and add the first design's time
+    (equal to the plain version on the CPU too) to ``entry``."""
+    from hvpr_tpu_torch.ops import gather_rows
+    print(f'gather_grad: at {where}: ' + k12_split_text(k12_split(
+        lambda: [gather_rows.gather_rows_backward(*a) for a in calls])))
+    first = _first['gather_grad']
+    for grad, index, n in calls:
+        if not first(grad, index, n).cpu().equal(
+                gather_rows.gather_rows_backward_plain(grad.cpu(), index.cpu(), n)):
+            fail('the first design of gather_grad differs from its plain version')
+    entry['ms_before_redesign'] = sum(cuda_ms(lambda: first(*a), reps=10, warmup=2)
+                                      for a in calls)
+    print(f'gather_grad: at {where}, its first design (before its Hopper redesign): '
+          f'{entry["ms_before_redesign"]:.4f} ms (this source {entry["ms"]:.4f}); '
+          + k12_split_text(k12_split(lambda: [first(*a) for a in calls])))
 
 
 def device_breakdown(fn, reps=3):
@@ -1245,6 +1422,8 @@ def train_phase(smi, mode, cfg_path=CFG, n_steps=None):
               f'{[(tuple(a[0].shape), str(a[0].dtype), a[2]) for a, _ in calls["gather_grad"]]}; '
               f'index_add_ {lib_ms:.4f} ms')
         del buf
+        _k12_split_and_before(entries['gather_grad'], [a for a, _ in calls['gather_grad']],
+                              f'the {label} step\'s calls')
 
         # the selected sets: points per valid pillar row, per K9 call
         selected = {}
@@ -1336,6 +1515,10 @@ def train_phase(smi, mode, cfg_path=CFG, n_steps=None):
           f'{peak / 2**30:.3f} GiB ({(peak + held - held_pairs) / 2**30:.3f} GiB with the '
           f'captured inputs held, as counted before; those held {held / 2**30:.3f} GiB, '
           f'{held_pairs / 2**30:.3f} of it K10\'s pairs), {n_params} parameters, on {smi}')
+    if fused and cfg_path == CFG:
+        step_ms, k12_ms, n_k12 = k12_share(lambda: net.train_step(batch))
+        print(f'gather_grad: {n_k12} calls {k12_ms:.4f} ms of a {label} step of {step_ms:.3f} '
+              f'ms ({k12_ms / step_ms:.4f}; CUDA events around each call, median step of 3)')
     if fused:
         stages = train_stage_ms(net, batch)
         print(f'train step ({label}) stage ms (median of 3, CUDA events inside '
@@ -1385,7 +1568,20 @@ def three_nn_phase(calls):
         works.append(flops.three_nn_work(*unknown.shape[:2], known.shape[1]))
     b_ms, b_by, _ = flops.work_bound(flops.total(works))
     print(f'three_nn_bucket: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms for both calls, '
-          f'bound {b_ms:.4f} ms ({b_by})')
+          f'bound {b_ms:.4f} ms ({b_by}); device ms (torch.profiler): '
+          + device_breakdown(lambda: [fn(*a) for a, _ in calls]))
+    # its first design (before its Hopper redesign), also equal to plain
+    first = _first['three_nn_bucket']
+    before_ms = 0.0
+    for (unknown, known, known_mask), _ in calls:
+        dist, idx = first(unknown, known, known_mask)
+        with _kernels.plain_versions():
+            dist_p, idx_p = fn(unknown, known, known_mask)
+        if not (torch.equal(idx, idx_p) and torch.equal(dist, dist_p)):
+            fail('the first design of three_nn_bucket differs from its plain version')
+        before_ms += cuda_ms(lambda: first(unknown, known, known_mask))
+    print(f'three_nn_bucket: its first design {before_ms:.4f} ms for both calls (this source '
+          f'{ms:.4f}); device ms: ' + device_breakdown(lambda: [first(*a) for a, _ in calls]))
 
     # its path: both calls, counts from zero
     _kernels.reset_launch_counts()
@@ -1396,8 +1592,8 @@ def three_nn_phase(calls):
     if launches['three_nn_bucket'] != len(calls):
         fail(f'the three_nn_bucket path launched K11 {launches["three_nn_bucket"]} times')
     return {'three_nn_bucket': {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
-                                'bound_ms': b_ms, 'bound_by': b_by,
-                                'library_ms': None}}, launches
+                                'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None,
+                                'ms_before_redesign': before_ms}}, launches
 
 
 def exact_fps_phase(smi):
@@ -3009,6 +3205,7 @@ def second_phase(smi):
     print(f'second (c): K12 at {len(k12)} distinct shapes of the step {k12_entry["shapes"]}: '
           f'max_abs_err {err}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ '
           f'{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); on {smi}')
+    _k12_split_and_before(k12_entry, [a for a, _ in k12], "the ATSS step's distinct shapes")
     del k12
 
     # the timed steps, the counts from zero
@@ -3030,6 +3227,10 @@ def second_phase(smi):
     if launches['c'] != want:
         fail(f'second (c): {SECOND_TRAIN_STEPS} steps launched {launches["c"]}, expected {want}')
     peak = torch.cuda.max_memory_allocated()
+    share = k12_share(lambda: net.train_step(tbatch))
+    print(f'second (c): K12 {share[2]} calls {share[1]:.3f} ms of an ATSS step of '
+          f'{share[0]:.3f} ms ({share[1] / share[0]:.4f}; CUDA events around each call, median '
+          f'step of 3)')
     print(f'second (c): {SECOND_TRAIN_STEPS} adam_onecycle steps, ms {step_ms}, loss '
           f'{float(metrics["loss"]):.6g}, grad_norm {float(metrics["grad_norm"]):.6g}, '
           f'K12 {one["gather_grad"]} launches a step, peak {peak / 2**30:.2f} GiB; a step\'s '
@@ -3978,8 +4179,11 @@ def run_phases(only=None):
 
     # build
     t0 = time.perf_counter()
+    first = start_first_designs()
     report = _kernels.build_all()
-    print(f'build: {time.perf_counter() - t0:.2f} s for {sorted(report)}')
+    load_first_designs(first)
+    print(f'build: {time.perf_counter() - t0:.2f} s for {sorted(report)} and the first '
+          f'designs of {sorted(FIRST_DESIGNS)}')
     for name, rep in sorted(report.items()):
         for line in rep['log'].splitlines():
             if any(w in line for w in ('registers', 'spill', 'smem', 'error', 'warning')):
@@ -4004,7 +4208,7 @@ def run_phases(only=None):
                 phase(smi)
                 print(f'{name} phase: {time.perf_counter() - t0:.1f} s')
         if 'train' in only:
-            train_phase(smi, 'fused')
+            three_nn_phase(train_phase(smi, 'fused')[3])
         print(f'partial run of {sorted(only)}: passed')
         return 0
 
@@ -4076,7 +4280,7 @@ def run_phases(only=None):
                         'max_abs_err': e['max_abs_err'], 'ms': e['ms'],
                         'plain_ms': e['plain_ms'], 'bound_ms': e['bound_ms'],
                         'bound_by': e['bound_by'], 'library_ms': e['library_ms']})
-        for extra in ('dmma_bound_ms', 'device_ms', 'calls'):
+        for extra in ('dmma_bound_ms', 'device_ms', 'calls', 'ms_before_redesign'):
             if extra in e:
                 kernels[-1][extra] = e[extra]
         if name == 'fps_chunks':

@@ -107,6 +107,15 @@ def library(name):
     return lib
 
 
+def entry(source, name, argtypes, restype=ctypes.c_int):
+    """The C function ``name`` of library ``source``, its signature declared
+    on its first use (a ctypes function keeps it)."""
+    fn = getattr(library(source), name)
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = argtypes, restype
+    return fn
+
+
 def stream_handle(tensor):
     """Raw handle of PyTorch's current stream on ``tensor``'s device."""
     return ctypes.c_void_p(torch.cuda.current_stream(tensor.device).cuda_stream)

@@ -6,14 +6,16 @@ XLA gather, whose scatter-add backward the TPU sums in a fixed order.
 where indices repeat, as in the point stream's grouping and 3-NN
 interpolation, its rounding changes from run to run, and two train steps
 from the same state differ. :func:`gather_rows` gathers as ``torch.gather``
-does and takes its gradient from :func:`gather_rows_backward`, which sums
-each source row's contributions in source order: ``csrc/gather_grad.cu``
-on a CUDA tensor (a stable sort of the targets, then one f32 sum a target
-and channel, without atomics), :func:`gather_rows_backward_plain` on a CPU
-tensor (an f32 ``index_add_``, which the CPU runs in source order). Both
-sum in the same order, so the kernel gives the plain version's CPU bits,
-on every run (on the card the plain version's ``index_add_`` adds by
-atomics, unless torch's deterministic algorithms are on).
+does and takes its gradient from :func:`gather_rows_backward`, which
+sums each source row's contributions in source order: ``csrc/gather_grad.cu``
+on a CUDA tensor (a counting sort of the rows by target on the device, then
+a warp a target that adds its rows in order, without atomics on the sums),
+:func:`gather_rows_backward_plain` on a CPU tensor (an f32 ``index_add_``,
+which the CPU runs in source order). Both sum in the same order, so the
+kernel gives the plain version's CPU bits, on every run (on the card the
+plain version's ``index_add_`` adds by atomics, unless torch's
+deterministic algorithms are on). :func:`gather_grad_ranges_plain` is the
+plain version of the kernel's set-up.
 """
 
 import ctypes
@@ -32,6 +34,54 @@ def gather_rows_backward_plain(grad, index, n):
     return out.index_add_(0, index, grad.float()).to(grad.dtype)
 
 
+def gather_grad_ranges_plain(index, n):
+    """Plain version of K12's set-up: (offsets (n + 1,), order), int64, with
+    target t's source rows, ascending, at ``order[offsets[t]:offsets[t + 1]]``
+    (a counting sort of the rows by target; a row whose target lies outside
+    [0, n) is left out, as the kernel leaves it)."""
+    rows = torch.nonzero((index >= 0) & (index < n)).squeeze(1)
+    offsets = torch.zeros(n + 1, dtype=torch.int64, device=index.device)
+    offsets[1:] = torch.cumsum(torch.bincount(index[rows], minlength=n), 0)
+    # rows taken in ascending order stay so within each target
+    return offsets, rows[torch.argsort(index[rows], stable=True)]
+
+
+_SCRATCH = ([ctypes.c_longlong] * 2, ctypes.c_longlong)
+_RANGES = [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+_SUM = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def _scratch(rows, n, device):
+    words = _kernels.entry('gather_grad', 'hvpr_gather_grad_scratch', *_SCRATCH)(rows, n)
+    return torch.empty(words, dtype=torch.int32, device=device)
+
+
+def _check_index(index, rows, n):
+    _kernels.check_cuda_input('gather_grad index', index, torch.int64, 1)
+    if index.shape[0] != rows:
+        raise ValueError(f'gather_grad: {index.shape[0]} indices for {rows} rows')
+    if max(rows, n) >= 2 ** 31:
+        raise ValueError(f'gather_grad: {rows} rows into {n} targets; the kernel '
+                         'counts in int32')
+
+
+def gather_grad_ranges(index, n):
+    """:func:`gather_grad_ranges_plain` by K12's set-up passes on a CUDA
+    tensor (offsets and order int32): the ranges ``gather_rows_backward``
+    builds in its own call, for holding them to the plain version."""
+    if not _kernels.use_kernel(index):
+        return gather_grad_ranges_plain(index, n)
+    _check_index(index, index.shape[0], n)
+    scratch = _scratch(index.shape[0], n, index.device)
+    err = _kernels.entry('gather_grad', 'hvpr_gather_grad_ranges', _RANGES)(
+        index.data_ptr(), scratch.data_ptr(), index.shape[0], n,
+        torch.cuda.current_stream(index.device).cuda_stream)
+    if err:
+        raise RuntimeError(f'gather_grad set-up failed to launch: cudaError {err}')
+    offsets = scratch[:n + 1]
+    return offsets, scratch[n + 1:n + 1 + int(offsets[-1])]
+
+
 def gather_rows_backward(grad, index, n):
     """:func:`gather_rows_backward_plain` by kernel K12 on a CUDA tensor."""
     if flops.counter is not None:
@@ -43,19 +93,16 @@ def gather_rows_backward(grad, index, n):
     if grad.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f'gather_grad: dtype {grad.dtype} is not float32 or bfloat16')
     grad = grad.contiguous()
-    _kernels.check_cuda_input('gather_grad index', index, torch.int64, 1)
-    if index.shape[0] != grad.shape[0]:
-        raise ValueError(f'gather_grad: {index.shape[0]} indices for {grad.shape[0]} rows')
-    keys, order = torch.sort(index, stable=True)
-    offsets = torch.searchsorted(keys, torch.arange(n + 1, device=grad.device))
-    out = torch.empty(n, grad.shape[1], dtype=grad.dtype, device=grad.device)
-    fn = _kernels.library('gather_grad').hvpr_gather_grad
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(_kernels.ptr(grad), _kernels.ptr(order), _kernels.ptr(offsets),
-             _kernels.ptr(out), n, grad.shape[1], int(grad.dtype == torch.bfloat16),
-             _kernels.stream_handle(grad))
+    rows, c = grad.shape
+    _check_index(index, rows, n)
+    out = torch.empty(n, c, dtype=grad.dtype, device=grad.device)
+    scratch = _scratch(rows, n, grad.device)
+    bf16 = grad.dtype == torch.bfloat16
+    # 16-byte loads where each row starts 16-byte aligned
+    vec = c % (8 if bf16 else 4) == 0 and grad.data_ptr() % 16 == 0
+    err = _kernels.entry('gather_grad', 'hvpr_gather_grad', _SUM)(
+        grad.data_ptr(), index.data_ptr(), scratch.data_ptr(), out.data_ptr(), rows, n, c,
+        int(bf16), int(vec), torch.cuda.current_stream(grad.device).cuda_stream)
     _kernels.launched('gather_grad', err)
     return out
 

@@ -221,6 +221,9 @@ def three_nn_bucket_plain(unknown, known, known_mask, chunk=512):
     return torch.sqrt(torch.clamp(d2, min=0.0)), idx
 
 
+_THREE_NN = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
 def three_nn_bucket(unknown, known, known_mask):
     """Bucketed 3-NN, with the interface of ``pointnet2.three_nn``.
 
@@ -255,12 +258,14 @@ def three_nn_bucket(unknown, known, known_mask):
     idx = torch.empty(b, n, 3, dtype=torch.int32, device=known.device)
     if b * n == 0:
         return dist, idx
-    fn = _kernels.library('three_nn').hvpr_three_nn
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(_kernels.ptr(unknown), _kernels.ptr(known), _kernels.ptr(known_mask),
-             _kernels.ptr(dist), _kernels.ptr(idx), b, n, s,
-             _kernels.stream_handle(known))
+    # the known points packed as (x, y, z, 0), masked ones and the padding
+    # to a whole tile at +inf
+    s_pad = _kernels.entry('three_nn', 'hvpr_three_nn_padded', [ctypes.c_int])(s)
+    packed = torch.empty(b, s_pad, 4, dtype=torch.float32, device=known.device)
+    err = _kernels.entry('three_nn', 'hvpr_three_nn', _THREE_NN)(
+        unknown.data_ptr(), known.data_ptr(), known_mask.data_ptr(), packed.data_ptr(),
+        dist.data_ptr(), idx.data_ptr(), b, n, s,
+        torch.cuda.current_stream(known.device).cuda_stream)
     _kernels.launched('three_nn_bucket', err)
     return dist, idx
 

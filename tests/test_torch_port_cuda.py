@@ -385,9 +385,13 @@ def test_exact_furthest_point_sample_on_a_scan(cuda):
     assert bool(torch.gather(mask, 1, got).all())
 
 
-@pytest.mark.parametrize('b,n,s', [(4, 4096, 1024), (4, 16384, 4096),   # hvpr.yaml FP
-                                   (2, 300, 700), (2, 100, 50)])
-def test_three_nn_kernel(cuda, b, n, s):
+@pytest.mark.parametrize('b,n,s,case', [
+    (4, 4096, 1024, None), (4, 16384, 4096, None),          # hvpr.yaml FP
+    (2, 300, 700, None), (2, 100, 50, None),
+    (2, 1000, 1500, None),                                  # S not a multiple of the tile
+    (2, 500, 900, 'all masked'),
+    (2, 500, 900, 'duplicates')])
+def test_three_nn_kernel(cuda, b, n, s, case):
     rng = np.random.default_rng(n + s)
     if s >= 1024:
         known = _scan(rng, b, s)
@@ -401,6 +405,15 @@ def test_three_nn_kernel(cuda, b, n, s):
     mask = torch.from_numpy(rng.uniform(size=(b, s)) > 0.1)
     if n == 100:
         mask[1] = False                                      # S < 128, all masked
+    if case == 'all masked':
+        mask[:] = False
+    if case == 'duplicates':
+        # one point at many indices, in every bucket, and a second one
+        # repeated within a tile and across tiles: equal keys tie
+        known[:, 1:400] = known[:, :1]
+        known[:, 600::7] = known[:, 599:600]
+        mask[:] = True
+        unknown[:, :8] = known[:, :1] + 0.25
     before = _kernels.launch_counts()['three_nn_bucket']
     (gd, gi), (wd, wi) = _both(three_nn_bucket, unknown.to(cuda), known.to(cuda),
                                mask.to(cuda))
@@ -409,6 +422,10 @@ def test_three_nn_kernel(cuda, b, n, s):
     assert _kernels.launch_counts()['three_nn_bucket'] == before + 1
     if n == 100:
         assert int(gi[1].abs().sum()) == 0 and bool((gd[1] == 1e5).all())
+    if case == 'all masked':
+        assert not gi.any() and bool((gd == 1e5).all())
+    again = three_nn_bucket(unknown.to(cuda), known.to(cuda), mask.to(cuda))
+    assert torch.equal(again[0], gd) and torch.equal(again[1], gi)
 
 
 def _close(got, want):
@@ -742,29 +759,73 @@ def test_padded_train_step_kernels_equal_plain(cuda):
     assert not any(plain_launches.values())
 
 
+# K12's cases: (targets n, rows R, channels C, how the rows pick targets)
+GATHER_GRAD_CASES = {
+    'hub and empty targets': (16384, 196608, 67, 'hub'),   # SA2's widths
+    'C=1': (5000, 40000, 1, 'random'),
+    'C=3': (5000, 40000, 3, 'random'),
+    'C=8': (5000, 40000, 8, 'random'),
+    'C=128': (5000, 40000, 128, 'random'),
+    'no rows': (300, 0, 8, 'random'),
+    'n=1': (1, 3000, 67, 'random'),
+    # a range longer than one window of the sort's bitmap
+    'every row on one target': (64, 300000, 8, 'one'),
+    'out-of-range targets left out': (700, 20000, 16, 'outside'),
+}
+
+
+def _gather_grad_inputs(name, dtype):
+    n, r, c, how = GATHER_GRAD_CASES[name]
+    rng = np.random.default_rng(r + c)
+    if how == 'hub':
+        index = rng.integers(0, n - 100, r)              # the last 100 rows get none
+        index[:5000] = 7                                 # a hub row
+    elif how == 'one':
+        index = np.full(r, 5)
+    else:
+        index = rng.integers(0, n, r)
+        if how == 'outside':
+            index[::97] = -1
+            index[1::89] = n + 3
+    grad = torch.from_numpy(rng.normal(size=(r, c)).astype(np.float32)).to(dtype)
+    return grad, torch.from_numpy(index.astype(np.int64)), n
+
+
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-def test_gather_grad_kernel_equals_plain_and_repeats_its_bits(cuda, dtype):
+@pytest.mark.parametrize('case', list(GATHER_GRAD_CASES))
+def test_gather_grad_kernel_equals_plain_and_repeats_its_bits(cuda, case, dtype):
     """K12 (the row gather's backward) sums each target's contributions
     in source order without atomics: the same bits on every run, and the
-    plain version's bits on the CPU (an f32 index_add_ in order), at
-    hvpr.yaml's SA2 grouping widths with a hub row and empty targets."""
+    plain version's bits on the CPU (an f32 index_add_ in order), at SA2's
+    grouping widths with a hub row and empty targets, at widths whose rows
+    are not a multiple of 16 bytes, without rows, into one target, and with
+    every row on one target."""
     from hvpr_tpu_torch.ops.gather_rows import (gather_rows_backward,
                                                 gather_rows_backward_plain)
-    rng = np.random.default_rng(12)
-    n, r, c = 16384, 196608, 67
-    index = rng.integers(0, n - 100, r)                  # the last 100 rows get none
-    index[:5000] = 7                                     # a hub row
-    grad = torch.from_numpy(rng.normal(size=(r, c)).astype(np.float32)).to(dtype)
-    index = torch.from_numpy(index)
+    grad, index, n = _gather_grad_inputs(case, dtype)
     before = _kernels.launch_counts()['gather_grad']
     got = gather_rows_backward(grad.to(cuda), index.to(cuda), n)
     again = gather_rows_backward(grad.to(cuda), index.to(cuda), n)
     torch.cuda.synchronize()
     assert _kernels.launch_counts()['gather_grad'] == before + 2
-    assert got.dtype == dtype and got.shape == (n, c)
+    assert got.dtype == dtype and got.shape == (n, grad.shape[1])
     assert torch.equal(got, again)
-    assert torch.equal(got.cpu(), gather_rows_backward_plain(grad, index, n))
-    assert not got[-100:].any()
+    keep = (index >= 0) & (index < n)
+    assert torch.equal(got.cpu(), gather_rows_backward_plain(grad[keep], index[keep], n))
+    if case == 'hub and empty targets':
+        assert not got[-100:].any()
+
+
+@pytest.mark.parametrize('case', list(GATHER_GRAD_CASES))
+def test_gather_grad_ranges_equal_plain(cuda, case):
+    """K12's set-up (count, scan, place, sort on the device) builds the
+    plain version's ranges: each target's offsets and its rows ascending."""
+    from hvpr_tpu_torch.ops.gather_rows import gather_grad_ranges, gather_grad_ranges_plain
+    _, index, n = _gather_grad_inputs(case, torch.float32)
+    offsets, order = gather_grad_ranges(index.to(cuda), n)
+    want_offsets, want_order = gather_grad_ranges_plain(index, n)
+    assert torch.equal(offsets.cpu().long(), want_offsets)
+    assert torch.equal(order.cpu().long(), want_order)
 
 
 def test_three_interpolate_backward_repeats_its_bits(cuda):
