@@ -11,7 +11,8 @@ gives it an optimizer and :meth:`Network.train_step` runs one step (forward
 with the losses, backward, update) on a batch with ``gt_boxes``: the data
 layer's padded one (the train CLI's) or one from :meth:`Network.voxelize`.
 Entry points run on the card unless the caller passes
-``device='cpu'``.
+``device='cpu'``. A pipeline call is a root span ``pipeline``, one request,
+with a child ``voxelize`` (``utils/profiler.py``).
 """
 
 import numpy as np
@@ -21,6 +22,7 @@ from .. import resolve_device
 from ..ops.voxelizer import voxelize_batch_flat
 from ..optimization import build_optimizer
 from ..parallel import TrainState, train_step
+from ..utils import profiler
 from .detectors import build_detector
 from .detectors.detector3d_template import post_processing
 
@@ -107,19 +109,21 @@ class Network:
         """(B, N, 4) points + (B, N) mask -> the batch dict the detector
         takes: the points and the device voxelizer's flat pillar layout."""
         ds = self.dataset
-        vox = voxelize_batch_flat(
-            points, mask, tuple(float(v) for v in ds.point_cloud_range),
-            tuple(float(v) for v in ds.voxel_size),
-            max_voxels=ds.max_voxels,
-            max_points_per_voxel=ds.max_points_per_voxel,
-            grid_size_static=tuple(int(g) for g in ds.grid_size))
+        with profiler.span('voxelize', points):
+            vox = voxelize_batch_flat(
+                points, mask, tuple(float(v) for v in ds.point_cloud_range),
+                tuple(float(v) for v in ds.voxel_size),
+                max_voxels=ds.max_voxels,
+                max_points_per_voxel=ds.max_points_per_voxel,
+                grid_size_static=tuple(int(g) for g in ds.grid_size))
         return {'points': points, 'point_valid_mask': mask, **vox}
 
     @torch.no_grad()
     def pipeline(self, points, mask):
         """(B, N, 4) points + (B, N) mask -> detections: voxelize, forward,
         post-process, all on the network's device."""
-        return self.eval_forward(self.voxelize(points, mask))
+        with profiler.span('pipeline', points):
+            return self.eval_forward(self.voxelize(points, mask))
 
     def init_training(self, optim_cfg, total_steps, total_iters_each_epoch=None):
         """Give the network its optimizer (``OPTIMIZATION`` config; OneCycle

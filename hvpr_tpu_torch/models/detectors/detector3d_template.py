@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from ...ops.rotated_iou import boxes_iou3d
+from ...utils import profiler
 from ..backbones_2d.base_bev_backbone import BaseBEVBackbone, BaseBEVBackboneScale
 from ..backbones_2d.map_to_bev.height_compression import HeightCompression
 from ..backbones_2d.map_to_bev.pointpillar_scatter import (
@@ -106,7 +107,8 @@ class Detector3DTemplate(nn.Module):
 
 
 def post_processing(batch_dict, post_cfg, num_class):
-    """Sigmoid -> NMS -> fixed-shape detections (+ recall when gt present).
+    """Sigmoid -> NMS -> fixed-shape detections (+ recall when gt present),
+    a span ``post`` (``utils/profiler.py``).
 
     Returns pred_boxes (B, P, 7+), pred_scores (B, P), pred_labels (B, P)
     int32, pred_mask (B, P) bool, num_capped (B,) survivors dropped by the
@@ -116,6 +118,11 @@ def post_processing(batch_dict, post_cfg, num_class):
     only the candidates above SCORE_THRESH, so it gives what the JAX
     package's ``NMS_STAGE_SIZES`` ladder gives at any of its levels.
     """
+    with profiler.span('post', batch_dict['batch_cls_preds']):
+        return _post_processing(batch_dict, post_cfg, num_class)
+
+
+def _post_processing(batch_dict, post_cfg, num_class):
     nms_cfg = post_cfg['NMS_CONFIG']
     multi_class = bool(nms_cfg.get('MULTI_CLASSES_NMS', False))
     score_thresh = post_cfg.get('SCORE_THRESH', None)
@@ -129,14 +136,14 @@ def post_processing(batch_dict, post_cfg, num_class):
     post_max = int(nms_cfg['NMS_POST_MAXSIZE'])
 
     outs = []
-    for cls_p, box_p in zip(cls_preds, box_preds):
+    for scan, (cls_p, box_p) in enumerate(zip(cls_preds, box_preds)):
         if multi_class:
             outs.append(multi_classes_nms(cls_p, box_p, nms_cfg,
-                                          score_thresh=score_thresh))
+                                          score_thresh=score_thresh, scan=scan))
             continue
         scores, labels = cls_p.max(dim=-1)
         keep_idx, keep_mask, num_kept = class_agnostic_nms(
-            scores, box_p, nms_cfg, score_thresh=score_thresh)
+            scores, box_p, nms_cfg, score_thresh=score_thresh, scan=scan)
         outs.append((box_p[keep_idx], scores[keep_idx],
                      (labels[keep_idx] + 1).to(torch.int32), keep_mask,
                      torch.clamp(num_kept - post_max, min=0)))

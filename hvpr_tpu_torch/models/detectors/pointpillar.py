@@ -6,8 +6,10 @@ stream: its forward is vfe -> map_to_bev -> backbone_2d -> dense_head in
 eval and in training. HVPR runs the point stream ``backbone_3d`` first in
 training (``module.train()``), where it feeds the attentive point features;
 in eval it is skipped and memory lookups stand in for point features.
+Each stage is a span named after its attribute (``utils/profiler.py``).
 """
 
+from ...utils import profiler
 from .detector3d_template import Detector3DTemplate
 
 
@@ -19,7 +21,8 @@ class PointPillar(Detector3DTemplate):
     def forward(self, batch_dict):
         batch_dict = dict(batch_dict)   # never mutate the caller's dict
         for stage in self.stages():
-            batch_dict = stage(batch_dict)
+            with profiler.child_span(self, stage):
+                batch_dict = stage(batch_dict)
         return batch_dict
 
 

@@ -12,9 +12,9 @@ def _thresholded(scores, score_thresh):
     return torch.where(scores >= score_thresh, scores, -torch.inf)
 
 
-def class_agnostic_nms(box_scores, box_preds, nms_config, score_thresh=None):
-    """One sample: score threshold -> top NMS_PRE_MAXSIZE -> rotated NMS ->
-    NMS_POST_MAXSIZE slots.
+def class_agnostic_nms(box_scores, box_preds, nms_config, score_thresh=None, scan=None):
+    """One sample (the batch's ``scan``): score threshold -> top
+    NMS_PRE_MAXSIZE -> rotated NMS -> NMS_POST_MAXSIZE slots.
 
     Returns keep_idx (post,), keep_mask (post,), num_kept () before the cap.
     """
@@ -22,11 +22,11 @@ def class_agnostic_nms(box_scores, box_preds, nms_config, score_thresh=None):
         box_preds[:, :7], _thresholded(box_scores, score_thresh),
         float(nms_config['NMS_THRESH']),
         pre_maxsize=int(nms_config['NMS_PRE_MAXSIZE']),
-        post_maxsize=int(nms_config['NMS_POST_MAXSIZE']))
+        post_maxsize=int(nms_config['NMS_POST_MAXSIZE']), scan=scan)
 
 
-def multi_classes_nms(cls_scores, box_preds, nms_config, score_thresh=None):
-    """One sample, one rotated NMS per class over that class's thresholded
+def multi_classes_nms(cls_scores, box_preds, nms_config, score_thresh=None, scan=None):
+    """One sample (the batch's ``scan``), one rotated NMS per class over that class's thresholded
     scores, each with its own NMS_PRE_MAXSIZE and NMS_POST_MAXSIZE.
 
     Args:
@@ -43,7 +43,8 @@ def multi_classes_nms(cls_scores, box_preds, nms_config, score_thresh=None):
         keep_idx, keep_mask, num_kept = nms_bev_fixed(
             box_preds[:, :7], _thresholded(cls_scores[:, c], score_thresh),
             float(nms_config['NMS_THRESH']),
-            pre_maxsize=int(nms_config['NMS_PRE_MAXSIZE']), post_maxsize=post_max)
+            pre_maxsize=int(nms_config['NMS_PRE_MAXSIZE']), post_maxsize=post_max,
+            scan=scan, cls=c)
         num_capped = num_capped + torch.clamp(num_kept - post_max, min=0)
         outs.append((box_preds[keep_idx], cls_scores[keep_idx, c],
                      torch.full_like(keep_idx, c + 1, dtype=torch.int32), keep_mask))

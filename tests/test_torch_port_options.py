@@ -576,15 +576,9 @@ def test_device_memory_stats_and_profiler_on_the_cpu(tmp_path):
     assert misc.device_memory_stats() == ({} if not torch.cuda.is_available() else
                                           misc.device_memory_stats())
     with profiler.trace(tmp_path / 'trace') as prof:
-        y = torch.ones(64, 64) @ torch.ones(64, 64)
+        torch.ones(64, 64) @ torch.ones(64, 64)
     assert (tmp_path / 'trace' / 'trace.json').stat().st_size > 0
     assert any('mm' in e.key for e in prof.key_averages())
-    tree = {'a': [y, (y, 3)], 'b': None}
-    assert profiler.sync(tree) is tree
-    timer = profiler.StepTimer(sync_every=2)
-    for _ in range(5):
-        timer.step(tree)
-    assert timer.count == 5 and timer.sec_per_step >= 0
 
 
 def test_weighted_l1_corner_loss_and_voxel_centers_match_jax():
