@@ -11,10 +11,15 @@ the four shipped model configs at full width on seeded scans with seeded
 random weights, ``tools/cfgs/kitti_models/hvpr.yaml`` first:
 
 - inference, batch 8: voxelize -> PillarVFE_Scale -> memory scatter -> scale
-  BEV backbone -> anchor head -> rotated NMS. Each inference kernel (K1-K3)
-  is held against its plain PyTorch version at the shapes the path gives
-  it, the path must launch each of them, and its detections must equal
-  those of the same pipeline through the plain versions.
+  BEV backbone -> anchor head -> rotated NMS. Each inference kernel (K1-K3,
+  and K13, the NMS's rotated IoU) is held against its plain PyTorch
+  version at the shapes the path gives it, the path must launch each of
+  them, and its detections must equal those of the same pipeline through
+  the plain versions. K13 at the NMS's 4,096 x 4,096 planes: its
+  CUDA-event time, its bound (the planes' bytes), the plain time and the
+  share of pairs it clipped in full (``nms.iou_clipped``). Every other
+  phase holds the other kernels to their counts; K13 runs wherever boxes
+  meet (each NMS, the recall, the rotated assigners).
 - multiclass: ``hvpr_multiclass.yaml`` (Car, Pedestrian, Cyclist; one
   rotated NMS a class; f32) through the same pipeline at batch 8 (K1-K3
   against their plain versions, the detections against the plain
@@ -259,7 +264,19 @@ META = {
     # no TPU kernel: the backward of the JAX package's XLA gather
     'gather_grad': ('hvpr_tpu_torch/csrc/gather_grad.cu',
                     'hvpr_tpu/ops/pointnet2.py:189'),
+    # no TPU kernel: the JAX package's rotated IoU is XLA
+    'rotated_iou': ('hvpr_tpu_torch/csrc/rotated_iou.cu',
+                    'hvpr_tpu/ops/rotated_iou.py:136'),
 }
+
+
+def without_iou(launches):
+    """The launch counts of every kernel but K13 (the rotated IoU), which
+    runs in every NMS, in the recall and in the assigners that take the
+    rotated IoU: the phases hold the other kernels to their exact counts;
+    K13's own calls are held to the plain version and counted where a phase
+    captures them (:func:`flat_phase`, the profile phase)."""
+    return {k: v for k, v in launches.items() if k != 'rotated_iou'}
 
 
 def fail(msg):
@@ -701,24 +718,28 @@ def flat_phase(smi, label, cfg, points, mask, kernels, reps=5, box_std=None):
     through the plain versions (bit for bit), then the pipeline's median
     over ``reps`` batches, the stage medians and the candidates of each
     class above SCORE_THRESH. Returns (network, calls, {kernel: entry},
-    launch counts, detections). ``box_std``: see :func:`seed_weights`."""
+    launch counts, detections). ``box_std``: see :func:`seed_weights`. K13
+    (the NMS's rotated IoU, once a scan and class) joins ``kernels`` on
+    every path."""
     import torch
     from hvpr_tpu_torch.models import DatasetMeta, build_network
     from hvpr_tpu_torch.models.backbones_2d.map_to_bev import (
         memory_module, pointpillar_scatter)
     from hvpr_tpu_torch.models.backbones_3d.vfe import pillar_vfe
-    from hvpr_tpu_torch.ops import _kernels
+    from hvpr_tpu_torch.ops import _kernels, nms as nms_module
 
     meta = DatasetMeta(cfg.DATA_CONFIG, cfg.CLASS_NAMES)
     net = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), meta, device='cuda')
     seed_weights(net.module, seed=0, box_std=box_std)
     b = points.shape[0]
+    kernels = (*kernels, 'rotated_iou')
 
     # capture every wrapper call of one pipeline run (the warm-up)
     calls = capture_calls(
         [(pillar_vfe, 'segment_sweep', 'segment_sweep'),
          (memory_module, 'memory_lookup_fused', 'memory_lookup'),
-         (pointpillar_scatter, 'canvas_from_sorted', 'bev_canvas')],
+         (pointpillar_scatter, 'canvas_from_sorted', 'bev_canvas'),
+         (nms_module, 'boxes_iou_bev', 'rotated_iou')],
         lambda: net.pipeline(points, mask))
     torch.cuda.synchronize()
     if set(calls) != set(kernels):
@@ -728,7 +749,8 @@ def flat_phase(smi, label, cfg, points, mask, kernels, reps=5, box_std=None):
     entries = {}
     wrappers = {'segment_sweep': pillar_vfe.segment_sweep,
                 'memory_lookup': memory_module.memory_lookup_fused,
-                'bev_canvas': pointpillar_scatter.canvas_from_sorted}
+                'bev_canvas': pointpillar_scatter.canvas_from_sorted,
+                'rotated_iou': nms_module.boxes_iou_bev}
     for name in kernels:
         fn = wrappers[name]
         err = ms = plain_ms = 0.0
@@ -874,7 +896,37 @@ def inference_phase(smi):
           f'{b_ms:.4f} ms ({b_by}, bf16 tensor cores), on the FP64 tensor cores '
           f'{dmma_ms:.4f} ms for the logits')
     entries['bev_canvas'].update(_canvas_bound_and_yardstick(calls['bev_canvas']))
+    entries['rotated_iou'].update(_iou_bound_and_share(calls['rotated_iou']))
     return entries, launches
+
+
+def _iou_bound_and_share(calls, label=''):
+    """K13 at the NMS's shapes (batch 8: a 4,096 x 4,096 plane a scan): its
+    bound, the planes' bytes at 3.35 TB/s (the write no design avoids; the
+    plain arithmetic's operations at the f32 peak printed beside it), and
+    the share of pairs it clipped in full, ``nms.iou_clipped`` over
+    ``nms.iou_pairs`` as the kernel counts them while the recorder is on."""
+    import torch
+    from hvpr_tpu_torch.ops import nms as nms_module
+    from hvpr_tpu_torch.utils import flops, profiler
+    work = flops.total(flops.rotated_iou_work(a[0].shape[0], a[1].shape[0], True)
+                       for a, _ in calls)
+    bytes_ms = work.nbytes / flops.H100['hbm'] * 1e3
+    ops_ms = work.ops / flops.H100['f32'] * 1e3
+    profiler.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        for a, kw in calls:
+            nms_module.boxes_iou_bev(*a, **kw)
+        profiler.record()
+        counted = profiler.counters()
+    profiler.clear()
+    share = 100.0 * counted['nms.iou_clipped'] / counted['nms.iou_pairs']
+    print(f'rotated_iou{label}: {len(calls)} call(s) at {[tuple(a[0].shape) for a, _ in calls]}; '
+          f'pairs clipped in full {share:.4f}% ({counted["nms.iou_clipped"]} of '
+          f'{counted["nms.iou_pairs"]}); bound {bytes_ms:.4f} ms (bytes: the planes '
+          f'written), the plain arithmetic\'s operations at the f32 peak {ops_ms:.4f} ms')
+    return {'bound_ms': bytes_ms, 'bound_by': 'bytes', 'library_ms': None,
+            'clipped_share': share}
 
 
 def train_stage_ms(net, batch, reps=3):
@@ -1500,7 +1552,7 @@ def train_phase(smi, mode, cfg_path=CFG, n_steps=None):
         losses.append(loss)
     launches = _kernels.launch_counts()
     print(f'train path ({label}) launches in {n_steps} steps: {launches}')
-    for name in _kernels.KERNELS:
+    for name in without_iou(launches):
         want = step_launches.get(name, 0) * n_steps
         if launches[name] != want:
             fail(f'{n_steps} {label} train steps launched {name} {launches[name]} '
@@ -1747,7 +1799,7 @@ def eval_cli_phase(smi):
         launches = _kernels.launch_counts()
         print(f'eval_cli path launches: {launches}')
         n_batches = -(-EVAL_VAL_SCENES // BATCH)
-        for name, n in launches.items():
+        for name, n in without_iou(launches).items():
             want = n_batches if name == 'memory_lookup' else 0
             if n != want:
                 fail(f'the eval_cli path launched {name} {n} times, expected {want}')
@@ -1940,7 +1992,7 @@ def train_cli_phase(smi):
               f'{launches2} (resumed, epoch 3, evaluated {evals2})')
         for launches, steps, evals in ((launches1, TRAIN_CLI_EPOCHS * steps_per_epoch, evals1),
                                        (launches2, steps_per_epoch, evals2)):
-            for name, n in launches.items():
+            for name, n in without_iou(launches).items():
                 want = STEP_LAUNCHES.get(name, 0) * steps
                 if name == 'memory_lookup':
                     want = len(evals) * val_batches
@@ -2116,7 +2168,7 @@ def pointpillar_phase(smi):
     train_launches = _kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     print(f'pointpillar train path launches in {POINTPILLAR_STEPS} steps: {train_launches}')
-    if any(train_launches.values()):
+    if any(without_iou(train_launches).values()):
         fail('the pointpillar train step launched a kernel (it runs the plain versions '
              'under autograd)')
     for m in metrics:
@@ -2193,6 +2245,7 @@ def nuscenes_phase(smi):
         entries['segment_sweep'].update(_sweep_bound(calls['segment_sweep']))
         entries['bev_canvas'].update(_canvas_bound_and_yardstick(calls['bev_canvas'],
                                                                  ' (nuscenes)'))
+        entries['rotated_iou'].update(_iou_bound_and_share(calls['rotated_iou'], ' (nuscenes)'))
         del net, calls, points, mask
 
         # the test CLI: a .pth of seeded weights, padded pillars from the workers
@@ -2258,7 +2311,7 @@ def nuscenes_phase(smi):
               f'{tret["train_time/step_median_ms"]:.3f} ms; post-train mAP '
               f'{tret["eval"]["mAP"]:.4f}; main() {train_s:.2f} s; launches '
               f'{({k: v for k, v in train_launches.items() if v})} on {smi}')
-        for name, n in {**cli_launches, **train_launches}.items():
+        for name, n in without_iou({**cli_launches, **train_launches}).items():
             if n:
                 fail(f'the nuscenes CLIs launched {name} (padded pillars take the plain '
                      f'VFE and scatter)')
@@ -2597,7 +2650,7 @@ def ddp_phase(smi):
                 if out['repeat_differ']:
                     fail(f'{where}: rank {r}\'s second run differs from its first in '
                          f'{out["repeat_differ"][:5]}')
-                for name, n in out['launches'].items():
+                for name, n in without_iou(out['launches']).items():
                     if n != STEP_LAUNCHES.get(name, 0) * DDP_STEPS:
                         fail(f'{where}: rank {r} launched {name} {n} times in {DDP_STEPS} '
                              f'steps')
@@ -2654,7 +2707,7 @@ def ddp_phase(smi):
             fail('ddp (b): the evaluation\'s result is not rank 0\'s alone')
         steps = DDP_CLI_EPOCHS * DDP_CLI_TRAIN_SCENES // TRAIN_BATCH
         for r, c in enumerate(cli):
-            for name, n in c['train_launches'].items():
+            for name, n in without_iou(c['train_launches']).items():
                 want = STEP_LAUNCHES.get(name, 0) * steps
                 if name == 'memory_lookup':
                     # the rank's share of the val scenes, a batch of 2 a launch
@@ -2981,8 +3034,8 @@ def second_phase(smi):
         det = post_processing(out, net.post_cfg, net.num_class)
     torch.cuda.synchronize()
     launches['a'] = _kernels.launch_counts()
-    if any(launches['a'].values()):
-        fail(f'the second eval path launched {launches["a"]}, expected no kernel')
+    if any(without_iou(launches['a']).values()):
+        fail(f'the second eval path launched {launches["a"]}, expected no kernel but K13')
     dropped = out['sparse_sites_dropped'].tolist()
     print(f'second (a): sparse_sites_dropped {dropped} at the default cap '
           f'(MAX_SITES 2 x {meta.max_voxels})')
@@ -3106,8 +3159,9 @@ def second_phase(smi):
         det = post_processing(out, net.post_cfg, net.num_class)
     torch.cuda.synchronize()
     launches['b'] = _kernels.launch_counts()
-    if any(launches['b'].values()):
-        fail(f'the second multi-head path launched {launches["b"]}, expected no kernel')
+    if any(without_iou(launches['b']).values()):
+        fail(f'the second multi-head path launched {launches["b"]}, expected no kernel '
+             f'but K13')
     head_cpu = second_network(cfg_m, meta, 'cpu').module.dense_head
     head_cpu.load_state_dict({k: v.cpu() for k, v in net.module.dense_head.state_dict().items()})
     with torch.no_grad():
@@ -3179,7 +3233,8 @@ def second_phase(smi):
           f'algorithms: {len(differ)} of {len(names)} gradient leaves differ')
     if differ:
         fail(f'second (c): two backwards differ in {differ[:5]}')
-    if one != {k: (grad_gathers[0] if k == 'gather_grad' else 0) for k in one}:
+    if without_iou(one) != {k: (grad_gathers[0] if k == 'gather_grad' else 0)
+                            for k in without_iou(one)}:
         fail(f'second (c): a backward launched {one}, expected K12 {grad_gathers[0]} times')
     del twice, out1, g1, g2
 
@@ -3224,7 +3279,7 @@ def second_phase(smi):
     launches['c'] = _kernels.launch_counts()
     want = {k: (SECOND_TRAIN_STEPS * one['gather_grad'] if k == 'gather_grad' else 0)
             for k in launches['c']}
-    if launches['c'] != want:
+    if without_iou(launches['c']) != without_iou(want):
         fail(f'second (c): {SECOND_TRAIN_STEPS} steps launched {launches["c"]}, expected {want}')
     peak = torch.cuda.max_memory_allocated()
     share = k12_share(lambda: net.train_step(tbatch))
@@ -3361,7 +3416,7 @@ def nofp_phase(smi):
     torch.cuda.synchronize()
     launches = _kernels.launch_counts()
     want = {k: (2 if k in wrappers else 0) for k in launches}
-    if launches != want:
+    if without_iou(launches) != without_iou(want):
         fail(f'the nofp path launched {launches}, expected {want}')
     for name in wrappers:
         entries[name]['launches'] = launches[name]
@@ -3447,7 +3502,7 @@ def demo_phase(smi):
             demo_s = time.perf_counter() - t0
             launches = _kernels.launch_counts()
         want = {k: (DEMO_SCANS if k == 'memory_lookup' else 0) for k in launches}
-        if launches != want:
+        if without_iou(launches) != without_iou(want):
             fail(f'the demo path launched {launches}, expected {want}')
         plys = sorted((tmp / 'demo_3d').glob('*.ply'))
         pngs = sorted((tmp / 'demo_3d').glob('*.png'))
@@ -3705,7 +3760,7 @@ def options_phase(smi):
     launches = _kernels.launch_counts()
     hook.remove()
     print(f'options path (adam, {OPTIONS_ADAM_STEPS} steps) launches: {launches}')
-    for name in _kernels.KERNELS:
+    for name in without_iou(launches):
         want = STEP_LAUNCHES.get(name, 0) * OPTIONS_ADAM_STEPS
         if launches[name] != want:
             fail(f'options: {OPTIONS_ADAM_STEPS} steps launched {name} {launches[name]} '
@@ -3904,7 +3959,8 @@ PROFILE_BATCH = 16                 # the JAX profilers' batches: inference, trai
 PROFILE_TRAIN_BATCH = 4
 PROFILE_TOOLS = ('profile_stages', 'profile_train_stages', 'profile_post', 'profile_head',
                  'profile_pn2', 'profile_lookup', 'profile_train')
-PROFILE_FORWARD_LAUNCHES = {'segment_sweep': 3, 'memory_lookup': 1, 'bev_canvas': 2}
+PROFILE_FORWARD_LAUNCHES = {'segment_sweep': 3, 'memory_lookup': 1, 'bev_canvas': 2,
+                            'rotated_iou': PROFILE_BATCH}       # an NMS a scan
 
 
 def _jax_record_keys(name):
@@ -3974,14 +4030,15 @@ def profile_phase(smi):
     forward (batch 16) and one profiled step (batch 4) are counted again
     with every kernel wrapper call captured: each kernel's counted work
     must equal its work function over those calls and stay under its dense
-    formula, and the forward must launch K1 x3, K2 and K3 x2, the step
-    STEP_LAUNCHES, nothing else. Returns those two passes' launches."""
+    formula, and the forward must launch K1 x3, K2, K3 x2 and K13 once a
+    scan (its NMS), the step STEP_LAUNCHES, nothing else but K13. Returns
+    those two passes' launches."""
     import importlib
     import torch
     from hvpr_tpu_torch.models.backbones_2d.map_to_bev import (
         memory_module, pointpillar_scatter)
     from hvpr_tpu_torch.models.backbones_3d.vfe import pillar_vfe
-    from hvpr_tpu_torch.ops import _kernels
+    from hvpr_tpu_torch.ops import _kernels, nms as nms_module
     from hvpr_tpu_torch.tools import profile_stages, profile_train_stages
     from hvpr_tpu_torch.utils import flops
 
@@ -4038,7 +4095,8 @@ def profile_phase(smi):
     calls = capture_calls(
         [(pillar_vfe, 'segment_sweep', 'segment_sweep'),
          (memory_module, 'memory_lookup_fused', 'memory_lookup'),
-         (pointpillar_scatter, 'canvas_from_sorted', 'bev_canvas')],
+         (pointpillar_scatter, 'canvas_from_sorted', 'bev_canvas'),
+         (nms_module, 'boxes_iou_bev', 'rotated_iou')],
         lambda: counters.append(profile_stages.counted(lambda: net.pipeline(points, mask))[1]))
     torch.cuda.synchronize()
     fwd_launches = _kernels.launch_counts()
@@ -4049,7 +4107,9 @@ def profile_phase(smi):
              'memory_lookup': flops.total(
                  _lookup_work(a, memory_module.memory_lookup_fused(*a, return_stats=True)[2])
                  for a, _ in calls['memory_lookup']),
-             'bev_canvas': _canvas_work(calls['bev_canvas'])}
+             'bev_canvas': _canvas_work(calls['bev_canvas']),
+             'rotated_iou': flops.total(flops.rotated_iou_work(a[0].shape[0], a[1].shape[0], True)
+                                        for a, _ in calls['rotated_iou'])}
     _check_counted_work(f'forward, batch {PROFILE_BATCH}', counters[0], works, calls)
     del net, points, mask, calls, counters
 
@@ -4064,7 +4124,8 @@ def profile_phase(smi):
         lambda: counters.append(profile_stages.counted(lambda: net.train_step(data))[1]))
     torch.cuda.synchronize()
     step_launches = _kernels.launch_counts()
-    if step_launches != {k: STEP_LAUNCHES.get(k, 0) for k in step_launches}:
+    if without_iou(step_launches) != {k: STEP_LAUNCHES.get(k, 0)
+                                      for k in without_iou(step_launches)}:
         fail(f'profile: the counted step launched {step_launches}, expected {STEP_LAUNCHES}')
     _split_attend_calls(calls)
     outs = {name: [wrappers[name][2](*a, **kw) for a, kw in calls[name]]
@@ -4280,7 +4341,8 @@ def run_phases(only=None):
                         'max_abs_err': e['max_abs_err'], 'ms': e['ms'],
                         'plain_ms': e['plain_ms'], 'bound_ms': e['bound_ms'],
                         'bound_by': e['bound_by'], 'library_ms': e['library_ms']})
-        for extra in ('dmma_bound_ms', 'device_ms', 'calls', 'ms_before_redesign'):
+        for extra in ('dmma_bound_ms', 'device_ms', 'calls', 'ms_before_redesign',
+                      'clipped_share'):
             if extra in e:
                 kernels[-1][extra] = e[extra]
         if name == 'fps_chunks':

@@ -405,6 +405,23 @@ def gather_grad_work(rows, c, elsize, n):
     return Work(float(rows * c), rows * c * elsize + rows * 8.0 + n * c * elsize, 'f32')
 
 
+
+# f32 operations a pair of the plain rotated IoU (ops/rotated_iou.py, its
+# (N, M) planes' add, sub, mul, div, maximum, minimum and clamp): P's edges
+# clipped to Q, 4 edges x (4 half-planes x 15 + 12), Q's to P, 4 x (4 x 12
+# + 12), the area cap, the sum, the half, the clamp and the cap's min; the
+# IoU's sum of areas, difference, clamp and quotient on top
+ROTATED_OVERLAP_OPS = 4 * (4 * 15 + 12) + 4 * (4 * 12 + 12) + 5
+ROTATED_IOU_OPS = ROTATED_OVERLAP_OPS + 4
+
+
+def rotated_iou_work(n, m, iou):
+    """K13 on (N, 7) x (M, 7) boxes: the plain arithmetic's operations for
+    every pair (the kernel skips most of them for pairs it proves apart);
+    the boxes' 21-float records read, the (N, M) f32 plane written."""
+    ops = ROTATED_IOU_OPS if iou else ROTATED_OVERLAP_OPS
+    return Work(float(ops * n * m), 4.0 * n * m + 84.0 * (n + m), 'f32')
+
 # ---------------------------------------------------------------------------
 # reporting
 # ---------------------------------------------------------------------------

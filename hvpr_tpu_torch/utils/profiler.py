@@ -15,9 +15,10 @@ attributes. On a CUDA device it also records a pair of CUDA events on the
 current stream; their device ms is read when the record is drained
 (:func:`record`), after one ``synchronize``, so recording adds no host read
 of a device value. A counter (:func:`count`) adds to the innermost open
-span and to a process-wide total (:func:`counters`); :func:`host_read`
-makes a read of a device value on the host and counts it as
-``host_syncs``.
+span and to a process-wide total (:func:`counters`); :func:`count_device`
+does so with a 0-d device tensor, read when the record is drained, after
+its ``synchronize``; :func:`host_read` makes a read of a device value on
+the host and counts it as ``host_syncs``.
 
 :func:`trace` captures a ``torch.profiler`` trace of a block into
 ``trace.json`` and the block's spans and counters into ``spans.json``.
@@ -36,6 +37,7 @@ _OFF = contextlib.nullcontext()
 _open = []          # the stack of open spans
 _closed = []        # closed spans whose device ms is not read yet
 _record = []        # drained spans, as dicts
+_deferred = []      # (span or None, counter, 0-d tensor) not read yet
 _totals = {}
 _span_ids = itertools.count()
 _request_ids = itertools.count()
@@ -125,6 +127,16 @@ def count(name, n=1):
     _totals[name] = _totals.get(name, 0) + n
 
 
+def count_device(name, value):
+    """:func:`count` of a 0-d integer tensor ``value``, on the device, into
+    the innermost open span and the total; it is read when the record is
+    drained (:func:`record`), after that one ``synchronize``, so it adds no
+    host read. The totals hold it from that drain on."""
+    if not _torch_profiler._is_profiler_enabled:
+        return
+    _deferred.append((_open[-1] if _open else None, name, value))
+
+
 def host_read(fn, *args):
     """``fn(*args)``, a read of a device value on the host (a sync when the
     value is on the card), counted as ``host_syncs``. Every such read on
@@ -139,10 +151,18 @@ def record():
     were opened (``name``, ``id``, ``parent``, ``request``, ``start_ns``,
     ``end_ns``, ``device_ms`` or None off the card, ``attrs``,
     ``counters``). Drains the closed spans first: one ``synchronize`` of
-    each device they were timed on. Calling it again returns the same."""
-    if _closed:
-        for dev in {s.device for s in _closed if s.device is not None}:
+    each device they were timed on or counted on (:func:`count_device`).
+    Calling it again returns the same."""
+    if _closed or _deferred:
+        devices = {s.device for s in _closed if s.device is not None}
+        for dev in devices | {v.device for _, _, v in _deferred if v.is_cuda}:
             torch.cuda.synchronize(dev)
+        for owner, name, value in _deferred:
+            n = int(value)
+            if owner is not None:
+                owner.counters[name] = owner.counters.get(name, 0) + n
+            _totals[name] = _totals.get(name, 0) + n
+        _deferred.clear()
         _record.extend(s.drained() for s in _closed)
         _closed.clear()
         _record.sort(key=lambda s: s['id'])
@@ -158,6 +178,7 @@ def clear():
     """Forget the recorded spans and the counters' totals."""
     _closed.clear()
     _record.clear()
+    _deferred.clear()
     _totals.clear()
 
 

@@ -19,8 +19,15 @@ is also held to the dense plain backward, which recomputes every row's
 weights. K5's long path (sets above 8192 rows) is exact too. K12 (the row
 gathers' deterministic backward, no TPU kernel) sums in the order of its
 plain version on the CPU, so it gives those bits, and the same bits on
-every run.
+every run. K13 (the rotated BEV IoU, no TPU kernel) repeats its plain
+version's f32 arithmetic pair by pair in its order, so its planes and the
+NMS's detections are exact.
 """
+
+import functools
+import math
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -31,6 +38,8 @@ from hvpr_tpu_torch.ops.bev_canvas import canvas_from_sorted
 from hvpr_tpu_torch.ops.memory_lookup import memory_lookup_fused
 from hvpr_tpu_torch.ops.memory_recon import memory_recon, recon_backward, recon_forward
 from hvpr_tpu_torch.ops.pn2_select import ball_query_bucket, fps_chunks, three_nn_bucket
+from hvpr_tpu_torch.ops.rotated_iou import (box_records, boxes_iou3d, boxes_iou_bev,
+                                             boxes_overlap_bev, records_on_card)
 from hvpr_tpu_torch.ops.segment_sweep import segment_sweep
 from hvpr_tpu_torch.ops.topk_attend import (bucket_threshold, masked_attend,
                                             masked_attend_bwd, masked_attend_bwd_plain,
@@ -199,8 +208,8 @@ def test_bev_canvas_kernel_nuscenes_grid(cuda, dtype):
 
 
 def test_kernels_without_backward_refuse_grad(cuda):
-    """K1-K3 have no backward: an input that requires grad raises (with grad
-    enabled) instead of returning an output with no history."""
+    """K1-K3 and K13 have no backward: an input that requires grad raises
+    (with grad enabled) instead of returning an output with no history."""
     x = torch.randn(16, 64, device=cuda, requires_grad=True)
     slot = torch.arange(64, dtype=torch.int32, device=cuda)
     mem = torch.randn(32, 16, device=cuda)
@@ -208,9 +217,11 @@ def test_kernels_without_backward_refuse_grad(cuda):
     coords = torch.zeros(1, 8, 3, dtype=torch.int32, device=cuda)
     coords[0, :, 2] = torch.arange(8, dtype=torch.int32)
     vmask = torch.ones(1, 8, dtype=torch.bool, device=cuda)
+    boxes = torch.rand(6, 7, device=cuda).requires_grad_()
     calls = [lambda: segment_sweep(x, slot, 32, 'max'),
              lambda: memory_lookup_fused(x.t().contiguous(), mem, 4),
-             lambda: canvas_from_sorted(feat, coords, vmask, 1, 8)]
+             lambda: canvas_from_sorted(feat, coords, vmask, 1, 8),
+             lambda: boxes_iou_bev(boxes, boxes)]
     for call in calls:
         with pytest.raises(RuntimeError, match='no backward'):
             call()
@@ -852,3 +863,148 @@ def test_three_interpolate_backward_repeats_its_bits(cuda):
         assert _kernels.launch_counts()['gather_grad'] == before + 1
         grads.append(f.grad)
     assert torch.equal(grads[0], grads[1])
+
+
+# K13's cases: name -> (boxes_a, boxes_b) as numpy (N, 7) / (M, 7) f32, or
+# 'scan' (the NMS's own candidates) and 'nms' (the whole NMS on them)
+def _boxes(xy, size, heading, z=-1.0, dz=1.56):
+    n = len(xy)
+    out = np.zeros((n, 7), np.float32)
+    out[:, :2] = xy
+    out[:, 2] = z
+    out[:, 3:5] = size
+    out[:, 5] = dz
+    out[:, 6] = heading
+    return out
+
+
+def _iou_case(name):
+    rng = np.random.default_rng(IOU_CASES.index(name))
+    half_pi = np.float32(math.pi / 2)
+    if name == 'identical boxes':
+        a = _boxes(rng.uniform(-30, 30, (300, 2)), rng.uniform(0.5, 5, (300, 2)),
+                   rng.uniform(-math.pi, math.pi, 300))
+        return a, np.concatenate([a, a[::-1]])
+    if name == 'nested boxes':
+        big = _boxes([[0, 0]] * 8, [[10, 6]] * 8, np.arange(8) * 0.4)
+        small = _boxes(rng.uniform(-1, 1, (64, 2)), rng.uniform(0.2, 3, (64, 2)),
+                       rng.uniform(-math.pi, math.pi, 64))
+        return big, small
+    if name == 'touching at an edge':          # shared edges, anti-parallel in CCW order
+        a = _boxes([[0, 0], [0, 0], [5, 5]], [[4, 2], [4, 2], [2, 2]], [0, half_pi, 0.3])
+        d = np.array([np.cos(0.3), np.sin(0.3)], np.float32) * 2
+        b = _boxes([[4, 0], [0, 2], [-4, 0], [0, 4], [0, -2], [5 + d[0], 5 + d[1]]],
+                   [[4, 2], [4, 2], [4, 2], [2, 4], [4, 2], [2, 2]],
+                   [0, 0, math.pi, half_pi, 0, 0.3])
+        return a, b
+    if name == 'touching at a corner':
+        a = _boxes([[0, 0], [1, 1]], [[2, 2], [2, 2]], [0, 0])
+        b = _boxes([[2, 2], [-2, -2], [2, -2], [3, 3], [1 + 2 ** 0.5, 1]],
+                   [[2, 2], [2, 2], [2, 2], [2, 2], [2, 2]],
+                   [0, 0, half_pi, math.pi, math.pi / 4])
+        return a, b
+    if name == 'quarter turns and near them':
+        k = np.arange(-4, 5)
+        turns = np.concatenate([k * half_pi, k * half_pi + 1e-7, k * half_pi - 3e-7,
+                                half_pi + rng.normal(0, 1e-4, 9)]).astype(np.float32)
+        a = _boxes(np.repeat([[1.0, -2.0]], len(turns), 0), [[3.9, 1.6]] * len(turns), turns)
+        b = _boxes(np.repeat([[1.0, -2.0], [2.95, -2.0], [1.0, -1.2]], 12, 0),
+                   [[3.9, 1.6]] * 36, np.tile(turns[:12], 3))
+        return a, b
+    if name == 'zero-size boxes':
+        size = np.array([[0, 0], [0, 1.6], [3.9, 0], [3.9, 1.6]] * 8, np.float32)
+        a = _boxes(rng.uniform(-2, 2, (32, 2)), size, rng.uniform(-math.pi, math.pi, 32))
+        return a, a[::-1].copy()
+    if name == 'a crowd: every pair clipped':
+        a = _boxes(rng.uniform(-1, 1, (700, 2)), rng.uniform(2, 4, (700, 2)),
+                   rng.uniform(-math.pi, math.pi, 700))
+        return a, a
+    if name == 'thin: 37,000 anchors x 40 boxes':
+        x, y = np.meshgrid(np.linspace(0.16, 68.96, 185), np.linspace(-39.52, 39.52, 100))
+        xy = np.stack([x.ravel(), y.ravel()], 1)
+        anchors = _boxes(np.concatenate([xy, xy]), [[3.9, 1.6]] * 37000,
+                         np.repeat([0.0, half_pi], 18500))
+        gt = _boxes(rng.uniform([0, -39], [69, 39], (40, 2)),
+                    rng.uniform([3, 1.4], [5, 2], (40, 2)),
+                    rng.uniform(-math.pi, math.pi, 40), z=rng.uniform(-2, 0, 40))
+        return anchors, gt
+    n, m = {'N = 0': (0, 5), 'M = 0': (5, 0), 'N = M = 1': (1, 1), 'N = 1': (1, 300),
+            'M = 1': (300, 1)}[name]
+    a = _boxes(rng.uniform(-5, 5, (n, 2)), rng.uniform(1, 4, (n, 2)), rng.uniform(-3, 3, n))
+    b = _boxes(rng.uniform(-5, 5, (m, 2)), rng.uniform(1, 4, (m, 2)), rng.uniform(-3, 3, m))
+    return a, b
+
+
+IOU_CASES = ['scan', 'nms', 'identical boxes', 'nested boxes', 'touching at an edge',
+             'touching at a corner', 'quarter turns and near them', 'zero-size boxes',
+             'a crowd: every pair clipped', 'thin: 37,000 anchors x 40 boxes', 'N = 0',
+             'M = 0', 'N = M = 1', 'N = 1', 'M = 1']
+
+
+@functools.lru_cache(maxsize=1)
+def _cell_nms_calls():
+    """[(boxes (A, 7), scores (A,), thresh, pre, post)] of every NMS of one
+    batch of the benchmark cell hvpr.infer.b8: its seeded traffic and
+    weights (the seed of the benchmark's CUDA tests)."""
+    bench = str(Path(__file__).resolve().parents[1] / 'benchmark')
+    if bench not in sys.path:
+        sys.path.insert(0, bench)
+    from harness.program import Program
+    from harness.spec import Cell
+    from traffic.scans import pool
+    from hvpr_tpu_torch.models.model_utils import model_nms_utils
+
+    cell, seed = Cell('hvpr.infer.b8'), 2 ** 31 + 11
+    program = Program(cell, seed, 'cuda')
+    batches, _ = pool(cell.traffic, seed, cell.config['DATA_CONFIG']['POINT_CLOUD_RANGE'])
+    points = torch.from_numpy(batches[0]).cuda()
+    calls, real = [], model_nms_utils.nms_bev_fixed
+
+    def spy(boxes, scores, thresh, pre_maxsize, post_maxsize, **kw):
+        calls.append((boxes.clone(), scores.clone(), thresh, pre_maxsize, post_maxsize))
+        return real(boxes, scores, thresh, pre_maxsize, post_maxsize, **kw)
+
+    model_nms_utils.nms_bev_fixed = spy
+    try:
+        program.detect(points, torch.ones(points.shape[:2], dtype=torch.bool, device='cuda'))
+    finally:
+        model_nms_utils.nms_bev_fixed = real
+        program.close()
+    return calls
+
+
+@pytest.mark.parametrize('case', IOU_CASES)
+def test_rotated_iou_kernel_equals_plain(cuda, case):
+    """K13 against the plain version by torch.equal: the boxes' records
+    (corners, half-planes, areas), boxes_overlap_bev, boxes_iou_bev and
+    boxes_iou3d (its plain height arithmetic on K13's overlaps), one
+    launch a call and none for an empty set. 'scan': the
+    4,096 live candidates of a scan of the benchmark cell, as the NMS
+    takes them; 'nms': nms_bev_fixed on every scan of that batch."""
+    from hvpr_tpu_torch.ops.nms import nms_bev_fixed, preselect
+    if case == 'nms':
+        for boxes, scores, thresh, pre, post in _cell_nms_calls():
+            got, want = _both(nms_bev_fixed, boxes, scores, thresh, pre, post)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+        return
+    if case == 'scan':
+        boxes, scores, _, pre, _ = _cell_nms_calls()[0]
+        order, _ = preselect(scores, pre)
+        assert order.numel() == 4096
+        a = b = boxes[order]
+    else:
+        a, b = (torch.from_numpy(x).to(cuda) for x in _iou_case(case))
+    for boxes in (a, b):            # the boxes' records as the kernel makes them
+        assert torch.equal(records_on_card(boxes), box_records(boxes))
+    launches = 0 if a.shape[0] == 0 or b.shape[0] == 0 else 1
+    for fn in (boxes_overlap_bev, boxes_iou_bev, boxes_iou3d):
+        before = _kernels.launch_counts()['rotated_iou']
+        got = fn(a, b)
+        torch.cuda.synchronize()
+        assert _kernels.launch_counts()['rotated_iou'] == before + launches
+        with _kernels.plain_versions():
+            want = fn(a, b)
+        assert got.shape == want.shape == (a.shape[0], b.shape[0])
+        assert got.dtype == want.dtype == torch.float32
+        assert torch.equal(got, want), (fn.__name__, (got != want).sum().item())

@@ -29,6 +29,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from hvpr_tpu.utils import flops as jax_flops
 
@@ -187,6 +188,51 @@ def test_memory_lookup_counts_its_work_exactly():
     assert flops.counter is None
     memory_lookup.memory_lookup_fused(pillars, memory, k, row_mask)
     assert counter.kernels['memory_lookup']['calls'] == 1
+
+
+class _PlaneOps(TorchDispatchMode):
+    """Counts the float (N, M)-sized results of the plain rotated IoU's
+    arithmetic ops (add, sub, mul, div, maximum, minimum, clamp)."""
+    ARITH = {'add', 'sub', 'rsub', 'mul', 'div', 'maximum', 'minimum', 'clamp', 'clamp_min'}
+
+    def __init__(self, plane):
+        super().__init__()
+        self.plane, self.ops = plane, 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if (func.overloadpacket.__name__ in self.ARITH and isinstance(out, torch.Tensor)
+                and out.is_floating_point() and out.numel() == self.plane):
+            self.ops += 1
+        return out
+
+
+@pytest.mark.parametrize('iou', [False, True])
+def test_rotated_iou_work_is_the_plain_arithmetic(iou):
+    """K13's work is the pairs times the plain version's operations on its
+    (N, M) planes (N = 3, M = 11: no per-box tensor has N M elements) and
+    the plane's and the boxes' records' bytes; under a counter the wrapper
+    reports it, on the CPU too, and none of the plain version's own ops."""
+    from hvpr_tpu_torch.ops import rotated_iou
+    rng = np.random.default_rng(4)
+    boxes = [torch.from_numpy(np.concatenate([rng.uniform(-3, 3, (k, 3)),
+                                              rng.uniform(1, 3, (k, 3)),
+                                              rng.uniform(-3, 3, (k, 1))], 1).astype(np.float32))
+             for k in (3, 11)]
+    plain = rotated_iou.boxes_iou_bev_plain if iou else rotated_iou.boxes_overlap_bev_plain
+    with _PlaneOps(3 * 11) as mode:
+        want = plain(*boxes)
+    assert mode.ops == (flops.ROTATED_IOU_OPS if iou else flops.ROTATED_OVERLAP_OPS)
+    work = flops.rotated_iou_work(3, 11, iou)
+    assert work == flops.Work(mode.ops * 33.0, 4.0 * 33 + 84.0 * 14, 'f32')
+    fn = rotated_iou.boxes_iou_bev if iou else rotated_iou.boxes_overlap_bev
+    with flops.Counter() as counter:
+        got = fn(*boxes)
+    assert counter.flops == work.ops and counter.bytes == work.nbytes
+    assert counter.kernels == {'rotated_iou': {'calls': 1, 'ops': work.ops,
+                                               'bytes': work.nbytes, 'rate': 'f32',
+                                               'dmma_ops': 0.0}}
+    assert torch.equal(got, want)
 
 
 def test_conv_bytes_and_view():

@@ -226,6 +226,25 @@ def test_rotated_iou_matches_jax():
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize('n', [0, 1, 60])
+def test_box_records_are_the_corners_half_planes_and_areas(n):
+    """The plain records that kernel K13's are held to on the card: each
+    box's corners, its half-planes (ux y - uy x + c positive inside) and
+    dx * dy, for any number of boxes, none included."""
+    from hvpr_tpu_torch.ops.rotated_iou import box_records, box_to_corners_bev, half_planes
+    boxes = torch.from_numpy(_boxes(np.random.default_rng(6), 60)[:n])
+    rec = box_records(boxes)
+    assert rec.shape == (n, 21) and rec.dtype == torch.float32
+    corners = box_to_corners_bev(boxes[:, [0, 1, 3, 4, 6]])
+    ux, uy, c = half_planes(corners)
+    assert torch.equal(rec[:, :8], corners.reshape(n, 8))
+    assert torch.equal(rec[:, 8:20], torch.cat([ux, uy, c], dim=1))
+    assert torch.equal(rec[:, 20], boxes[:, 3] * boxes[:, 4])
+    centre = boxes[:, None, :2]
+    inside = ux * centre[..., 1] - uy * centre[..., 0] + c
+    assert bool((inside > 0).all())
+
+
 def test_nms_kept_set_matches_jax():
     """Kept indices equal exactly, including tied scores (lower index
     first) and -inf rows that must neither suppress nor survive."""

@@ -162,6 +162,46 @@ def test_counters_go_to_the_innermost_span_and_the_total():
     assert profiler.record() == [a, b]                          # idempotent
 
 
+def test_a_device_count_is_read_when_the_record_is_drained():
+    """``count_device`` keeps a 0-d tensor and reads it at ``record()``,
+    into the innermost span open at the call and the total; the tensor may
+    change until then, and no host read is counted. Off, it keeps
+    nothing."""
+    profiler.clear()
+    profiler.count_device('d', torch.tensor(9))                 # off: nothing
+    value = torch.zeros((), dtype=torch.int64)
+    with _profiled():
+        with profiler.span('a'):
+            profiler.count_device('d', value)
+            profiler.count('d', 2)
+        profiler.count_device('d', torch.tensor(5))             # no span open: total only
+        value += 7                                               # counted as it is at the drain
+    assert profiler.counters() == {'d': 2}
+    (a,) = profiler.record()
+    assert a['counters'] == {'d': 9}
+    assert profiler.counters() == {'d': 14}
+    assert profiler.record() == [a] and profiler.counters() == {'d': 14}
+
+
+def test_the_iou_kernel_name_is_no_marked_kernel():
+    """The benchmark's trace holds the launches of its marked kernels
+    against the program's count by the CUDA function's name; K13's
+    function (``rotated_iou_kernel``) and its launch name must match no
+    marker, so that the trace does not count it as another kernel."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        'bench_trace', REPO / 'benchmark' / 'harness' / 'trace.py')
+    trace = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(trace)
+    for name in ('void (anonymous namespace)::rotated_iou_kernel<true>(float const*, int, '
+                 'float const*, float const*, float const*, int, float const*, float const*, '
+                 'float*, int, int, int, unsigned long long*)',
+                 'rotated_iou_kernel', 'rotated_iou', 'records_kernel'):
+        assert trace.kernel_family(name) is None, name
+    assert 'rotated_iou' not in trace.KERNEL_MARKERS
+    assert trace.kernel_family('void canvas_kernel<true>(float4 const*)') == 'bev_canvas'
+
+
 def test_multi_class_nms_is_a_span_per_class():
     from hvpr_tpu_torch.models.model_utils.model_nms_utils import multi_classes_nms
     rng = np.random.default_rng(2)
