@@ -2,11 +2,11 @@
 public entry points (``build_network``, ``Network.load_state_dict``,
 ``Network.pipeline``, the detector's ``stages()``).
 
-The benchmark makes the weights from the seed and loads them by name; it
-hangs two kinds of hooks on the detector's stages: one that keeps the
-dense head's outputs of the scans the check will compare (references
-only, no copy), and, in a traced run, CUDA events before and after each
-stage (no synchronize). The spans between events are the layers' device
+The benchmark makes the weights (:func:`weight_seeds`) and loads them by
+name, one network a draw; it hangs two kinds of hooks on the detector's
+stages: one that keeps the dense head's outputs of the scans the check
+will compare (references only, no copy), and, in a traced run, CUDA
+events before and after each stage (no synchronize). The spans between events are the layers' device
 times: voxelize from the call to the first stage, post-processing from
 the last stage to the detections' copy to the host.
 """
@@ -55,8 +55,18 @@ class StageEvents:
         return out
 
 
+def weight_seeds(scheme, seed):
+    """The generator seeds of a run's weight draws: the run's own seed, or,
+    where the weight scheme gives ``"draws": K``, the seeds 0 to K - 1, the
+    same set for every run."""
+    draws = scheme.get('draws')
+    return [int(seed)] if draws is None else list(range(int(draws)))
+
+
 class Program:
-    """The port's network for one cell, with seeded weights."""
+    """The port's network for one cell, with seeded weights: one network a
+    weight draw (:func:`weight_seeds`); a request of pool batch ``i`` is
+    answered by draw ``i`` mod the number of draws."""
 
     def __init__(self, cell, seed, device):
         from hvpr_tpu_torch.config import ConfigDict
@@ -66,29 +76,34 @@ class Program:
         self.cfg = cfg
         self.device = torch.device(device)
         meta = DatasetMeta(ConfigDict(cfg['DATA_CONFIG']), cfg['CLASS_NAMES'], mode='test')
-        self.net = build_network(ConfigDict(cfg['MODEL']), len(cfg['CLASS_NAMES']), meta,
-                                 device=self.device, train=False)
-        state = self.net.module.state_dict()
-        shapes = {k: tuple(v.shape) for k, v in state.items() if v.is_floating_point()}
         scheme = cfg['weights']
-        weights = make_weights(shapes, seed, self.device, cls_bias=cell.file['cls_bias'],
-                               box_std=scheme.get('box_std'), cls_std=cell.file.get('cls_std'))
-        state.update(weights)
-        self.net.load_state_dict(state)
-        # the reference's copy, off the device until the window has closed
-        self.weights = {k: v.cpu() for k, v in weights.items()}
-        del weights, state
+        self.nets = []
+        self.weights = []   # the reference's copies, off the device until the window has closed
+        for draw in weight_seeds(scheme, seed):
+            net = build_network(ConfigDict(cfg['MODEL']), len(cfg['CLASS_NAMES']), meta,
+                                device=self.device, train=False)
+            state = net.module.state_dict()
+            shapes = {k: tuple(v.shape) for k, v in state.items() if v.is_floating_point()}
+            weights = make_weights(shapes, draw, self.device,
+                                   cls_bias=scheme.get('cls_bias', 0),
+                                   box_std=scheme.get('box_std'), cls_std=scheme.get('cls_std'))
+            state.update(weights)
+            net.load_state_dict(state)
+            self.nets.append(net)
+            self.weights.append({k: v.cpu() for k, v in weights.items()})
+            del weights, state
         self.events = None
         self.capture_key = None
         self.captured = {}
-        module = self.net.module
-        names = {id(m): n for n, m in module.named_children()}
         self.hooks = []
-        for stage in module.stages():
-            name = names[id(stage)]
-            self.hooks.append(stage.register_forward_pre_hook(self._pre(name)))
-            self.hooks.append(stage.register_forward_hook(self._post(name)))
-        self.hooks.append(module.dense_head.register_forward_hook(self._keep_head))
+        for net in self.nets:
+            module = net.module
+            names = {id(m): n for n, m in module.named_children()}
+            for stage in module.stages():
+                name = names[id(stage)]
+                self.hooks.append(stage.register_forward_pre_hook(self._pre(name)))
+                self.hooks.append(stage.register_forward_hook(self._post(name)))
+            self.hooks.append(module.dense_head.register_forward_hook(self._keep_head))
 
     def _pre(self, name):
         def hook(_module, _args):
@@ -106,14 +121,19 @@ class Program:
         if self.capture_key is not None:
             self.captured[self.capture_key] = (out['batch_cls_preds'], out['batch_box_preds'])
 
+    def net_of(self, key):
+        """The network that answers pool batch ``key`` (None: the first)."""
+        return self.nets[(key or 0) % len(self.nets)]
+
     def detect(self, points, mask, key=None):
         """One request: the pipeline on device tensors, the detections
-        copied to the host. ``key`` names a request whose head outputs the
-        check keeps."""
+        copied to the host. ``key``, the request's pool batch, picks the
+        weight draw and names the request whose head outputs the check
+        keeps."""
         self.capture_key = key
         if self.events is not None:
             self.events.begin()
-        out = self.net.pipeline(points, mask)
+        out = self.net_of(key).pipeline(points, mask)
         if self.events is not None:
             self.events.mark('end')
         return {k: out[k].cpu() for k in ('pred_boxes', 'pred_scores', 'pred_labels',
@@ -123,5 +143,5 @@ class Program:
         for h in self.hooks:
             h.remove()
         self.hooks = []
-        self.net = None
+        self.nets = []
         self.captured = {}

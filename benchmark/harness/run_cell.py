@@ -6,9 +6,10 @@ mode's first requests of the cell's own shape (``modes/<mode>.py``
 ``prepare``), which build the kernel libraries into the checkout's
 ``build/`` on its first run there. Then the mode's window. After it: the
 memory peak, the look for JAX in ``sys.modules``, with ``--trace 1`` the
-trace's reduction, then the program is freed and the reference judges a
-sample, drawn from the seed, of what the window finished (the mode's
-``samples`` and ``check``).
+trace's reduction and the window's FLOPs by the configuration's work module
+(none where it names none), then the program is freed and the reference
+that the configuration names judges a sample, drawn from the seed, of what
+the window finished (the mode's ``samples`` and ``check``).
 The metric readers of ``metrics/`` get one record of all of it.
 """
 
@@ -23,9 +24,8 @@ import torch
 from harness import stats
 from harness.program import Program, StageEvents
 from harness.trace import Trace, profiled
-from reference.model import point_and_pillar_counts
 from traffic.scans import pool as make_pool
-from work.flops import card_rates, pipeline_flops, power_limit
+from work.flops import card_rates, power_limit
 
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'hvpr_tpu')
 
@@ -150,17 +150,11 @@ def run_cell(cell, seed, seconds, trace, device, t_start, say, program_factory=N
                         if launches[k] or counted.get(k, 0))
             + (' -- all agree' if rec.launches_match else
                ' -- DISAGREE: the trace dropped records; idle and roofline shares left out'))
-    vox = {p['NAME']: p for p in cfg['DATA_CONFIG']['DATA_PROCESSOR']}['transform_points_to_voxels']
-    vs = vox['VOXEL_SIZE']
-    grid = [int(round((pcr[i + 3] - pcr[i]) / vs[i])) for i in range(3)]
-    max_voxels = int(vox['MAX_NUMBER_OF_VOXELS']['test'])
-    rec.counts = {}
-    if trace:
-        for idx in sorted(set(rec.requests)):
-            rec.counts[idx] = [point_and_pillar_counts(s, pcr, vs, grid, max_voxels,
-                                                       int(vox['MAX_POINTS_PER_VOXEL']))
-                               for s in pool_np[idx]]
-        rec.flops = sum(pipeline_flops(cfg, rec.counts[idx]) for idx in rec.requests)
+    work = cell.work()
+    if trace and work is not None:
+        flops = {idx: work.batch_flops(cfg, pool_np[idx]) for idx in sorted(set(rec.requests))}
+        rec.flops = sum(flops[idx] for idx in rec.requests)
+        say(f'work: dense FLOPs a request by pool batch {flops}; over the window {rec.flops!r}')
 
     # the check, with the program's state freed
     items = mode.samples(ctx, seed)

@@ -1,8 +1,12 @@
-"""Plain PyTorch reference of HVPR's inference path, one scan at a time.
+"""Plain PyTorch reference of HVPR's inference path, one scan at a time: the
+reference that ``configs/hvpr.json`` names (``"reference": "model"``).
 
 Written from the configuration alone (``MixAnchor_Memory``: PillarVFE_Scale,
 the attentive memory, the scale-aware BEV backbone with CBAM gates, the
-anchor head). It imports nothing of the program: it voxelizes the raw
+anchor head). Another pillar detector's reference subclasses
+:class:`Reference` and gives its own ``MODEL_NAME``, ``check_stated`` and
+``bev``; voxelization, the pillar layers, the canvas, the head and the
+decode are shared. It imports nothing of the program: it voxelizes the raw
 points itself (a padded (pillars, points, 4) layout in numpy), and takes the
 weights by their state-dict names. Everything runs in float32 with TF32
 off, as the configuration states: the memory lookup takes the exact top-k
@@ -41,16 +45,12 @@ def _bf16(x):
     return x.to(torch.bfloat16).float()
 
 
-def _stated_f32(model):
-    """Refuses a configuration that states anything but float32 and the
-    exact top-k."""
+def stated_f32(model):
+    """Refuses a configuration that states anything but float32."""
     dtypes = [model[s].get('COMPUTE_DTYPE', 'fp32') for s in ('BACKBONE_2D', 'DENSE_HEAD')]
     dtypes.append(model['MAP_TO_BEV'].get('CANVAS_DTYPE', 'fp32'))
     if any(str(d).lower() not in ('fp32', 'float32') for d in dtypes):
         raise ValueError(f'the reference computes float32 only; the configuration states {dtypes}')
-    mode = str(model['MAP_TO_BEV'].get('TOPK_MODE', 'fused')).lower()
-    if mode != 'exact':
-        raise ValueError(f'the reference takes the exact top-k; TOPK_MODE is {mode!r}')
 
 
 def voxelize(points, pcr, voxel_size, grid, max_voxels, max_points):
@@ -85,7 +85,7 @@ def point_and_pillar_counts(points, pcr, voxel_size, grid, max_voxels, max_point
 
 
 def make_anchors(head_cfg, grid, pcr):
-    """(A, 7) anchors flattened in (y, x, size, rotation) order, one class."""
+    """(A, 7) anchors flattened in (y, x, class, size, rotation) order."""
     out = []
     for c in head_cfg['ANCHOR_GENERATOR_CONFIG']:
         stride = c['feature_map_stride']
@@ -134,6 +134,8 @@ class Reference:
     """The inference path of one configuration with the given weights
     ({state-dict name: tensor}), on ``device``."""
 
+    MODEL_NAME = 'MixAnchor_Memory'
+
     def __init__(self, cfg, weights, device, lowp=False):
         self.cfg = cfg
         self.model = cfg['MODEL']
@@ -148,12 +150,21 @@ class Reference:
                      for i in range(3)]
         self.max_points = int(vox['MAX_POINTS_PER_VOXEL'])
         self.max_voxels = int(vox['MAX_NUMBER_OF_VOXELS']['test'])
-        if self.model['NAME'] != 'MixAnchor_Memory':
-            raise ValueError(f'the reference is HVPR\'s; the configuration runs {self.model["NAME"]}')
-        _stated_f32(self.model)
+        if self.model['NAME'] != self.MODEL_NAME:
+            raise ValueError(f'the reference is {self.MODEL_NAME}\'s; the configuration runs '
+                             f'{self.model["NAME"]}')
+        self.check_stated()
         head = self.model['DENSE_HEAD']
         self.anchors = torch.from_numpy(make_anchors(head, self.grid, self.pcr)).to(self.device)
         self.num_dir_bins = int(head['NUM_DIR_BINS'])
+
+    def check_stated(self):
+        """Refuses a configuration that states anything but float32 and the
+        exact top-k."""
+        stated_f32(self.model)
+        mode = str(self.model['MAP_TO_BEV'].get('TOPK_MODE', 'fused')).lower()
+        if mode != 'exact':
+            raise ValueError(f'the reference takes the exact top-k; TOPK_MODE is {mode!r}')
 
     def q(self, x):
         """``x`` as a stage computes it: itself, or in the control rounded to
@@ -186,8 +197,9 @@ class Reference:
 
     # ------------------------------------------------------------------ stages
 
-    def vfe(self, voxels, num, cells):
-        """Pillar features (V, C) and scale features (V, C_s)."""
+    def pfn(self, voxels, num, cells):
+        """Pillar features (V, C): the pillar VFE's point layers, each a
+        linear, BatchNorm and ReLU, and the max over a pillar's points."""
         cfg = self.model['VFE']
         v, p, _ = voxels.shape
         mask = torch.arange(p, device=self.device)[None, :] < num[:, None]       # (V, P)
@@ -216,13 +228,19 @@ class Reference:
             else:
                 x = torch.cat([y * mask[..., None],
                                y_max[:, None].expand_as(y) * mask[..., None]], dim=-1)
+        return x
+
+    def scale(self, voxels, num):
+        """Scale features (V, C_s) of PillarVFE_Scale: a pillar's point
+        count, its mean's range and the mean, through the scale layers."""
+        mean = voxels[..., :3].sum(dim=1) / num.clamp(min=1).float()[:, None]
         s = torch.cat([num.float()[:, None], torch.linalg.norm(mean, dim=1, keepdim=True),
                        mean], dim=1)                                              # (V, 5)
-        for i in range(len(cfg['NUM_SCALE_FEATURES'])):
+        for i in range(len(self.model['VFE']['NUM_SCALE_FEATURES'])):
             key = f'vfe.pfn_scale_layers.{i}'
             s = torch.relu(self._bn(self._linear(s, f'{key}.0.weight').t(),
                                     f'{key}.1', 1).t())
-        return x, s
+        return s
 
     def memory(self, pillars):
         """The memory's reconstruction of (V, C) pillars: each pillar's k
@@ -271,6 +289,15 @@ class Reference:
                                             int(cfg['UPSAMPLE_STRIDES'][i])))
         return torch.cat(ups, dim=1)
 
+    def bev(self, voxels, num, cells):
+        """The (1, C, H, W) map the head reads: the pillars and their
+        memory reconstruction on the canvas, through the backbone gated by
+        the scale stream."""
+        pillars = self.pfn(voxels, num, cells)
+        scale = self.scale(voxels, num)
+        feats = torch.cat([pillars, self.memory(pillars)], dim=1)
+        return self.backbone(self.canvas(feats, cells), self.canvas(scale, cells))
+
     def head(self, feat):
         """(1, C, H, W) -> cls logits (A, classes), residuals (A, 7), dir
         logits (A, bins), per anchor in (y, x, anchor) order."""
@@ -286,18 +313,15 @@ class Reference:
     # ----------------------------------------------------------------- a scan
 
     def forward(self, points):
-        """One scan's (N, 4) points -> dict of cls (A,), res (A, 7), boxes
-        (A, 7) decoded with the direction bins, dir_labels (A,)."""
+        """One scan's (N, 4) points -> dict of cls (A, classes), res (A, 7),
+        boxes (A, 7) decoded with the direction bins, dir_labels (A,)."""
         with exact_f32(), torch.no_grad():
             voxels, num, cells = voxelize(points, self.pcr, self.voxel_size, self.grid,
                                           self.max_voxels, self.max_points)
             voxels = torch.from_numpy(voxels).to(self.device)
             num = torch.from_numpy(num).to(self.device)
             cells = torch.from_numpy(cells).to(self.device)
-            pillars, scale = self.vfe(voxels, num, cells)
-            feats = torch.cat([pillars, self.memory(pillars)], dim=1)
-            feat = self.backbone(self.canvas(feats, cells), self.canvas(scale, cells))
-            cls, res, dir_logits = self.head(feat)
+            cls, res, dir_logits = self.head(self.bev(voxels, num, cells))
             res = self.q(res)
             boxes = decode(res, self.anchors)
             head = self.model['DENSE_HEAD']
@@ -307,4 +331,4 @@ class Reference:
             rot = boxes[:, 6] - off
             rot = rot - torch.floor(rot / period + lim) * period
             boxes = torch.cat([boxes[:, :6], (rot + off + period * labels)[:, None]], dim=1)
-        return {'cls': cls[:, 0], 'res': res, 'boxes': boxes, 'dir_labels': labels}
+        return {'cls': cls, 'res': res, 'boxes': boxes, 'dir_labels': labels}

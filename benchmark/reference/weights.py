@@ -6,11 +6,11 @@ linears (a transpose conv's fan-in is its input channels), the memory
 uniform in +-1/sqrt(C), BatchNorm affine terms and running statistics
 perturbed so that BN is exercised, other vectors N(0, 0.1), the box conv
 N(0, ``box_std``) where given. Three things differ: the class bias is the
-cell's (0, or the head's prior ``-log((1 - pi) / pi)``, pi = 0.01), the
-class conv is N(0, ``cls_std``) where the cell gives it, and the values
-come from one ``torch.Generator`` on the device, one normal and one
-uniform draw for all tensors in the order of their sorted names, instead
-of a CPU draw a tensor.
+configuration's (0, or the head's prior ``-log((1 - pi) / pi)``, pi =
+0.01), the class conv is N(0, ``cls_std``) where the configuration gives
+it, and the values come from one ``torch.Generator`` on the device, one
+normal and one uniform draw for all tensors in the order of their sorted
+names, instead of a CPU draw a tensor.
 """
 
 import math

@@ -87,7 +87,7 @@ def test_a_cell_config_and_metric_are_added_by_files_alone(tmp_path):
         {'mode': 'infer', 'generator': 'realistic_scans', 'batch': 1,
          'points_per_scan': 10000, 'pool_batches': 2}))
     (tmp_path / 'workloads' / 'dummy.infer.json').write_text(json.dumps(
-        {'config': 'dummy_hvpr', 'cls_bias': 0, 'compare_scans': 2,
+        {'config': 'dummy_hvpr', 'compare_scans': 2,
          'limits': {'cls_gap': 0.05, 'det_unmatched': 0}}))
     (tmp_path / 'metrics' / 'dummy_requests.py').write_text(
         'def read(rec):\n    return len(rec.requests)\n')
@@ -106,3 +106,14 @@ def test_a_cell_config_and_metric_are_added_by_files_alone(tmp_path):
     result = run_cell(cell, 7, 0.2, True, 'cpu', time.perf_counter(), lambda m: None)
     assert result['metrics']['dummy_requests']['value'] >= 1
     assert result['correct'], result['checks']
+
+
+def test_a_configuration_on_a_base_is_the_base_with_its_own_keys():
+    from harness.spec import load_config, load_json
+    own = load_json('configs', 'hvpr_prior', [BENCH_DIR])
+    prior = load_config('hvpr_prior', [BENCH_DIR])
+    hvpr = load_config('hvpr', [BENCH_DIR])
+    assert own['base'] == 'hvpr' and 'base' not in prior
+    assert set(prior) == set(hvpr) | (set(own) - {'base'})
+    assert {k for k in hvpr if prior[k] != hvpr[k]} == {'name', 'weights'}
+    assert prior['weights']['cls_bias'] == 'prior' and hvpr['weights']['cls_bias'] == 0

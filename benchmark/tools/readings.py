@@ -36,12 +36,12 @@ from harness.faults import FAULTS  # noqa: E402
 from harness.program import Program  # noqa: E402
 from harness.run_cell import cli_flags, run_cell  # noqa: E402
 from harness.spec import Cell  # noqa: E402
-from modes.detect import check, sample_scans  # noqa: E402
+from modes.detect import check, sample_scans, to_compare  # noqa: E402
 from traffic.scans import pool as make_pool  # noqa: E402
 
 
-def _quiet(_msg):
-    pass
+def _say(msg):
+    print(msg, file=sys.stderr, flush=True)
 
 
 def detection_readings(cell, seed, device, control):
@@ -57,20 +57,15 @@ def detection_readings(cell, seed, device, control):
     mask = torch.ones(batch, n, dtype=torch.bool, device=device)
     dets = {idx: side.detect(torch.from_numpy(pool_np[idx]).to(device), mask, key=idx)
             for idx in sorted({i for i, _ in chosen})}
-    items = []
-    for i, s in chosen:
-        cls, boxes = side.captured[i]
-        items.append((pool_np[i, s], cls[s, :, 0], boxes[s, :, :7],
-                      {k: v[s] for k, v in dets[i].items()}))
+    items = to_compare(chosen, pool_np, side.captured, dets, len(weights))
     side.close()
-    return check(cell, items, weights, device, _quiet)
+    return check(cell, items, weights, device, _say)
 
 
 def readings(cell, seed, device, side, fault=None):
     if side in ('control', 'program'):
         return detection_readings(cell, seed, device, side == 'control')
-    result = run_cell(cell, seed, 0.0, False, device, time.perf_counter(),
-                      lambda m: print(m, file=sys.stderr),
+    result = run_cell(cell, seed, 0.0, False, device, time.perf_counter(), _say,
                       program_factory=FAULTS[fault] if fault else None)
     return {k: v['value'] for k, v in result['checks'].items()}
 

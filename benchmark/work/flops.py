@@ -2,17 +2,21 @@
 
 ``H100``, the card table and :func:`power_limit` are a frozen copy of
 ``hvpr_tpu_torch/utils/flops.py`` at commit
-1380d4cbc8b81ffdba01a8b3179518351fd96dae. :func:`pipeline_flops`
-counts the dense products of one scan's inference from the configuration
-and the scan's kept points and pillars: the VFE linears, the memory
-logits, every convolution of the BEV backbone (the CBAM gate's conv once a
-SFM round, as the model applies it) and the head's 1x1 convs. It counts a
-multiply-add as 2 and no elementwise op, so it reads the same work whatever
-implements it.
+1380d4cbc8b81ffdba01a8b3179518351fd96dae. This is the work module of
+the pillar configurations (``"work": "flops"``): :func:`batch_flops`
+counts the dense products of one request's inference from the
+configuration and each scan's kept points and pillars under the
+reference's voxelization: the VFE linears, the memory logits, every
+convolution of the BEV backbone (the CBAM gate's conv once a SFM round, as
+the model applies it) and the head's 1x1 convs. It counts a multiply-add
+as 2 and no elementwise op, so it reads the same work whatever implements
+it.
 """
 
 import shutil
 import subprocess
+
+from reference.model import point_and_pillar_counts
 
 # NVIDIA's data sheet, H100 SXM, dense rates (no sparsity) at the full 700 W
 # power limit: bf16 tensor cores, TF32, f32 outside the tensor cores, f64 on
@@ -118,3 +122,16 @@ def pipeline_flops(cfg, counts):
     pillars)] a scan."""
     fixed = backbone_and_head_flops(cfg)
     return sum(fixed + vfe_and_memory_flops(cfg, p, v) for p, v in counts)
+
+
+def batch_flops(cfg, scans):
+    """Dense FLOPs of one request: :func:`pipeline_flops` over the kept
+    points and pillars of each of its (B, N, 4) ``scans``."""
+    data = cfg['DATA_CONFIG']
+    pcr = data['POINT_CLOUD_RANGE']
+    vox = {p['NAME']: p for p in data['DATA_PROCESSOR']}['transform_points_to_voxels']
+    vs = vox['VOXEL_SIZE']
+    grid = [int(round((pcr[i + 3] - pcr[i]) / vs[i])) for i in range(3)]
+    return pipeline_flops(cfg, [point_and_pillar_counts(
+        s, pcr, vs, grid, int(vox['MAX_NUMBER_OF_VOXELS']['test']),
+        int(vox['MAX_POINTS_PER_VOXEL'])) for s in scans])
