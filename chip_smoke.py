@@ -2844,7 +2844,7 @@ def second_cfg(head='AnchorHeadSingle', assigner='AxisAlignedTargetAssigner'):
                                 'VOXEL_SIZE': [0.05, 0.05, 0.1], 'MAX_POINTS_PER_VOXEL': 5,
                                 'MAX_NUMBER_OF_VOXELS': {'train': 16000, 'test': 40000}}]},
         'MODEL': {
-            'NAME': 'PointPillar',
+            'NAME': 'SECONDNet',
             'VFE': {'NAME': 'MeanVFE'},
             'BACKBONE_3D': {'NAME': 'VoxelBackBone8x'},
             'MAP_TO_BEV': {'NAME': 'HeightCompression', 'NUM_BEV_FEATURES': 256},
@@ -2867,28 +2867,16 @@ def second_cfg(head='AnchorHeadSingle', assigner='AxisAlignedTargetAssigner'):
 
 
 def second_network(cfg, meta, device, train=False):
-    """The SECOND composition (``tests/test_second_style.py``'s SecondNet):
-    a PointPillar detector whose forward runs the 3D backbone after the VFE,
-    as a ``Network`` on ``device``, with seeded weights (the box convs at
-    SECOND_BOX_STD)."""
+    """The registered ``SECONDNet`` (vfe -> backbone_3d -> map_to_bev ->
+    backbone_2d -> dense_head) built by ``build_network`` on ``device``,
+    in eval mode or with ``train=True`` in training, with seeded weights
+    (the box convs at SECOND_BOX_STD)."""
     import torch
-    from hvpr_tpu_torch.models import Network
-    from hvpr_tpu_torch.models.detectors.pointpillar import PointPillar
+    from hvpr_tpu_torch.models import build_network
 
-    class SecondNet(PointPillar):
-        def stages(self):
-            return (self.vfe, self.backbone_3d, self.map_to_bev_module, self.backbone_2d,
-                    self.dense_head)
-
-    module = SecondNet(
-        model_cfg=cfg.MODEL, num_class=len(cfg.CLASS_NAMES), class_names=cfg.CLASS_NAMES,
-        grid_size=tuple(int(g) for g in meta.grid_size),
-        point_cloud_range=tuple(float(v) for v in meta.point_cloud_range),
-        voxel_size=tuple(float(v) for v in meta.voxel_size),
-        num_point_features=meta.num_point_features,
-        max_points_per_voxel=meta.max_points_per_voxel, point_stream=True)
-    seed_weights(module, seed=0, box_std=SECOND_BOX_STD)
-    head = module.dense_head
+    net = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), meta, device=device, train=train)
+    seed_weights(net.module, seed=0, box_std=SECOND_BOX_STD)
+    head = net.module.dense_head
     if hasattr(head, 'rpn_heads'):          # AnchorHeadMulti: its box convs
         gen = torch.Generator().manual_seed(1)
         with torch.no_grad():
@@ -2897,9 +2885,7 @@ def second_network(cfg, meta, device, train=False):
                 for k in range(len(h.class_anchor_counts)):
                     w = h.convs[per * k + 1].weight
                     w.copy_(torch.randn(w.shape, generator=gen) * SECOND_BOX_STD)
-    module = module.to(device).train(train)
-    return Network(module, meta, cfg.MODEL.POST_PROCESSING, len(cfg.CLASS_NAMES),
-                   torch.device(device))
+    return net
 
 
 def padded_voxels(points, meta):

@@ -86,7 +86,8 @@ class Network:
 
     def load_state_dict(self, state_dict):
         """Load reference-keyed weights (see ``utils/weights.py``); an
-        eval-only network ignores the point stream's keys."""
+        eval-only network ignores the point stream's keys (a voxel
+        backbone's it loads: the network runs it)."""
         if self.module.backbone_3d is None:
             state_dict = {k: v for k, v in state_dict.items()
                           if not k.startswith('backbone_3d.')}
@@ -150,7 +151,8 @@ class Network:
 
 def build_network(model_cfg, num_class, dataset, device='cuda', train=False):
     """Build the network of ``model_cfg`` on ``device``: eval mode, or with
-    ``train=True`` training mode with the point stream. ``dataset`` is a
+    ``train=True`` training mode with the point stream (a voxel backbone is
+    built in both). ``dataset`` is a
     :class:`DatasetMeta` or a dataset of :mod:`hvpr_tpu_torch.datasets`."""
     device = resolve_device(device)
     module = build_detector(model_cfg, num_class, dataset,

@@ -10,12 +10,21 @@ The structure is OpenPCDet's VoxelBackBone8x: a submanifold stem
 (``conv_input``, ``conv1``), three stages of a strided sparse conv and two
 submanifold convs to stride 8 (``conv2``-``conv4``, channels NUM_FILTERS,
 default 32-64-64), closed by ``conv_out``: a (3, 1, 1)-kernel,
-(2, 1, 1)-stride, padding-0 sparse conv that halves z. A strided conv
+(2, 1, 1)-stride, padding-0 sparse conv that halves z. The geometry is the
+JAX package's by default: the sparse shape is the voxel grid (z, y, x) and
+every stage conv pads (1, 1, 1). ``UPSTREAM_GEOMETRY: true`` takes
+upstream's: the sparse shape has one more z cell (``grid_size[::-1] + [1,
+0, 0]``, 41 z cells on KITTI's grid) and ``conv4`` pads (0, 1, 1). Both end
+at D = 2 on KITTI's 40 z cells, but they activate other z cells from
+``conv2`` on and align ``conv4`` otherwise, so only upstream's computes
+the network of OpenPCDet's ``second.yaml``. A strided conv
 dilates the active set, so every level keeps up to MAX_SITES sites
 (default twice the input's site slots); the sites the cap drops are counted
 into ``batch_dict['sparse_sites_dropped']`` (B,). The last level's sites are
 densified into ``encoded_spconv_tensor`` (B, D, H/8, W/8, C), channels
-last, the JAX layout that HeightCompression takes.
+last, the JAX layout that HeightCompression takes. Under a profiler the
+forward is a span ``sparse`` holding each conv's spans
+(:mod:`~hvpr_tpu_torch.ops.sparse_conv`) and ``sparse.densify``.
 
 Every block is [conv weight, masked BN, ReLU], the reference's
 SparseSequential, so the keys are ``conv_input.0.weight``,
@@ -32,6 +41,7 @@ from torch import nn
 from ...ops.gather_rows import gather_rows
 from ...ops.sparse_conv import (sparse_conv3d, sparse_conv3d_out_grid, spread_rows,
                                  subm_conv3d)
+from ...utils import profiler
 from ..model_utils.layers import MaskedBatchNorm
 
 
@@ -125,14 +135,17 @@ class VoxelBackBone8xSparse(nn.Module):
         self.model_cfg = model_cfg
         self.grid_size = None if grid_size is None else tuple(int(g) for g in grid_size)
         channels = list(model_cfg.get('NUM_FILTERS', [32, 64, 64]))
+        self.upstream_geometry = bool(model_cfg.get('UPSTREAM_GEOMETRY', False))
         self.conv_input = SubMBlock(input_channels, 16)
         self.conv1 = SparseStage(SubMBlock(16, 16))
         c = 16
         self.stage_names = ['conv_input', 'conv1']
         for i, ch in enumerate(channels):
-            setattr(self, f'conv{i + 2}', SparseStage(
-                SparseDownBlock(c, ch), SubMBlock(ch, ch), SubMBlock(ch, ch)))
-            self.stage_names.append(f'conv{i + 2}')
+            name = f'conv{i + 2}'
+            pad = (0, 1, 1) if self.upstream_geometry and name == 'conv4' else (1, 1, 1)
+            setattr(self, name, SparseStage(
+                SparseDownBlock(c, ch, padding=pad), SubMBlock(ch, ch), SubMBlock(ch, ch)))
+            self.stage_names.append(name)
             c = ch
         self.num_point_features = int(model_cfg.get('OUT_CHANNELS', 128))
         self.conv_out = SparseDownBlock(c, self.num_point_features, kernel=(3, 1, 1),
@@ -140,9 +153,13 @@ class VoxelBackBone8xSparse(nn.Module):
         self.stage_names.append('conv_out')
 
     def forward(self, batch_dict):
+        with profiler.span('sparse', self):
+            return self._forward(batch_dict)
+
+    def _forward(self, batch_dict):
         nx, ny, nz = (int(g) for g in (self.grid_size if self.grid_size is not None
                                        else batch_dict['grid_size']))
-        grid = (nz, ny, nx)
+        grid = (nz + 1 if self.upstream_geometry else nz, ny, nx)
         f, c, m = _sites_from_batch(batch_dict, grid)
         v = f.shape[1]
         # a stride-2 sparse conv dilates the active set (an input touches up
@@ -155,21 +172,25 @@ class VoxelBackBone8xSparse(nn.Module):
                 total_dropped = total_dropped + dropped
         batch_dict['sparse_sites_dropped'] = total_dropped
 
-        # densify the z-compressed stride-8 sites for HeightCompression: each
-        # cell gathers its site's row, 0 where it has none (those cells'
-        # reads spread over the sites and are masked out)
-        dz, dy, dx = grid
-        n = dz * dy * dx
-        c64 = c.long()
-        lin = c64[..., 0] * (dy * dx) + c64[..., 1] * dx + c64[..., 2]
-        lin = torch.where(m, lin, lin.new_full((), n))
-        b, vf = f.shape[:2]
-        rowid = lin.new_full((b, n + 1), -1).scatter(1, lin, torch.where(
-            m, torch.arange(vf, device=f.device).expand(b, vf), -1))[:, :n]
-        filled = rowid >= 0
-        rows = gather_rows(f, torch.where(filled, rowid, spread_rows(rowid.shape, vf,
-                                                                      f.device)))
-        dense = torch.where(filled[..., None], rows, 0.0).reshape(b, dz, dy, dx, f.shape[-1])
-        batch_dict['encoded_spconv_tensor'] = dense
+        with profiler.span('sparse.densify', f):
+            batch_dict['encoded_spconv_tensor'] = _densify(f, c, m, grid)
         batch_dict['encoded_spconv_tensor_stride'] = 8
         return batch_dict
+
+
+def _densify(f, c, m, grid):
+    """The (B, D, H, W, C) volume of the sites (f, c, m) on ``grid``: each
+    cell gathers its site's row, 0 where it has none (those cells' reads
+    spread over the sites and are masked out)."""
+    dz, dy, dx = grid
+    n = dz * dy * dx
+    c64 = c.long()
+    lin = c64[..., 0] * (dy * dx) + c64[..., 1] * dx + c64[..., 2]
+    lin = torch.where(m, lin, lin.new_full((), n))
+    b, vf = f.shape[:2]
+    rowid = lin.new_full((b, n + 1), -1).scatter(1, lin, torch.where(
+        m, torch.arange(vf, device=f.device).expand(b, vf), -1))[:, :n]
+    filled = rowid >= 0
+    rows = gather_rows(f, torch.where(filled, rowid, spread_rows(rowid.shape, vf,
+                                                                  f.device)))
+    return torch.where(filled[..., None], rows, 0.0).reshape(b, dz, dy, dx, f.shape[-1])

@@ -280,20 +280,49 @@ class PillarVFE_Scale(PillarVFE):
         return batch_dict
 
 
+def padded_voxels_from_flat(batch_dict, max_points_per_voxel):
+    """The padded (B, V, P, C) voxels of a flat batch (the device
+    voxelizer's ``flat_points``, ``flat_slot``, ``flat_write``): each
+    voxel's written points, at most P, in their sorted order (the input's
+    within a voxel), zeros after them. A point's place in its voxel is its
+    row less the voxel's first written row; every written row has a slot
+    and place of its own, so the copy is deterministic."""
+    pts_t = batch_dict['flat_points']
+    write = batch_dict['flat_write']
+    b, v = batch_dict['voxel_num_points'].shape
+    p, c = int(max_points_per_voxel), pts_t.shape[0]
+    slots = b * v
+    dev = pts_t.device
+    rows = torch.arange(write.shape[0], device=dev)
+    slot = torch.where(write, batch_dict['flat_slot'].long(), slots)
+    first = torch.full((slots + 1,), write.shape[0], dtype=torch.long, device=dev)
+    first = first.scatter_reduce(0, slot, rows, 'amin')
+    dest = torch.where(write, slot * p + rows - first[slot], slots * p)
+    voxels = pts_t.new_zeros(slots * p + 1, c).index_copy_(0, dest, pts_t.t())
+    return voxels[:-1].reshape(b, v, p, c)
+
+
 class MeanVFE(nn.Module):
-    """Per-voxel mean of the raw point features of a padded batch
-    (``voxels`` (B, V, P, C)), the SECOND family's VFE; no weights."""
+    """Per-voxel mean of the raw point features of the first
+    ``max_points_per_voxel`` points of each voxel, the SECOND family's VFE;
+    no weights. A padded batch (``voxels`` (B, V, P, C)) is averaged over P;
+    a flat one (the device voxelizer's) is first laid out as the padded one
+    (:func:`padded_voxels_from_flat`), so both give the same features."""
 
     def __init__(self, model_cfg, num_point_features, voxel_size=None,
                  point_cloud_range=None, max_points_per_voxel=32):
         super().__init__()
         self.num_point_features = num_point_features
+        self.max_points_per_voxel = int(max_points_per_voxel)
 
     def get_output_feature_dim(self):
         return self.num_point_features
 
     def forward(self, batch_dict):
-        voxels = batch_dict['voxels']
+        if 'flat_points' in batch_dict:
+            voxels = padded_voxels_from_flat(batch_dict, self.max_points_per_voxel)
+        else:
+            voxels = batch_dict['voxels']
         counts = torch.clamp(batch_dict['voxel_num_points'][..., None].to(voxels.dtype),
                              min=1.0)
         batch_dict['pillar_features'] = voxels.sum(dim=2) / counts

@@ -1,15 +1,17 @@
 from .detector3d_template import Detector3DTemplate
-from .pointpillar import MixAnchorMemory, PointPillar
+from .pointpillar import MixAnchorMemory, PointPillar, SECONDNet
 
 __all__ = {
     'PointPillar': PointPillar,
     'MixAnchor_Memory': MixAnchorMemory,
+    'SECONDNet': SECONDNet,
 }
 
 
 def build_detector(model_cfg, num_class, dataset, point_stream=True):
     """Instantiate a detector module from its config NAME; ``point_stream``
-    builds the training-only ``backbone_3d``."""
+    builds a point-based ``backbone_3d`` (HVPR's training-only stream); a
+    voxel backbone is built either way."""
     name = model_cfg['NAME']
     if name not in __all__:
         raise NotImplementedError(f'detector {name!r} is not ported yet')

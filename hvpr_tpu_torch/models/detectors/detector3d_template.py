@@ -11,8 +11,8 @@ recall records when ``gt_boxes`` are given). The modules of the HVPR
 (``MixAnchor_Memory``) and PointPillar detectors are ported with every
 module of the JAX package's registries; the point-stream ``backbone_3d``
 runs only in training. PointPillar never calls ``backbone_3d``, as in the
-JAX package: a SECOND-style network (MeanVFE -> sparse VoxelBackBone8x ->
-HeightCompression -> BaseBEVBackbone -> head) is a PointPillar subclass
+JAX package; ``SECONDNet`` (MeanVFE -> sparse VoxelBackBone8x ->
+HeightCompression -> BaseBEVBackbone -> head) is the PointPillar subclass
 whose forward runs the 3D backbone after the VFE.
 """
 
@@ -67,8 +67,10 @@ def _pick(registry, name, kind):
 class Detector3DTemplate(nn.Module):
     """Builds ``backbone_3d``, ``vfe``, ``map_to_bev_module``, ``backbone_2d``
     and ``dense_head`` (the reference's state_dict prefixes) from the
-    config. ``point_stream=False`` (an eval-only network) leaves
-    ``backbone_3d`` out, as the JAX package's eval variables do."""
+    config. ``point_stream=False`` (an eval-only network) leaves a
+    point-based ``backbone_3d`` out, as the JAX package's eval variables do;
+    a voxel backbone (``_VOXEL_BACKBONES``) is built either way, since it
+    lies on the main path of the network that has one."""
 
     def __init__(self, model_cfg, num_class, class_names, grid_size,
                  point_cloud_range, voxel_size, num_point_features=4,
@@ -80,8 +82,8 @@ class Detector3DTemplate(nn.Module):
         vfe = _pick(_VFES, vfe_cfg['NAME'], 'VFE')(
             vfe_cfg, num_point_features, voxel_size, point_cloud_range,
             max_points_per_voxel)
-        b3d_cfg = model_cfg.get('BACKBONE_3D') if point_stream else None
-        if b3d_cfg is None:
+        b3d_cfg = model_cfg.get('BACKBONE_3D')
+        if b3d_cfg is None or (not point_stream and b3d_cfg['NAME'] not in _VOXEL_BACKBONES):
             self.backbone_3d = None
         elif b3d_cfg['NAME'] in _VOXEL_BACKBONES:     # on the VFE's voxel features
             self.backbone_3d = _pick(_BACKBONES_3D, b3d_cfg['NAME'], 'BACKBONE_3D')(

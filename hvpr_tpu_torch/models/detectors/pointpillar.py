@@ -1,4 +1,4 @@
-"""Detectors: plain PointPillar and the HVPR ``MixAnchor_Memory``.
+"""Detectors: plain PointPillar, the HVPR ``MixAnchor_Memory`` and SECOND.
 
 Port of ``PointPillar`` and ``MixAnchorMemory`` in
 ``hvpr_tpu/models/detectors/pointpillar.py``. PointPillar has no point
@@ -6,6 +6,11 @@ stream: its forward is vfe -> map_to_bev -> backbone_2d -> dense_head in
 eval and in training. HVPR runs the point stream ``backbone_3d`` first in
 training (``module.train()``), where it feeds the attentive point features;
 in eval it is skipped and memory lookups stand in for point features.
+``SECONDNet`` (upstream OpenPCDet's name) runs its voxel backbone
+``backbone_3d`` after the VFE, in eval and in training: vfe -> backbone_3d
+-> map_to_bev -> backbone_2d -> dense_head (MeanVFE, the sparse
+VoxelBackBone8x, HeightCompression, BaseBEVBackbone and an anchor head in
+``tools/cfgs/kitti_models/second.yaml``).
 Each stage is a span named after its attribute (``utils/profiler.py``).
 """
 
@@ -32,3 +37,10 @@ class MixAnchorMemory(PointPillar):
         if self.training:
             return (self.backbone_3d,) + super().stages()
         return super().stages()
+
+
+class SECONDNet(PointPillar):
+
+    def stages(self):
+        return (self.vfe, self.backbone_3d, self.map_to_bev_module, self.backbone_2d,
+                self.dense_head)

@@ -9,10 +9,10 @@ active sites of a voxel grid, never on the dense grid.
   sites last).
 - A neighbour is found by a binary search (``torch.searchsorted``) of its
   linear cell id in the sorted site list: no hash table.
-- A Kz x Ky x Kx convolution is prod(K) rounds of lookup -> row gather ->
-  (rows, C_in) @ (C_in, C_out), added to the output in the (dz, dy, dx)
-  raster order of :func:`_offsets`: every output gathers its taps and
-  nothing is scattered, so the forward is deterministic. The row gathers go
+- A Kz x Ky x Kx convolution is prod(K) lookups, then prod(K) rounds of
+  row gather -> (rows, C_in) @ (C_in, C_out), added to the output in the
+  (dz, dy, dx) raster order of :func:`_offsets`: every output gathers its
+  taps and nothing is scattered, so the forward is deterministic. The row gathers go
   through :func:`~hvpr_tpu_torch.ops.gather_rows.gather_rows`, whose
   backward sums each site's gradients in a fixed order (kernel K12 on the
   card) where ``torch.gather``'s would add by float atomics: a miss reads
@@ -30,11 +30,20 @@ Kernel, stride and padding are per axis (z, y, x), so the backbone's
 ``conv_out`` (kernel (3, 1, 1), stride (2, 1, 1), padding 0) maps directly.
 Weights are (Kz*Ky*Kx, C_in, C_out), tap-major in (dz, dy, dx) raster order,
 the JAX package's layout.
+
+Under a profiler (``utils/profiler.py``) a conv is a span ``sparse.conv``
+(attributes ``taps``, ``c_in``, ``c_out``) holding ``sparse.lookup`` (the
+neighbour searches, and a strided conv's output-site build) and
+``sparse.product`` (the row gathers and products), with the counters
+``sparse.pairs`` (input-output pairs that hit an active site, on the
+device), ``sparse.sites`` (valid output sites, on the device) and
+``sparse.slots`` (output site slots).
 """
 
 import numpy as np
 import torch
 
+from ..utils import profiler
 from .gather_rows import gather_rows
 
 
@@ -88,18 +97,41 @@ def _offsets(kernel, centered):
     return np.stack(np.meshgrid(*rs, indexing='ij'), -1).reshape(-1, 3)
 
 
-def _gather_taps(feats, weights, in_lin, query_coords, query_ok, offs, grid):
-    """sum over taps t, in order, of (feats at query + offs[t]) @ weights[t],
-    zero where the neighbour is not an active site."""
-    out = feats.new_zeros(*query_coords.shape[:2], weights.shape[-1])
+def _tap_lookups(in_lin, query_coords, query_ok, offs, grid):
+    """[(pos, hit)] of each tap t, in order: the row of the site at query +
+    offs[t] in the sorted site list ``in_lin`` and whether it is there."""
     offs = query_coords.new_tensor(offs)          # one copy to the device a call
+    taps = []
     for t in range(len(offs)):
         nb = query_coords + offs[t]
         ok = query_ok & _in_grid(nb, grid)
-        pos, hit = _lookup(in_lin, _linear_ids(nb, grid, ok), ok)
+        taps.append(_lookup(in_lin, _linear_ids(nb, grid, ok), ok))
+    return taps
+
+
+def _tap_products(feats, weights, taps):
+    """sum over taps t, in order, of the rows ``taps[t]`` found @
+    weights[t], zero where the neighbour is not an active site."""
+    out = feats.new_zeros(*taps[0][0].shape, weights.shape[-1])
+    for t, (pos, hit) in enumerate(taps):
         rows = torch.where(hit[..., None], gather_rows(feats, pos), 0.0)
         out = out + rows @ weights[t]
     return out
+
+
+def _conv_span(feats, weights):
+    return profiler.span('sparse.conv', feats, taps=weights.shape[0], c_in=weights.shape[1],
+                         c_out=weights.shape[2])
+
+
+def _count_conv(taps, out_valid):
+    """The counters of a conv's span: pairs hit and valid sites (device
+    values), site slots."""
+    if not profiler.recording():
+        return
+    profiler.count_device('sparse.pairs', torch.stack([hit.sum() for _, hit in taps]).sum())
+    profiler.count_device('sparse.sites', out_valid.sum())
+    profiler.count('sparse.slots', out_valid.numel())
 
 
 def subm_conv3d(feats, coords, valid, weights, grid, kernel=None):
@@ -124,9 +156,14 @@ def subm_conv3d(feats, coords, valid, weights, grid, kernel=None):
         raise ValueError(f'submanifold conv needs odd kernels (centre tap); got {kernel}')
     grid = tuple(int(g) for g in grid)
     offs = _offsets(kernel, centered=True)
-    lin = _linear_ids(coords, grid, valid)
-    out = _gather_taps(feats, weights, lin, coords.long(), valid, offs, grid)
-    return torch.where(valid[..., None], out, 0.0)
+    with _conv_span(feats, weights):
+        with profiler.span('sparse.lookup', feats):
+            lin = _linear_ids(coords, grid, valid)
+            taps = _tap_lookups(lin, coords.long(), valid, offs, grid)
+        with profiler.span('sparse.product', feats):
+            out = _tap_products(feats, weights, taps)
+        _count_conv(taps, valid)
+        return torch.where(valid[..., None], out, 0.0)
 
 
 def sparse_conv3d_out_grid(grid, kernel, stride, padding):
@@ -192,18 +229,23 @@ def sparse_conv3d(feats, coords, valid, weights, grid, kernel, stride, padding,
         raise ValueError(f'empty output grid {og} from {grid} k={kernel} s={stride} '
                          f'p={padding}')
     onz, ony, onx = og
-    out_lin, n_dropped = _output_sites(coords, valid, kernel, stride, padding, og,
-                                       int(max_out))
-    out_ok = out_lin < onz * ony * onx
-    oyx = out_lin % (ony * onx)
-    out_coords = torch.stack([out_lin // (ony * onx), oyx // onx, oyx % onx], dim=-1)
-    # each output's taps: input cell s*o - p + offset
-    origin = (out_coords * out_coords.new_tensor(stride)
-              - out_coords.new_tensor(padding))
-    out = _gather_taps(feats, weights, _linear_ids(coords, grid, valid), origin, out_ok,
-                       _offsets(kernel, centered=False), grid)
-    return (torch.where(out_ok[..., None], out, 0.0), out_coords.to(coords.dtype), out_ok,
-            n_dropped)
+    with _conv_span(feats, weights):
+        with profiler.span('sparse.lookup', feats):
+            out_lin, n_dropped = _output_sites(coords, valid, kernel, stride, padding, og,
+                                               int(max_out))
+            out_ok = out_lin < onz * ony * onx
+            oyx = out_lin % (ony * onx)
+            out_coords = torch.stack([out_lin // (ony * onx), oyx // onx, oyx % onx], dim=-1)
+            # each output's taps: input cell s*o - p + offset
+            origin = (out_coords * out_coords.new_tensor(stride)
+                      - out_coords.new_tensor(padding))
+            taps = _tap_lookups(_linear_ids(coords, grid, valid), origin, out_ok,
+                                _offsets(kernel, centered=False), grid)
+        with profiler.span('sparse.product', feats):
+            out = _tap_products(feats, weights, taps)
+        _count_conv(taps, out_ok)
+        return (torch.where(out_ok[..., None], out, 0.0), out_coords.to(coords.dtype),
+                out_ok, n_dropped)
 
 
 def sparse_conv3d_downsample(feats, coords, valid, weights, grid, stride, max_out):

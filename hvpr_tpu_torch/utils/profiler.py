@@ -97,23 +97,25 @@ class _Span:
                 'attrs': self.attrs, 'counters': self.counters}
 
 
-def span(name, like=None, scan=None, cls=None):
+def span(name, like=None, **attrs):
     """A span named ``name`` over a ``with`` block, timed on the device of
-    ``like`` (a tensor or a module) where that is a CUDA device; ``scan``
-    and ``cls`` are integer attributes where given."""
+    ``like`` (a tensor or a module) where that is a CUDA device; keyword
+    arguments (``scan``, ``cls``, a sparse conv's widths) are integer
+    attributes where given."""
     if not _torch_profiler._is_profiler_enabled:
         return _OFF
-    attrs = {k: int(v) for k, v in (('scan', scan), ('cls', cls)) if v is not None}
-    return _Span(name, like, attrs)
+    return _Span(name, like, {k: int(v) for k, v in attrs.items() if v is not None})
 
 
 def child_span(parent, module):
     """A :func:`span` over a call of ``module``, named after its attribute in
-    the module ``parent`` (``'vfe'``, ``'dense_head'``)."""
+    the module ``parent`` (``'vfe'``, ``'dense_head'``), timed on
+    ``parent``'s device: a stage without weights (MeanVFE,
+    HeightCompression) has none of its own."""
     if not _torch_profiler._is_profiler_enabled:
         return _OFF
     name = next(n for n, m in parent.named_children() if m is module)
-    return _Span(name, module, {})
+    return _Span(name, parent, {})
 
 
 def count(name, n=1):

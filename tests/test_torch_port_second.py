@@ -1,9 +1,10 @@
 """The port's sparse voxel path against the JAX package on the CPU: MeanVFE,
 the sparse VoxelBackBone8x, HeightCompression, the three dense 3D backbones
-and the SECOND composition end to end (the SecondNet of
-``tests/test_second_style.py``: MeanVFE -> sparse VoxelBackBone8x ->
-HeightCompression -> BaseBEVBackbone -> AnchorHeadSingle), in eval and in
-training (the loss and gradient leaves against ``jax.grad``).
+and the SECOND composition end to end (the port's registered ``SECONDNet``
+against the SecondNet of ``tests/test_second_style.py``: MeanVFE -> sparse
+VoxelBackBone8x -> HeightCompression -> BaseBEVBackbone -> AnchorHeadSingle,
+in the JAX package's geometry), in eval and in training (the loss and
+gradient leaves against ``jax.grad``).
 
 The grid is 64 x 32 x 40 cells (0.16 x 0.16 x 0.1 m, KITTI's 40 z cells),
 so that conv_out leaves D = 2 and HeightCompression's channel order
@@ -48,7 +49,7 @@ from hvpr_tpu_torch.models.backbones_3d import spconv_backbone
 from hvpr_tpu_torch.models.backbones_3d.sparse_backbone import VoxelBackBone8xSparse
 from hvpr_tpu_torch.models.backbones_3d.vfe.pillar_vfe import MeanVFE
 from hvpr_tpu_torch.models.detectors.detector3d_template import post_processing
-from hvpr_tpu_torch.models.detectors.pointpillar import PointPillar
+from hvpr_tpu_torch.models.detectors.pointpillar import SECONDNet
 from hvpr_tpu_torch.ops.voxelizer import VoxelGeneratorNumpy
 from hvpr_tpu_torch.utils.weights import from_flax_variables
 
@@ -107,14 +108,6 @@ class JaxSecondNet(JaxPointPillar):
                       self.dense_head):
             batch_dict = stage(batch_dict, train)
         return batch_dict
-
-
-class SecondNet(PointPillar):
-    """The same composition in the port: the 3D backbone after the VFE."""
-
-    def stages(self):
-        return (self.vfe, self.backbone_3d, self.map_to_bev_module, self.backbone_2d,
-                self.dense_head)
 
 
 def scans(rng, b=B, n=600):
@@ -187,7 +180,7 @@ def close(got, want, what, tol=TOL):
 
 
 class SecondPair:
-    """The JAX SecondNet and the port's with the same weights."""
+    """The JAX SecondNet and the port's SECONDNet with the same weights."""
 
     def __init__(self, cfg, seed=0):
         self.cfg = cfg
@@ -202,7 +195,7 @@ class SecondPair:
         self.flat['params/dense_head/conv_cls/bias'] = np.zeros_like(
             self.flat['params/dense_head/conv_cls/bias'])     # candidates reach NMS
         self.variables = unflatten(self.flat)
-        self.tmod = SecondNet(**kw, max_points_per_voxel=P)
+        self.tmod = SECONDNet(**kw, max_points_per_voxel=P)
         self.state = from_flax_variables(self.flat)
         self.tmod.load_state_dict(self.state, strict=True)
 
@@ -457,9 +450,9 @@ def test_voxel_backbones_build_in_the_template(name):
               point_cloud_range=PCR, voxel_size=VOXEL, num_point_features=4)
     if name == 'PointNet2Backbone':
         with pytest.raises(NotImplementedError, match='disabled upstream'):
-            SecondNet(**kw)
+            SECONDNet(**kw)
         return
-    net = SecondNet(**kw)
+    net = SECONDNet(**kw)
     first = next(p for n, p in net.backbone_3d.named_parameters())
     assert 4 in first.shape
     assert net.backbone_2d.blocks[0][1].in_channels == 64
