@@ -129,12 +129,15 @@ random weights, ``tools/cfgs/kitti_models/hvpr.yaml`` first:
   scan 0 (SECOND_RTOL), with each sparse level's sites, bytes and time,
   the stage medians, the peak, and the sparse backbone timed again at the
   full 40,000-voxel eval cap (its device time split into the products and
-  the rest); (b) AnchorHeadMulti (a head a class, a 64-channel shared
-  conv), its head held to the CPU; (c) ATSS training under adam_onecycle:
-  two backwards bit-equal without deterministic algorithms, K12 (one
-  launch a differentiable row gather of the sparse convs) against its
-  plain version, 2 timed steps. No TPU kernel lies on this path: the eval
-  forms launch nothing.
+  the rest); K14 (a sparse conv's rulebook, once a conv: 12 a forward) at
+  the forward's shapes held to its plain version by torch.equal, timed
+  beside its plain version and its byte bound; (b) AnchorHeadMulti (a
+  head a class, a 64-channel shared conv), its head held to the CPU; (c)
+  ATSS training under adam_onecycle: two backwards bit-equal without
+  deterministic algorithms, K12 (one launch a differentiable row gather of
+  the sparse convs) against its plain version, 2 timed steps. No TPU
+  kernel lies on this path: the eval forms launch K14 only, a train step
+  K14 and K12.
 - nofp: PointNet2MSG_NOFP at hvpr.yaml's SA_CONFIG, batch 4: K4 and K5
   against their plain versions (exactly), timed beside their bounds, two
   launches each a forward.
@@ -267,6 +270,9 @@ META = {
     # no TPU kernel: the JAX package's rotated IoU is XLA
     'rotated_iou': ('hvpr_tpu_torch/csrc/rotated_iou.cu',
                     'hvpr_tpu/ops/rotated_iou.py:136'),
+    # no TPU kernel: the JAX package's sparse convs' lookups are XLA
+    'sparse_rulebook': ('hvpr_tpu_torch/csrc/sparse_rulebook.cu',
+                        'hvpr_tpu/ops/sparse_conv.py:50'),
 }
 
 
@@ -2791,6 +2797,10 @@ SECOND_POINTS = 20000              # points a scan of the second phase: ~19,700 
                                    # KITTI's in-range count (16-20k)
 SECOND_CAP_POINTS = 43000          # points a scan that fill the eval cap: 40,000 voxels
 SECOND_TRAIN_STEPS = 2
+# K14 launches a forward of VoxelBackBone8x: one rulebook a sparse conv
+# (conv_input, conv1, three stages of a strided and two submanifold convs,
+# conv_out)
+SECOND_RULEBOOKS = 12
 SECOND_BOX_STD = 0.001             # the box convs' seeded weights (the reference's init)
 # card against the port's CPU forward on the same scan and weights: the
 # convolutions and products sum in other orders (no TF32: both f32); allowed
@@ -2980,17 +2990,20 @@ def second_phase(smi):
     into padded batches: (a) an eval forward with AnchorHeadSingle, whose
     sites must all be kept at the default cap, its raw outputs on scan 0
     held to the port's CPU forward of that scan (SECOND_RTOL), the sites a
-    level and each stage's time printed, and the sparse backbone timed
-    again on scans that fill the 40,000-voxel cap; (b) an eval forward
+    level and each stage's time printed, K14's calls of the forward held to
+    the plain rulebook and timed (:func:`rulebook_entry`), and the sparse
+    backbone timed again on scans that fill the 40,000-voxel cap; (b) an
+    eval forward
     with AnchorHeadMulti, its head held to the CPU on the card's BEV map;
     (c) ATSS training (TOPK 9) under adam_onecycle: two backwards from the
     same state bit-equal without deterministic algorithms, the sparse
     convs' row-gather backwards (K12) held against their plain version
     (bit for bit), then SECOND_TRAIN_STEPS timed steps. No TPU kernel of
     the JAX package lies on this path (its sparse convs are XLA): the eval
-    forms must launch no kernel and a train step K12 only, once a
-    differentiable row gather. Returns ({'a', 'b', 'c'}: launch counts,
-    K12's entry at the path's shapes)."""
+    forms must launch K14 once a sparse conv and no other kernel, a train
+    step K14 as often and K12 once a differentiable row gather. Returns
+    ({'a', 'b', 'c'}: launch counts, K12's entry at the path's shapes, K14's
+    entry, :func:`rulebook_entry`)."""
     import numpy as np
     import torch
     from hvpr_tpu_torch.models import DatasetMeta, load_data_to_gpu
@@ -3020,8 +3033,9 @@ def second_phase(smi):
         det = post_processing(out, net.post_cfg, net.num_class)
     torch.cuda.synchronize()
     launches['a'] = _kernels.launch_counts()
-    if any(without_iou(launches['a']).values()):
-        fail(f'the second eval path launched {launches["a"]}, expected no kernel but K13')
+    if without_iou(launches['a']) != second_launches(launches['a']):
+        fail(f'the second eval path launched {launches["a"]}, expected K14 '
+             f'{SECOND_RULEBOOKS} times and no other kernel but K13')
     dropped = out['sparse_sites_dropped'].tolist()
     print(f'second (a): sparse_sites_dropped {dropped} at the default cap '
           f'(MAX_SITES 2 x {meta.max_voxels})')
@@ -3060,6 +3074,7 @@ def second_phase(smi):
             out['sparse_sites_dropped'][:1].cpu(), cpu_out['sparse_sites_dropped']):
         fail('second (a): the card differs from the CPU')
     del cpu, cpu_out
+    k14 = rulebook_entry(net, batch, smi)
 
     # stage times and the peak, the counts untouched
     stages = [('vfe', net.module.vfe), ('backbone_3d', bb),
@@ -3145,9 +3160,9 @@ def second_phase(smi):
         det = post_processing(out, net.post_cfg, net.num_class)
     torch.cuda.synchronize()
     launches['b'] = _kernels.launch_counts()
-    if any(without_iou(launches['b']).values()):
-        fail(f'the second multi-head path launched {launches["b"]}, expected no kernel '
-             f'but K13')
+    if without_iou(launches['b']) != second_launches(launches['b']):
+        fail(f'the second multi-head path launched {launches["b"]}, expected K14 '
+             f'{SECOND_RULEBOOKS} times and no other kernel but K13')
     head_cpu = second_network(cfg_m, meta, 'cpu').module.dense_head
     head_cpu.load_state_dict({k: v.cpu() for k, v in net.module.dense_head.state_dict().items()})
     with torch.no_grad():
@@ -3219,9 +3234,9 @@ def second_phase(smi):
           f'algorithms: {len(differ)} of {len(names)} gradient leaves differ')
     if differ:
         fail(f'second (c): two backwards differ in {differ[:5]}')
-    if without_iou(one) != {k: (grad_gathers[0] if k == 'gather_grad' else 0)
-                            for k in without_iou(one)}:
-        fail(f'second (c): a backward launched {one}, expected K12 {grad_gathers[0]} times')
+    if without_iou(one) != second_launches(one, gather_grad=grad_gathers[0]):
+        fail(f'second (c): a step launched {one}, expected K12 {grad_gathers[0]} times and '
+             f'K14 {SECOND_RULEBOOKS}')
     del twice, out1, g1, g2
 
     # K12 at the path's shapes against its plain version (on the CPU, where
@@ -3263,9 +3278,9 @@ def second_phase(smi):
         if not all(torch.isfinite(v).all() for v in metrics.values()):
             fail(f'second (c): non-finite metrics {metrics}')
     launches['c'] = _kernels.launch_counts()
-    want = {k: (SECOND_TRAIN_STEPS * one['gather_grad'] if k == 'gather_grad' else 0)
-            for k in launches['c']}
-    if without_iou(launches['c']) != without_iou(want):
+    want = second_launches(launches['c'], steps=SECOND_TRAIN_STEPS,
+                           gather_grad=one['gather_grad'])
+    if without_iou(launches['c']) != want:
         fail(f'second (c): {SECOND_TRAIN_STEPS} steps launched {launches["c"]}, expected {want}')
     peak = torch.cuda.max_memory_allocated()
     share = k12_share(lambda: net.train_step(tbatch))
@@ -3274,12 +3289,66 @@ def second_phase(smi):
           f'step of 3)')
     print(f'second (c): {SECOND_TRAIN_STEPS} adam_onecycle steps, ms {step_ms}, loss '
           f'{float(metrics["loss"]):.6g}, grad_norm {float(metrics["grad_norm"]):.6g}, '
-          f'K12 {one["gather_grad"]} launches a step, peak {peak / 2**30:.2f} GiB; a step\'s '
-          f'device ms (torch.profiler): '
+          f'K12 {one["gather_grad"]} and K14 {one["sparse_rulebook"]} launches a step, '
+          f'peak {peak / 2**30:.2f} GiB; a step\'s device ms (torch.profiler): '
           + device_report(lambda: net.train_step(tbatch), statistics.median(step_ms), reps=1)
           + f'; on {smi}')
     del net, tbatch, state0
-    return launches, k12_entry
+    return launches, k12_entry, k14
+
+
+def second_launches(launches, steps=1, gather_grad=0):
+    """The launches expected of ``steps`` SECOND forwards (or train steps
+    with ``gather_grad`` K12 launches each): K14 once a sparse conv, no
+    other kernel; over the keys of ``launches`` but K13 (:func:`without_iou`)."""
+    want = {'sparse_rulebook': steps * SECOND_RULEBOOKS, 'gather_grad': steps * gather_grad}
+    return {k: want.get(k, 0) for k in without_iou(launches)}
+
+
+def rulebook_entry(net, batch, smi):
+    """K14 at the level shapes of a SECOND eval forward on ``batch`` (those
+    of the benchmark cell second.infer.b4): its calls of one forward
+    captured, each held to the plain rulebook by torch.equal (a gate), then
+    the forward's calls timed through the wrapper (CUDA events), on the
+    device (torch.profiler) and through the plain versions, beside their
+    byte bound. Returns the kernel's entry."""
+    import numpy as np
+    import torch
+    from hvpr_tpu_torch.ops import _kernels, sparse_conv
+    from hvpr_tpu_torch.utils import flops
+
+    with torch.no_grad():
+        calls = capture_calls([(sparse_conv, 'tap_rulebook', 'sparse_rulebook')],
+                              lambda: net.module(dict(batch)))['sparse_rulebook']
+    if len(calls) != SECOND_RULEBOOKS:
+        fail(f'second K14: {len(calls)} rulebooks a forward, expected {SECOND_RULEBOOKS}')
+    for args, _ in calls:
+        got = sparse_conv.tap_rulebook(*args)
+        with _kernels.plain_versions():
+            want = sparse_conv.tap_rulebook(*args)
+        if not all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want)):
+            fail(f'second K14: the rulebook of {[tuple(a.shape) for a in args[:3]]}, kernel '
+                 f'{args[3]}, differs from the plain one')
+    del got, want
+
+    def run():
+        return [sparse_conv.tap_rulebook(*a) for a, _ in calls]
+    ms = cuda_ms(run, reps=10)
+    device_ms = _kernel_device_ms(run, 'sparse_rulebook_kernel')
+    with _kernels.plain_versions():
+        plain_ms = cuda_ms(run, reps=3, warmup=1)
+    work = flops.total(flops.sparse_rulebook_work(
+        a[0].shape[0], a[0].shape[1], a[2].shape[1], int(np.prod(a[3])), a[1].element_size())
+        for a, _ in calls)
+    bound_ms, bound_by, _ = flops.work_bound(work)
+    shapes = [(tuple(a[2].shape), a[0].shape[1], a[3]) for a, _ in calls]
+    print(f'second K14: {len(calls)} rulebooks a forward, (B, M) queries into V sites by '
+          f'kernel {shapes}: equal to plain (torch.equal) on every call; kernel {ms:.4f} ms, '
+          f'device {device_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms '
+          f'({bound_by}, {work.nbytes / 1e6:.1f} MB at 3.35 TB/s); on {smi}')
+    return {'max_abs_err': 0.0, 'ms': ms, 'device_ms': device_ms, 'plain_ms': plain_ms,
+            'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None,
+            'calls': len(calls)}
 
 
 def _timed_stages(stages, batch, net, times):
@@ -4296,7 +4365,7 @@ def run_phases(only=None):
     ddp_launches = ddp_phase(smi)
     print(f'ddp phase: {time.perf_counter() - t0:.1f} s')
     t0 = time.perf_counter()
-    second_launches, k12_second = second_phase(smi)
+    second_counts, k12_second, k14_second = second_phase(smi)
     print(f'second phase: {time.perf_counter() - t0:.1f} s')
     t0 = time.perf_counter()
     nofp_launches, nofp_entries = nofp_phase(smi)
@@ -4318,6 +4387,8 @@ def run_phases(only=None):
     entries.update(nn_entries)
     launches.update({k: train_launches[k] for k in STEP_LAUNCHES})
     launches['three_nn_bucket'] = nn_launches['three_nn_bucket']
+    entries['sparse_rulebook'] = k14_second
+    launches['sparse_rulebook'] = second_counts['a']['sparse_rulebook']
 
     kernels = []
     for name in _kernels.KERNELS:
@@ -4346,9 +4417,9 @@ def run_phases(only=None):
         if name in nusc_entries:
             kernels[-1]['nuscenes'] = {k: nusc_entries[name][k] for k in (
                 'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')}
-        kernels[-1]['second_launches'] = second_launches['a'][name]
-        kernels[-1]['second_multihead_launches'] = second_launches['b'][name]
-        kernels[-1]['second_train_launches'] = second_launches['c'][name]
+        kernels[-1]['second_launches'] = second_counts['a'][name]
+        kernels[-1]['second_multihead_launches'] = second_counts['b'][name]
+        kernels[-1]['second_train_launches'] = second_counts['c'][name]
         kernels[-1]['nofp_launches'] = nofp_launches[name]
         kernels[-1]['demo_launches'] = demo_launches[name]
         kernels[-1]['options_launches'] = options_launches[name]

@@ -9,18 +9,22 @@ active sites of a voxel grid, never on the dense grid.
   sites last).
 - A neighbour is found by a binary search (``torch.searchsorted``) of its
   linear cell id in the sorted site list: no hash table.
-- A Kz x Ky x Kx convolution is prod(K) lookups, then prod(K) rounds of
-  row gather -> (rows, C_in) @ (C_in, C_out), added to the output in the
-  (dz, dy, dx) raster order of :func:`_offsets`: every output gathers its
-  taps and nothing is scattered, so the forward is deterministic. The row gathers go
-  through :func:`~hvpr_tpu_torch.ops.gather_rows.gather_rows`, whose
-  backward sums each site's gradients in a fixed order (kernel K12 on the
-  card) where ``torch.gather``'s would add by float atomics: a miss reads
-  a real row (its value is masked out), so indices repeat. The misses'
-  rows are spread over the sites rather than clipped to one (the JAX
-  package clips them): K12 sums a row's contributions one after the
-  other, and a row that took every miss of a layer would hold its thread
-  for tens of thousands of zeros.
+- A Kz x Ky x Kx convolution is a rulebook of prod(K) lookups, each tap's
+  (B, M) rows and hits in a (prod(K), B, M) plane (:func:`tap_rulebook`:
+  one launch of kernel K14, ``csrc/sparse_rulebook.cu``, on the card; the
+  plain per-tap loop :func:`_tap_lookups` on the CPU, the same integers),
+  then prod(K) rounds of row gather -> (rows, C_in) @ (C_in, C_out), added
+  to the output in the (dz, dy, dx) raster order of :func:`_offsets`:
+  every output gathers its taps and nothing is scattered, so the forward
+  is deterministic. The row gathers go through
+  :func:`~hvpr_tpu_torch.ops.gather_rows.gather_rows`, whose backward
+  sums each site's gradients in a fixed order (kernel K12 on the card)
+  where ``torch.gather``'s would add by float atomics: a miss reads a real
+  row (its value is masked out), so indices repeat. The misses' rows are
+  spread over the sites rather than clipped to one (the JAX package clips
+  them): K12 sums a row's contributions one after the other, and a row
+  that took every miss of a layer would hold its thread for tens of
+  thousands of zeros.
 - Submanifold convs keep the input sites; a strided sparse conv builds its
   output sites (every strided cell whose receptive field touches an active
   input) by a sort and head-flag compaction, capped at ``max_out`` sites,
@@ -40,10 +44,13 @@ device), ``sparse.sites`` (valid output sites, on the device) and
 ``sparse.slots`` (output site slots).
 """
 
+import ctypes
+
 import numpy as np
 import torch
 
-from ..utils import profiler
+from ..utils import flops, profiler
+from . import _kernels
 from .gather_rows import gather_rows
 
 
@@ -98,23 +105,75 @@ def _offsets(kernel, centered):
 
 
 def _tap_lookups(in_lin, query_coords, query_ok, offs, grid):
-    """[(pos, hit)] of each tap t, in order: the row of the site at query +
-    offs[t] in the sorted site list ``in_lin`` and whether it is there."""
+    """The plain rulebook: (pos, hit), each (T, B, M), tap t the row of the
+    site at query + offs[t] in the sorted site list ``in_lin`` and whether
+    it is there, looked up tap by tap."""
     offs = query_coords.new_tensor(offs)          # one copy to the device a call
     taps = []
     for t in range(len(offs)):
         nb = query_coords + offs[t]
         ok = query_ok & _in_grid(nb, grid)
         taps.append(_lookup(in_lin, _linear_ids(nb, grid, ok), ok))
-    return taps
+    pos, hit = zip(*taps)
+    return torch.stack(pos), torch.stack(hit)
 
 
-def _tap_products(feats, weights, taps):
-    """sum over taps t, in order, of the rows ``taps[t]`` found @
-    weights[t], zero where the neighbour is not an active site."""
-    out = feats.new_zeros(*taps[0][0].shape, weights.shape[-1])
-    for t, (pos, hit) in enumerate(taps):
-        rows = torch.where(hit[..., None], gather_rows(feats, pos), 0.0)
+_RULEBOOK = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+             + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 3)
+
+
+def tap_rulebook(in_lin, query_coords, query_ok, kernel, centered, grid):
+    """(pos, hit), each (prod(kernel), B, M): for tap t in the raster order
+    of ``_offsets(kernel, centered)``, the row of the site at query +
+    offset t in the sorted site lists ``in_lin`` (B, V) int64 and whether
+    it is there; a miss gets the spread row m % V (:func:`spread_rows`).
+    ``query_coords`` (B, M, 3) int zyx, ``query_ok`` (B, M) bool. Kernel
+    K14 on CUDA tensors, one launch; :func:`_tap_lookups` on the CPU."""
+    if flops.counter is not None:
+        return flops.counter.kernel(
+            'sparse_rulebook',
+            lambda: tap_rulebook(in_lin, query_coords, query_ok, kernel, centered, grid),
+            lambda out: flops.sparse_rulebook_work(
+                in_lin.shape[0], in_lin.shape[1], query_ok.shape[1], out[0].shape[0],
+                query_coords.element_size()))
+    if not _kernels.use_kernel(query_coords):
+        return _tap_lookups(in_lin, query_coords.long(), query_ok,
+                            _offsets(kernel, centered), grid)
+    b, m = query_ok.shape
+    v = in_lin.shape[1]
+    if query_coords.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f'sparse_rulebook: coordinates of {query_coords.dtype}, expected '
+                         'int32 or int64')
+    _kernels.check_cuda_input('sparse_rulebook in_lin', in_lin, torch.int64, 2)
+    _kernels.check_cuda_input('sparse_rulebook query_coords', query_coords,
+                              query_coords.dtype, 3)
+    _kernels.check_cuda_input('sparse_rulebook query_ok', query_ok, torch.bool, 2)
+    if tuple(query_coords.shape) != (b, m, 3) or in_lin.shape[0] != b:
+        raise ValueError(f'sparse_rulebook: ids {tuple(in_lin.shape)}, coordinates '
+                         f'{tuple(query_coords.shape)}, validity {(b, m)}')
+    if max(v, m) >= 2 ** 31 or (v == 0 and m > 0):
+        raise ValueError(f'sparse_rulebook: {m} queries into {v} sites a row')
+    taps = int(np.prod(kernel))
+    pos = torch.empty(taps, b, m, dtype=torch.int64, device=in_lin.device)
+    hit = torch.empty(taps, b, m, dtype=torch.bool, device=in_lin.device)
+    if b * m == 0:
+        return pos, hit
+    err = _kernels.entry('sparse_rulebook', 'hvpr_sparse_rulebook', _RULEBOOK)(
+        _kernels.ptr(in_lin), v, _kernels.ptr(query_coords),
+        int(query_coords.dtype == torch.int64), _kernels.ptr(query_ok), b, m, *kernel,
+        int(centered), *grid, _kernels.ptr(pos), _kernels.ptr(hit),
+        _kernels.stream_handle(pos))
+    _kernels.launched('sparse_rulebook', err)
+    return pos, hit
+
+
+def _tap_products(feats, weights, pos, hit):
+    """sum over taps t, in order, of the rows ``pos[t]`` found @
+    weights[t], zero where the neighbour is not an active site (``hit[t]``
+    false)."""
+    out = feats.new_zeros(*pos.shape[1:], weights.shape[-1])
+    for t in range(pos.shape[0]):
+        rows = torch.where(hit[t, ..., None], gather_rows(feats, pos[t]), 0.0)
         out = out + rows @ weights[t]
     return out
 
@@ -124,12 +183,12 @@ def _conv_span(feats, weights):
                          c_out=weights.shape[2])
 
 
-def _count_conv(taps, out_valid):
+def _count_conv(hit, out_valid):
     """The counters of a conv's span: pairs hit and valid sites (device
     values), site slots."""
     if not profiler.recording():
         return
-    profiler.count_device('sparse.pairs', torch.stack([hit.sum() for _, hit in taps]).sum())
+    profiler.count_device('sparse.pairs', hit.sum())
     profiler.count_device('sparse.sites', out_valid.sum())
     profiler.count('sparse.slots', out_valid.numel())
 
@@ -155,14 +214,13 @@ def subm_conv3d(feats, coords, valid, weights, grid, kernel=None):
     if any(k % 2 == 0 for k in kernel):
         raise ValueError(f'submanifold conv needs odd kernels (centre tap); got {kernel}')
     grid = tuple(int(g) for g in grid)
-    offs = _offsets(kernel, centered=True)
     with _conv_span(feats, weights):
         with profiler.span('sparse.lookup', feats):
             lin = _linear_ids(coords, grid, valid)
-            taps = _tap_lookups(lin, coords.long(), valid, offs, grid)
+            pos, hit = tap_rulebook(lin, coords, valid, kernel, True, grid)
         with profiler.span('sparse.product', feats):
-            out = _tap_products(feats, weights, taps)
-        _count_conv(taps, valid)
+            out = _tap_products(feats, weights, pos, hit)
+        _count_conv(hit, valid)
         return torch.where(valid[..., None], out, 0.0)
 
 
@@ -239,11 +297,11 @@ def sparse_conv3d(feats, coords, valid, weights, grid, kernel, stride, padding,
             # each output's taps: input cell s*o - p + offset
             origin = (out_coords * out_coords.new_tensor(stride)
                       - out_coords.new_tensor(padding))
-            taps = _tap_lookups(_linear_ids(coords, grid, valid), origin, out_ok,
-                                _offsets(kernel, centered=False), grid)
+            pos, hit = tap_rulebook(_linear_ids(coords, grid, valid), origin, out_ok, kernel,
+                                    False, grid)
         with profiler.span('sparse.product', feats):
-            out = _tap_products(feats, weights, taps)
-        _count_conv(taps, out_ok)
+            out = _tap_products(feats, weights, pos, hit)
+        _count_conv(hit, out_ok)
         return (torch.where(out_ok[..., None], out, 0.0), out_coords.to(coords.dtype),
                 out_ok, n_dropped)
 

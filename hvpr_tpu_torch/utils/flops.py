@@ -422,6 +422,14 @@ def rotated_iou_work(n, m, iou):
     ops = ROTATED_IOU_OPS if iou else ROTATED_OVERLAP_OPS
     return Work(float(ops * n * m), 4.0 * n * m + 84.0 * (n + m), 'f32')
 
+
+def sparse_rulebook_work(b, v, m, taps, coord_elsize):
+    """K14 on (B, V) sorted ids and (B, M) query sites: the ids, the
+    queries' zyx coordinates and validity read once, the (taps, B, M)
+    int64 rows and bool hits written once; no float operation."""
+    return Work(0.0, 8.0 * b * v + b * m * (3.0 * coord_elsize + 1.0) + 9.0 * taps * b * m,
+                'f32')
+
 # ---------------------------------------------------------------------------
 # reporting
 # ---------------------------------------------------------------------------

@@ -21,7 +21,9 @@ gathers' deterministic backward, no TPU kernel) sums in the order of its
 plain version on the CPU, so it gives those bits, and the same bits on
 every run. K13 (the rotated BEV IoU, no TPU kernel) repeats its plain
 version's f32 arithmetic pair by pair in its order, so its planes and the
-NMS's detections are exact.
+NMS's detections are exact. K14 (a sparse conv's rulebook, no TPU kernel)
+returns integers: every tap's rows and hits equal the plain per-tap
+lookups', and a sparse backbone's output the plain one's bit for bit.
 """
 
 import functools
@@ -41,9 +43,12 @@ from hvpr_tpu_torch.ops.pn2_select import ball_query_bucket, fps_chunks, three_n
 from hvpr_tpu_torch.ops.rotated_iou import (box_records, boxes_iou3d, boxes_iou_bev,
                                              boxes_overlap_bev, records_on_card)
 from hvpr_tpu_torch.ops.segment_sweep import segment_sweep
+from hvpr_tpu_torch.ops.sparse_conv import tap_rulebook
 from hvpr_tpu_torch.ops.topk_attend import (bucket_threshold, masked_attend,
                                             masked_attend_bwd, masked_attend_bwd_plain,
                                             masked_attend_fwd)
+from sparse_rulebook_cases import CASES as RULEBOOK_CASES
+from sparse_rulebook_cases import rulebook_case
 
 pytestmark = pytest.mark.cuda
 
@@ -1008,3 +1013,65 @@ def test_rotated_iou_kernel_equals_plain(cuda, case):
         assert got.shape == want.shape == (a.shape[0], b.shape[0])
         assert got.dtype == want.dtype == torch.float32
         assert torch.equal(got, want), (fn.__name__, (got != want).sum().item())
+
+
+@pytest.mark.parametrize('case', list(RULEBOOK_CASES))
+def test_sparse_rulebook_kernel_equals_plain(cuda, case):
+    """K14 against the plain rulebook (the per-tap lookups) on the same CUDA
+    tensors, by torch.equal on every tap's rows and hits: submanifold and
+    strided convs (the stage conv, conv4's padding, conv_out; M = the
+    2V-like cap, not V), sites on every grid face, invalid slots (with junk
+    coordinates), an empty sample and a full one; one launch a call."""
+    args = rulebook_case(case, cuda)
+    before = _kernels.launch_counts()['sparse_rulebook']
+    got, want = _both(tap_rulebook, *args)
+    assert _kernels.launch_counts()['sparse_rulebook'] == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w), (case, (g != w).sum().item())
+
+
+def test_sparse_backbone_launches_k14_a_conv_and_equals_plain(cuda, monkeypatch):
+    """VoxelBackBone8xSparse at upstream geometry (SECOND's 41 x 1600 x 1408
+    sparse shape) on 4 scans of 20,000 points, the benchmark cell
+    second.infer.b4's: K14 once a conv (12), the per-tap loop never, and the
+    same encoded_spconv_tensor bits as through the plain versions."""
+    from hvpr_tpu_torch.models.backbones_3d.sparse_backbone import VoxelBackBone8xSparse
+    from hvpr_tpu_torch.ops import sparse_conv
+    from hvpr_tpu_torch.ops.voxelizer import VoxelGeneratorNumpy
+    from hvpr_tpu_torch.utils.scans import realistic_scans
+
+    pcr, v, p = [0, -40, -3, 70.4, 40, 1], 40000, 5
+    gen = VoxelGeneratorNumpy([0.05, 0.05, 0.1], pcr, p, v)
+    points = realistic_scans(np.random.default_rng(0), 4, 20000, pcr)
+    batch = {'voxels': np.zeros((4, v, p, 4), np.float32),
+             'voxel_coords': np.zeros((4, v, 3), np.int32),
+             'voxel_num_points': np.zeros((4, v), np.int32)}
+    for i in range(4):
+        vox, coords, cnt = gen.generate(points[i])
+        batch['voxels'][i, :len(vox)] = vox
+        batch['voxel_coords'][i, :len(vox)] = coords
+        batch['voxel_num_points'][i, :len(vox)] = cnt
+    batch['voxel_mask'] = batch['voxel_num_points'] > 0
+    batch = {k: torch.from_numpy(a).to(cuda) for k, a in batch.items()}
+    torch.manual_seed(0)
+    backbone = VoxelBackBone8xSparse({'UPSTREAM_GEOMETRY': True}, 4,
+                                     grid_size=tuple(gen.grid_size)).to(cuda).eval()
+    loops = [0]
+    per_tap = sparse_conv._tap_lookups
+
+    def counted(*args):
+        loops[0] += 1
+        return per_tap(*args)
+    monkeypatch.setattr(sparse_conv, '_tap_lookups', counted)
+    before = _kernels.launch_counts()['sparse_rulebook']
+    with torch.no_grad():
+        got = backbone(dict(batch))['encoded_spconv_tensor']
+        torch.cuda.synchronize()
+        assert _kernels.launch_counts()['sparse_rulebook'] == before + 12
+        assert loops[0] == 0
+        with _kernels.plain_versions():
+            want = backbone(dict(batch))['encoded_spconv_tensor']
+    assert loops[0] == 12
+    assert got.shape == (4, 2, 200, 176, 128)
+    assert torch.equal(got, want)

@@ -6,7 +6,9 @@ fixed seeds) go through ``hvpr_tpu.ops.sparse_conv`` and
 JAX package, no TPU kernel). Tolerances: output sites, their order, the
 validity masks and ``n_dropped`` exactly equal; features within 1e-5 of the
 output's largest magnitude (f32, the per-tap products may sum their C_in
-terms in another order); gradients likewise, against ``jax.grad``.
+terms in another order); gradients likewise, against ``jax.grad``. The
+rulebook (every tap's rows and hits) is held to the per-tap lookups
+exactly, on the cases of ``sparse_rulebook_cases.py``.
 """
 
 import jax
@@ -19,6 +21,8 @@ from hvpr_tpu.ops import sparse_conv as jsc
 
 from hvpr_tpu_torch.ops import _kernels
 from hvpr_tpu_torch.ops import sparse_conv as tsc
+from hvpr_tpu_torch.utils import profiler
+from sparse_rulebook_cases import CASES, rulebook_case
 
 GRID = (5, 12, 10)  # nz, ny, nx
 RTOL = 1e-5
@@ -135,3 +139,32 @@ def test_backward_matches_jax_grad():
     (z * torch.from_numpy(probe)).sum().backward()
     for got, w in zip((f, a, b, c), want):
         _close(got.grad.numpy(), w)
+
+
+@pytest.mark.parametrize('case', list(CASES))
+def test_the_rulebook_equals_the_per_tap_lookups(case):
+    """The (T, B, M) rulebook that ``_tap_products`` takes, built by the
+    plain path (the one kernel K14 is held to on the card), equals the
+    per-tap loop it replaced, tap by tap: rows and hits with torch.equal;
+    the conv's ``sparse.pairs`` counter reads the loop's integer."""
+    in_lin, query, ok, kernel, centered, grid = rulebook_case(case)
+    pos, hit = tsc.tap_rulebook(in_lin, query, ok, kernel, centered, grid)
+    offs = tsc._offsets(kernel, centered)
+    assert pos.shape == hit.shape == (len(offs), *ok.shape)
+    assert pos.dtype == torch.int64 and hit.dtype == torch.bool
+    q = query.long()
+    hits = []
+    for t, off in enumerate(q.new_tensor(offs)):
+        nb = q + off
+        nb_ok = ok & tsc._in_grid(nb, grid)
+        want_pos, want_hit = tsc._lookup(in_lin, tsc._linear_ids(nb, grid, nb_ok), nb_ok)
+        assert torch.equal(pos[t], want_pos) and torch.equal(hit[t], want_hit), t
+        hits.append(want_hit)
+    assert hit.any() or not ok.any()
+    profiler.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with profiler.span('sparse.conv'):
+            tsc._count_conv(hit, ok)
+    pairs = profiler.record()[0]['counters']['sparse.pairs']
+    profiler.clear()
+    assert pairs == int(torch.stack([h.sum() for h in hits]).sum())
