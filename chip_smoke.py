@@ -77,8 +77,7 @@ random weights, ``tools/cfgs/kitti_models/hvpr.yaml`` first:
   keep the exact 3-NN, as in the JAX package): on the inputs of the two
   ``pointnet2.three_nn`` calls of one fused step it must equal its plain
   version (indices and distances) and launch once a call; the share of
-  points whose bucket set is the exact set is printed, and its first
-  design (``FIRST_DESIGNS``, built beside the kernels) is timed beside it.
+  points whose bucket set is the exact set is printed.
 - exact FPS (``furthest_point_sample(num_chunks=1)``, K5's long path) over
   the fused batch's 4 whole scans of 16,384 points, npoint 4096: equal to
   its plain version, timed, one launch.
@@ -88,8 +87,7 @@ random weights, ``tools/cfgs/kitti_models/hvpr.yaml`` first:
   take K12's backward too), and 2 timed steps must launch K4-K7 and K12
   (13 times a step) and never K8-K10. The fused and ATSS phases print
   K12's set-up/kernel split at their calls (``k12_split``: wall, host
-  issue, device ms by kernel), this source's and its first design's, and
-  K12's share of the step (``k12_share``).
+  issue, device ms by kernel) and K12's share of the step (``k12_share``).
 - train_cli: the training entry point ``python -m hvpr_tpu_torch.tools.train``
   (its ``main``) at batch 4 with ``--fix_random_seed`` on a synthetic KITTI
   tree of 16 train and 8 val scenes with its infos and gt database, all
@@ -189,8 +187,7 @@ selected sets, K3 beside ``torch.zeros`` + ``index_put_``, K9 beside
 It prints a ``{"kernels": [...]}`` JSON line (times, bounds, launches,
 errors; each entry also the launches of every other path, K1's and K3's
 the ``nuscenes`` shapes' times and bounds, K4's and K5's the ``nofp``
-shapes', K12's the ``second`` train step's; K11's and K12's
-``ms_before_redesign``, their first designs' time; ``options_launches``: the
+shapes', K12's the ``second`` train step's; ``options_launches``: the
 options phase's adam steps and forward; ``profile_launches``: the profile
 phase's counted forward and step), the card's name and power
 limit as nvidia-smi reports them, and
@@ -239,40 +236,26 @@ EXACT_FPS_NPOINT = 4096            # hvpr.yaml's SA1 npoint, over whole scans
 # products in f64 and round once, so they agree but for an order-dependent
 # last f64 bit of a sum; allowed: 1e-5 of the output's largest magnitude
 RECON_RTOL = 1e-5
+# the TPU kernel (or XLA op) each kernel of ops/_kernels.ENTRIES replaces
 META = {
-    'segment_sweep': ('hvpr_tpu_torch/csrc/segment_sweep.cu',
-                      'hvpr_tpu/ops/segment_sweep.py:106'),
-    'memory_lookup': ('hvpr_tpu_torch/csrc/memory_lookup.cu',
-                      'hvpr_tpu/ops/memory_lookup.py:168'),
-    'bev_canvas': ('hvpr_tpu_torch/csrc/bev_canvas.cu',
-                   'hvpr_tpu/ops/bev_canvas.py:128'),
-    'ball_query': ('hvpr_tpu_torch/csrc/ball_query.cu',
-                   'hvpr_tpu/ops/pn2_select.py:135'),
-    'fps_chunks': ('hvpr_tpu_torch/csrc/fps_chunks.cu',
-                   'hvpr_tpu/ops/pn2_select.py:302'),
-    'memory_recon_fwd': ('hvpr_tpu_torch/csrc/memory_recon.cu',
-                         'hvpr_tpu/ops/memory_recon.py:141'),
-    'memory_recon_bwd': ('hvpr_tpu_torch/csrc/memory_recon.cu',
-                         'hvpr_tpu/ops/memory_recon.py:169'),
-    'bucket_threshold': ('hvpr_tpu_torch/csrc/topk_attend.cu',
-                         'hvpr_tpu/ops/topk_attend.py:179'),
-    'masked_attend_fwd': ('hvpr_tpu_torch/csrc/topk_attend.cu',
-                          'hvpr_tpu/ops/topk_attend.py:376'),
-    'masked_attend_pairs': ('hvpr_tpu_torch/csrc/topk_attend.cu',
-                            'hvpr_tpu/ops/topk_attend.py:376'),
-    'masked_attend_bwd': ('hvpr_tpu_torch/csrc/topk_attend.cu',
-                          'hvpr_tpu/ops/topk_attend.py:427'),
-    'three_nn_bucket': ('hvpr_tpu_torch/csrc/three_nn.cu',
-                        'hvpr_tpu/ops/pn2_select.py:135'),
+    'segment_sweep': 'hvpr_tpu/ops/segment_sweep.py:106',
+    'memory_lookup': 'hvpr_tpu/ops/memory_lookup.py:168',
+    'bev_canvas': 'hvpr_tpu/ops/bev_canvas.py:128',
+    'ball_query': 'hvpr_tpu/ops/pn2_select.py:135',
+    'fps_chunks': 'hvpr_tpu/ops/pn2_select.py:302',
+    'memory_recon_fwd': 'hvpr_tpu/ops/memory_recon.py:141',
+    'memory_recon_bwd': 'hvpr_tpu/ops/memory_recon.py:169',
+    'bucket_threshold': 'hvpr_tpu/ops/topk_attend.py:179',
+    'masked_attend_fwd': 'hvpr_tpu/ops/topk_attend.py:376',
+    'masked_attend_pairs': 'hvpr_tpu/ops/topk_attend.py:376',
+    'masked_attend_bwd': 'hvpr_tpu/ops/topk_attend.py:427',
+    'three_nn_bucket': 'hvpr_tpu/ops/pn2_select.py:135',
     # no TPU kernel: the backward of the JAX package's XLA gather
-    'gather_grad': ('hvpr_tpu_torch/csrc/gather_grad.cu',
-                    'hvpr_tpu/ops/pointnet2.py:189'),
+    'gather_grad': 'hvpr_tpu/ops/pointnet2.py:189',
     # no TPU kernel: the JAX package's rotated IoU is XLA
-    'rotated_iou': ('hvpr_tpu_torch/csrc/rotated_iou.cu',
-                    'hvpr_tpu/ops/rotated_iou.py:136'),
+    'rotated_iou': 'hvpr_tpu/ops/rotated_iou.py:136',
     # no TPU kernel: the JAX package's sparse convs' lookups are XLA
-    'sparse_rulebook': ('hvpr_tpu_torch/csrc/sparse_rulebook.cu',
-                        'hvpr_tpu/ops/sparse_conv.py:50'),
+    'sparse_rulebook': 'hvpr_tpu/ops/sparse_conv.py:50',
 }
 
 
@@ -329,94 +312,8 @@ def device_times(fn, reps=3):
     return out
 
 
-# K12's summing kernel: this source's and the one of its first design (a
-# torch.sort and searchsorted before it); every other device record of a
-# K12 call is its set-up
-K12_SUM_KERNELS = ('k12_sum', 'k12_sum_narrow', 'gather_grad_kernel')
-# the first designs of K12 and K11, as they were before their Hopper
-# redesigns (their C entries as then), timed beside this source in their
-# entries (ms_before_redesign)
-FIRST_DESIGNS = {'gather_grad': 'tools/torch_port/gather_grad_first.cu',
-                 'three_nn_bucket': 'tools/torch_port/three_nn_first.cu'}
-_first = {}
-
-
-def start_first_designs():
-    """Start one nvcc for each of FIRST_DESIGNS into build/; returns
-    {name: (process, library path)}."""
-    from hvpr_tpu_torch.ops import _kernels
-    os.makedirs(os.path.join(ROOT, 'build'), exist_ok=True)
-    procs = {}
-    for name, src in FIRST_DESIGNS.items():
-        so = os.path.join(ROOT, 'build', f'lib{name}_first.so')
-        procs[name] = (subprocess.Popen([_kernels._nvcc(), *_kernels.NVCC_FLAGS, '-o', so,
-                                         os.path.join(ROOT, src)], stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True), so)
-    return procs
-
-
-def load_first_designs(procs):
-    """Fill ``_first`` with the first designs' wrappers (the K12 one with
-    the set-up it had: a stable sort of the 64-bit targets and
-    searchsorted, the ctypes signature set on every call)."""
-    import ctypes
-    import torch
-    from hvpr_tpu_torch.ops import _kernels
-    libs = {}
-    for name, (proc, so) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            fail(f'nvcc failed for the first design of {name}:\n{log}')
-        libs[name] = ctypes.CDLL(so)
-
-    # the parent's wrappers as they were, their checks included, but for
-    # the launch count (the path's counts stay this source's)
-    def gather_grad(grad, index, n):
-        if not _kernels.use_kernel(grad) or grad.dtype not in (torch.float32, torch.bfloat16):
-            fail(f'the first design of gather_grad takes no {grad.dtype} {grad.device}')
-        grad = grad.contiguous()
-        _kernels.check_cuda_input('gather_grad index', index, torch.int64, 1)
-        if index.shape[0] != grad.shape[0]:
-            fail(f'gather_grad: {index.shape[0]} indices for {grad.shape[0]} rows')
-        keys, order = torch.sort(index, stable=True)
-        offsets = torch.searchsorted(keys, torch.arange(n + 1, device=grad.device))
-        out = torch.empty(n, grad.shape[1], dtype=grad.dtype, device=grad.device)
-        fn = libs['gather_grad'].hvpr_gather_grad
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                               ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        if fn(_kernels.ptr(grad), _kernels.ptr(order), _kernels.ptr(offsets), _kernels.ptr(out),
-              n, grad.shape[1], int(grad.dtype == torch.bfloat16), _kernels.stream_handle(grad)):
-            fail('the first design of gather_grad failed to launch')
-        return out
-
-    def three_nn_bucket(unknown, known, mask):
-        unknown = unknown.detach()
-        known = known.detach()
-        if not _kernels.use_kernel(known):
-            fail(f'the first design of three_nn_bucket takes no {known.device} tensor')
-        unknown = unknown.float().contiguous()
-        known = known.float().contiguous()
-        mask = mask.contiguous()
-        _kernels.check_cuda_input('three_nn unknown', unknown, torch.float32, 3)
-        _kernels.check_cuda_input('three_nn known', known, torch.float32, 3)
-        _kernels.check_cuda_input('three_nn known_mask', mask, torch.bool, 2)
-        b, s, _ = known.shape
-        n = unknown.shape[1]
-        if (known.shape[2] != 3 or unknown.shape[0] != b or unknown.shape[2] != 3
-                or mask.shape != (b, s) or len({unknown.device, known.device,
-                                                mask.device}) != 1):
-            fail(f'three_nn: unknown {tuple(unknown.shape)}, known {tuple(known.shape)}')
-        dist = torch.empty(b, n, 3, dtype=torch.float32, device=known.device)
-        idx = torch.empty(b, n, 3, dtype=torch.int32, device=known.device)
-        fn = libs['three_nn_bucket'].hvpr_three_nn
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        if fn(_kernels.ptr(unknown), _kernels.ptr(known), _kernels.ptr(mask), _kernels.ptr(dist),
-              _kernels.ptr(idx), b, n, s, _kernels.stream_handle(known)):
-            fail('the first design of three_nn_bucket failed to launch')
-        return dist, idx
-    _first.update(gather_grad=gather_grad, three_nn_bucket=three_nn_bucket)
+# K12's summing kernels; every other device record of a K12 call is its set-up
+K12_SUM_KERNELS = ('k12_sum', 'k12_sum_narrow')
 
 
 def k12_split(run, reps=20):
@@ -482,23 +379,11 @@ def k12_share(step, reps=3):
     return sorted(rows)[len(rows) // 2]
 
 
-def _k12_split_and_before(entry, calls, where):
-    """Print K12's set-up/kernel split over ``calls`` ([(grad, index, n)]),
-    this source's and its first design's, and add the first design's time
-    (equal to the plain version on the CPU too) to ``entry``."""
+def print_k12_split(calls, where):
+    """Print K12's set-up/kernel split over ``calls`` ([(grad, index, n)])."""
     from hvpr_tpu_torch.ops import gather_rows
     print(f'gather_grad: at {where}: ' + k12_split_text(k12_split(
         lambda: [gather_rows.gather_rows_backward(*a) for a in calls])))
-    first = _first['gather_grad']
-    for grad, index, n in calls:
-        if not first(grad, index, n).cpu().equal(
-                gather_rows.gather_rows_backward_plain(grad.cpu(), index.cpu(), n)):
-            fail('the first design of gather_grad differs from its plain version')
-    entry['ms_before_redesign'] = sum(cuda_ms(lambda: first(*a), reps=10, warmup=2)
-                                      for a in calls)
-    print(f'gather_grad: at {where}, its first design (before its Hopper redesign): '
-          f'{entry["ms_before_redesign"]:.4f} ms (this source {entry["ms"]:.4f}); '
-          + k12_split_text(k12_split(lambda: [first(*a) for a in calls])))
 
 
 def device_breakdown(fn, reps=3):
@@ -1108,12 +993,9 @@ def _recon_nonzero(calls):
     bf16(n) (from the plain attention), printed as a distribution with the
     share of 16-row tiles that take the dense output (a row above the list
     cap, or lam = 0); returns their sum, the work of the sparse n W."""
-    import ctypes
     import torch
     from hvpr_tpu_torch.ops import _kernels, memory_recon
-    lib = _kernels.library('memory_recon')
-    lib.hvpr_memory_recon_fwd_cap.restype = ctypes.c_int
-    cap = lib.hvpr_memory_recon_fwd_cap()
+    cap = _kernels.entry('memory_recon_fwd_cap')()
     total = 0.0
     for (x, w, lam), _ in calls:
         counts = memory_recon.nonzero_weights(x, w, lam)
@@ -1132,15 +1014,10 @@ def _recon_nonzero(calls):
 def _recon_parts(calls):
     """'sweep ms, row chain ms, output ms': device times of K6 run to the end
     of its sweep, of its row chain, and whole (hvpr_memory_recon_fwd_part),
-    the differences of their torch.profiler device times. Launched by the
-    library entry, not the wrapper: these launches count for no path."""
-    import ctypes
+    the differences of their torch.profiler device times. Launched through
+    its table entry, not the wrapper: these launches count for no path."""
     import torch
     from hvpr_tpu_torch.ops import _kernels
-    fn = _kernels.library('memory_recon').hvpr_memory_recon_fwd_part
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int,
-                                                                ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     times = []
     for stop in (1, 2, 0):
         def run(stop=stop):
@@ -1148,9 +1025,9 @@ def _recon_parts(calls):
                 xb = x.to(torch.bfloat16).contiguous()
                 wb = w.to(torch.bfloat16).contiguous()
                 y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-                if fn(_kernels.ptr(xb), _kernels.ptr(wb), _kernels.ptr(y), x.shape[0],
-                      w.shape[0], x.shape[1], float(lam), stop, _kernels.stream_handle(x)):
-                    fail('memory_recon_fwd: a part run failed to launch')
+                _kernels.launch('memory_recon_fwd_part', x, _kernels.ptr(xb), _kernels.ptr(wb),
+                                _kernels.ptr(y), x.shape[0], w.shape[0], x.shape[1],
+                                float(lam), stop)
         got = device_breakdown(run)
         ms = [float(p.split()[-1]) for p in got.split(', ') if p.startswith('recon_fwd_kernel')]
         times.append(ms[0] if ms else float('nan'))
@@ -1480,8 +1357,7 @@ def train_phase(smi, mode, cfg_path=CFG, n_steps=None):
               f'{[(tuple(a[0].shape), str(a[0].dtype), a[2]) for a, _ in calls["gather_grad"]]}; '
               f'index_add_ {lib_ms:.4f} ms')
         del buf
-        _k12_split_and_before(entries['gather_grad'], [a for a, _ in calls['gather_grad']],
-                              f'the {label} step\'s calls')
+        print_k12_split([a for a, _ in calls['gather_grad']], f'the {label} step\'s calls')
 
         # the selected sets: points per valid pillar row, per K9 call
         selected = {}
@@ -1628,19 +1504,6 @@ def three_nn_phase(calls):
     print(f'three_nn_bucket: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms for both calls, '
           f'bound {b_ms:.4f} ms ({b_by}); device ms (torch.profiler): '
           + device_breakdown(lambda: [fn(*a) for a, _ in calls]))
-    # its first design (before its Hopper redesign), also equal to plain
-    first = _first['three_nn_bucket']
-    before_ms = 0.0
-    for (unknown, known, known_mask), _ in calls:
-        dist, idx = first(unknown, known, known_mask)
-        with _kernels.plain_versions():
-            dist_p, idx_p = fn(unknown, known, known_mask)
-        if not (torch.equal(idx, idx_p) and torch.equal(dist, dist_p)):
-            fail('the first design of three_nn_bucket differs from its plain version')
-        before_ms += cuda_ms(lambda: first(unknown, known, known_mask))
-    print(f'three_nn_bucket: its first design {before_ms:.4f} ms for both calls (this source '
-          f'{ms:.4f}); device ms: ' + device_breakdown(lambda: [first(*a) for a, _ in calls]))
-
     # its path: both calls, counts from zero
     _kernels.reset_launch_counts()
     for (unknown, known, known_mask), _ in calls:
@@ -1650,8 +1513,8 @@ def three_nn_phase(calls):
     if launches['three_nn_bucket'] != len(calls):
         fail(f'the three_nn_bucket path launched K11 {launches["three_nn_bucket"]} times')
     return {'three_nn_bucket': {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
-                                'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None,
-                                'ms_before_redesign': before_ms}}, launches
+                                'bound_ms': b_ms, 'bound_by': b_by,
+                                'library_ms': None}}, launches
 
 
 def exact_fps_phase(smi):
@@ -3261,7 +3124,7 @@ def second_phase(smi):
     print(f'second (c): K12 at {len(k12)} distinct shapes of the step {k12_entry["shapes"]}: '
           f'max_abs_err {err}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ '
           f'{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); on {smi}')
-    _k12_split_and_before(k12_entry, [a for a, _ in k12], "the ATSS step's distinct shapes")
+    print_k12_split([a for a, _ in k12], "the ATSS step's distinct shapes")
     del k12
 
     # the timed steps, the counts from zero
@@ -4295,11 +4158,8 @@ def run_phases(only=None):
 
     # build
     t0 = time.perf_counter()
-    first = start_first_designs()
     report = _kernels.build_all()
-    load_first_designs(first)
-    print(f'build: {time.perf_counter() - t0:.2f} s for {sorted(report)} and the first '
-          f'designs of {sorted(FIRST_DESIGNS)}')
+    print(f'build: {time.perf_counter() - t0:.2f} s for {sorted(report)}')
     for name, rep in sorted(report.items()):
         for line in rep['log'].splitlines():
             if any(w in line for w in ('registers', 'spill', 'smem', 'error', 'warning')):
@@ -4393,13 +4253,13 @@ def run_phases(only=None):
     kernels = []
     for name in _kernels.KERNELS:
         e = entries[name]
-        kernels.append({'name': name, 'route': 'cuda', 'source': META[name][0],
-                        'replaces': META[name][1], 'launches': launches[name],
+        kernels.append({'name': name, 'route': 'cuda',
+                        'source': f'hvpr_tpu_torch/csrc/{_kernels.ENTRIES[name].source}.cu',
+                        'replaces': META[name], 'launches': launches[name],
                         'max_abs_err': e['max_abs_err'], 'ms': e['ms'],
                         'plain_ms': e['plain_ms'], 'bound_ms': e['bound_ms'],
                         'bound_by': e['bound_by'], 'library_ms': e['library_ms']})
-        for extra in ('dmma_bound_ms', 'device_ms', 'calls', 'ms_before_redesign',
-                      'clipped_share'):
+        for extra in ('dmma_bound_ms', 'device_ms', 'calls', 'clipped_share'):
             if extra in e:
                 kernels[-1][extra] = e[extra]
         if name == 'fps_chunks':

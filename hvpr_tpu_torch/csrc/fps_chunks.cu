@@ -19,7 +19,8 @@
 // 4). A step's latency times `nsamp` bounds it, far above both its
 // operation bound (~10 f32 operations a row and step at 67 TFLOP/s) and its
 // byte bound. The argmax chain alone, with no distance work, measures that
-// latency floor (tools/torch_port/fps_designs.cu builds it for each design).
+// latency floor (PERF.md, K5: the lowest of the designs' chains, measured
+// when K5 was redesigned).
 //
 // The step's argmax, in every design: each thread keeps its best (minimum,
 // row) over its rows (rows rise within a thread, so ties keep the first);
@@ -32,9 +33,9 @@
 // barrier hands out the result: the next step writes the other buffer).
 //
 // Designs: this file holds only those the entry points take, the fastest
-// measured on the H100 (tools/torch_port/k1_k5_versions.py); the others
-// and every design's argmax chain are built from
-// tools/torch_port/fps_designs.cu, which includes this file:
+// measured on the H100 when K5 was redesigned (PERF.md, K5); the others
+// named below and the designs' argmax chains were measured beside them and
+// are kept in the repository's history only:
 // - block (hvpr_fps_chunks, 256 < L <= 8192: SA1's Morton chunks): one
 //   block of 256 threads a set, each with its rows' coordinates and minima
 //   in registers (PER rows a thread, templated, 256 * PER >= L); shared

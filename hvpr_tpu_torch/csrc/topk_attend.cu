@@ -24,8 +24,8 @@
 // m16n8k16 .f64, DMMA, 67 TFLOP/s: 1.19 ms for that product, against 0.08
 // ms on bf16 tensor cores), for the exact sums above. (The m8n8k4 shape
 // that K2, K6 and K7 use took 3.4 ms for K9's sweep, m16n8k4 2.5 and
-// m16n8k8 or m16n8k16 2.4 on an H100: PERF.md, K8 and K9;
-// tools/torch_port/k4_k8_versions.py.) K10 touches only the selected pairs
+// m16n8k8 or m16n8k16 2.4 on an H100, measured when K8 moved onto K9's
+// sweep: PERF.md, K8 and K9.) K10 touches only the selected pairs
 // (~825k a call at hvpr.yaml), 2*C flops each, against the valid rows of
 // dout (9.7 MB), the pairs (~5 MB) and dval (16.8 MB): bound by bytes,
 // ~0.01 ms a call at 3.35 TB/s.
@@ -48,8 +48,8 @@
 //       rows read 4.9 GB a call at hvpr.yaml batch 4, 600 of 64 rows 1.2
 //       GB. Yet on the same inputs, with the earlier m8n8k4 sweep,
 //       64-row tiles (one block an SM, 16 warps) took 3.93 ms, 32-row 3.62
-//       and 16-row 3.41 on an H100 (PERF.md, K9;
-//       tools/torch_port/k9_tile_sizes.py): four blocks an
+//       and 16-row 3.41 on an H100 (PERF.md, K9, measured when K9's
+//       sweep moved onto DMMA): four blocks an
 //       SM overlap one block's barriers with another's DMMA, and L2
 //       serves the 4.9 GB at ~1.4 TB/s, well inside its rate. K8's
 //       threshold is known before the sweep, so no score is kept: each row
@@ -452,7 +452,7 @@ __device__ __forceinline__ void dmma_sweep(const __nv_bfloat16* __restrict__ pil
 // points included (neg ~ -1e30); points past N score exactly -1e30, as the
 // plain version's padding. kTJW: the columns of scores a lane holds at once
 // (of 4); 2 leaves registers for the maxima without a spill at 4 blocks an
-// SM, and measured as fast as 4 (tools/torch_port/k4_k8_versions.py).
+// SM, and measured as fast as 4 on an H100 when K8 moved onto K9's sweep.
 constexpr int kTJW = 2;
 
 __global__ void __launch_bounds__(kAThreads, kABlocks)

@@ -12,8 +12,6 @@ with grad enabled and features that require grad it raises (training
 scatters with the differentiable ``scatter_to_bev``).
 """
 
-import ctypes
-
 import torch
 
 from ..utils import flops
@@ -25,6 +23,12 @@ def canvas_plain(features, coords, mask, ny, nx, out_dtype=torch.float32):
     return scatter_to_bev(features.to(out_dtype), coords, mask, ny, nx)
 
 
+def _canvas_work(out, features, coords, mask, ny, nx, *_):
+    return flops.bev_canvas_work(*features.shape, ny, nx, int(mask.sum()),
+                                 out.element_size(), features.element_size())
+
+
+@_kernels.wrapper('bev_canvas', canvas_plain, _canvas_work, no_backward=True)
 def canvas_from_sorted(features, coords, mask, ny, nx, out_dtype=torch.float32):
     """(B, V, C) pillars -> (B, ny, nx, C) ``out_dtype`` canvas, zeros elsewhere.
 
@@ -36,14 +40,6 @@ def canvas_from_sorted(features, coords, mask, ny, nx, out_dtype=torch.float32):
         ny, nx: grid size.
         out_dtype: torch.float32 or torch.bfloat16.
     """
-    if flops.counter is not None:
-        return flops.counter.kernel(
-            'bev_canvas', lambda: canvas_from_sorted(features, coords, mask, ny, nx, out_dtype),
-            lambda out: flops.bev_canvas_work(*features.shape, ny, nx, int(mask.sum()),
-                                              out.element_size(), features.element_size()))
-    if not _kernels.use_kernel(features):
-        return canvas_plain(features, coords, mask, ny, nx, out_dtype)
-    _kernels.refuse_grad('bev_canvas', features)
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f'canvas: out_dtype {out_dtype} is not float32 or bfloat16')
     b, v, c = features.shape
@@ -63,12 +59,7 @@ def canvas_from_sorted(features, coords, mask, ny, nx, out_dtype=torch.float32):
                          f'the kernel\'s 32-bit index within a sample')
     canvas = torch.empty(b, ny, nx, c, dtype=out_dtype, device=feat.device)
     cell_map = torch.empty(b, ny * nx, dtype=torch.int32, device=feat.device)
-    lib = _kernels.library('bev_canvas')
-    fn = lib.hvpr_bev_canvas
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(_kernels.ptr(feat), _kernels.ptr(coords), _kernels.ptr(mask),
-             _kernels.ptr(cell_map), _kernels.ptr(canvas), b, v, ny, nx,
-             row_bytes // 16, int(bf16), _kernels.stream_handle(feat))
-    _kernels.launched('bev_canvas', err)
+    _kernels.launch('bev_canvas', feat, _kernels.ptr(feat), _kernels.ptr(coords),
+                    _kernels.ptr(mask), _kernels.ptr(cell_map), _kernels.ptr(canvas), b, v,
+                    ny, nx, row_bytes // 16, int(bf16))
     return canvas

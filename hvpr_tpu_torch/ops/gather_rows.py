@@ -18,8 +18,6 @@ deterministic algorithms are on). :func:`gather_grad_ranges_plain` is the
 plain version of the kernel's set-up.
 """
 
-import ctypes
-
 import torch
 
 from ..utils import flops
@@ -46,13 +44,8 @@ def gather_grad_ranges_plain(index, n):
     return offsets, rows[torch.argsort(index[rows], stable=True)]
 
 
-_SCRATCH = ([ctypes.c_longlong] * 2, ctypes.c_longlong)
-_RANGES = [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-_SUM = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-
-
 def _scratch(rows, n, device):
-    words = _kernels.entry('gather_grad', 'hvpr_gather_grad_scratch', *_SCRATCH)(rows, n)
+    words = _kernels.entry('gather_grad_scratch')(rows, n)
     return torch.empty(words, dtype=torch.int32, device=device)
 
 
@@ -73,23 +66,17 @@ def gather_grad_ranges(index, n):
         return gather_grad_ranges_plain(index, n)
     _check_index(index, index.shape[0], n)
     scratch = _scratch(index.shape[0], n, index.device)
-    err = _kernels.entry('gather_grad', 'hvpr_gather_grad_ranges', _RANGES)(
-        index.data_ptr(), scratch.data_ptr(), index.shape[0], n,
-        torch.cuda.current_stream(index.device).cuda_stream)
-    if err:
-        raise RuntimeError(f'gather_grad set-up failed to launch: cudaError {err}')
+    _kernels.launch('gather_grad_ranges', index, index.data_ptr(), scratch.data_ptr(),
+                    index.shape[0], n)
     offsets = scratch[:n + 1]
     return offsets, scratch[n + 1:n + 1 + int(offsets[-1])]
 
 
+@_kernels.wrapper('gather_grad', gather_rows_backward_plain,
+                  lambda out, grad, index, n: flops.gather_grad_work(
+                      *grad.shape, grad.element_size(), n))
 def gather_rows_backward(grad, index, n):
     """:func:`gather_rows_backward_plain` by kernel K12 on a CUDA tensor."""
-    if flops.counter is not None:
-        return flops.counter.kernel(
-            'gather_grad', lambda: gather_rows_backward(grad, index, n),
-            lambda out: flops.gather_grad_work(*grad.shape, grad.element_size(), n))
-    if not _kernels.use_kernel(grad):
-        return gather_rows_backward_plain(grad, index, n)
     if grad.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f'gather_grad: dtype {grad.dtype} is not float32 or bfloat16')
     grad = grad.contiguous()
@@ -100,10 +87,8 @@ def gather_rows_backward(grad, index, n):
     bf16 = grad.dtype == torch.bfloat16
     # 16-byte loads where each row starts 16-byte aligned
     vec = c % (8 if bf16 else 4) == 0 and grad.data_ptr() % 16 == 0
-    err = _kernels.entry('gather_grad', 'hvpr_gather_grad', _SUM)(
-        grad.data_ptr(), index.data_ptr(), scratch.data_ptr(), out.data_ptr(), rows, n, c,
-        int(bf16), int(vec), torch.cuda.current_stream(grad.device).cuda_stream)
-    _kernels.launched('gather_grad', err)
+    _kernels.launch('gather_grad', grad, grad.data_ptr(), index.data_ptr(), scratch.data_ptr(),
+                    out.data_ptr(), rows, n, c, int(bf16), int(vec))
     return out
 
 

@@ -27,8 +27,6 @@ On a CUDA tensor :func:`memory_lookup_fused` launches
 and an input that requires grad it raises (eval runs under no_grad).
 """
 
-import ctypes
-
 import torch
 
 from ..utils import flops
@@ -73,6 +71,61 @@ def memory_lookup_plain(pillars, memory, k, row_mask=None, return_stats=False):
     return out
 
 
+def _lookup_plain(pillars, memory, k, row_mask, stats):
+    """:func:`memory_lookup_plain` as (out, thresh, count), the last two None
+    unless ``stats``."""
+    if stats:
+        return memory_lookup_plain(pillars, memory, k, row_mask, True)
+    return memory_lookup_plain(pillars, memory, k, row_mask), None, None
+
+
+def _lookup_work(out, pillars, memory, k, row_mask, stats):
+    r = pillars.shape[0]
+    return flops.memory_lookup_work(r, r if row_mask is None else int(row_mask.sum()),
+                                    memory.shape[0], pillars.shape[1], float(out[2].sum()))
+
+
+# the work needs the selected counts: a counted call asks for them
+@_kernels.wrapper('memory_lookup', _lookup_plain, _lookup_work, no_backward=True,
+                  count_args=lambda pillars, memory, k, row_mask, stats:
+                  (pillars, memory, k, row_mask, True))
+def _memory_lookup(pillars, memory, k, row_mask, stats):
+    """(out, thresh, count) of :func:`memory_lookup_fused`, the last two None
+    unless ``stats``."""
+    r, c = pillars.shape
+    m = memory.shape[0]
+    _kernels.check_cuda_input('memory_lookup pillars', pillars, torch.float32, 2)
+    _kernels.check_cuda_input('memory_lookup memory', memory, torch.float32, 2)
+    if memory.device != pillars.device:
+        raise ValueError('memory_lookup: memory and pillars on two devices')
+    if row_mask is not None:
+        _kernels.check_cuda_input('memory_lookup row_mask', row_mask,
+                                  torch.bool, 1)
+        if row_mask.shape[0] != r or row_mask.device != pillars.device:
+            raise ValueError('memory_lookup: row_mask must be (R,) on the '
+                             'pillars device')
+    if c % 16 or c > 64:
+        raise ValueError(f'memory_lookup: C={c} must be a multiple of 16, <= 64')
+    smem = _kernels.entry('memory_lookup_smem')(m)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f'memory_lookup: M={m}, C={c} need {smem} B of shared '
+                         f'memory per block, above {_SMEM_LIMIT}')
+    out = torch.empty(r, c, dtype=torch.float32, device=pillars.device)
+    thresh = count = None
+    if stats:
+        thresh = torch.empty(r, dtype=torch.float32, device=pillars.device)
+        count = torch.empty(r, dtype=torch.int32, device=pillars.device)
+    if r == 0:
+        return out, thresh, count
+    mem_bf = memory.to(torch.bfloat16).contiguous()
+    # a null pointer for the row mask and the stats where there are none
+    _kernels.launch('memory_lookup', pillars, _kernels.ptr(pillars), _kernels.ptr(mem_bf),
+                    None if row_mask is None else _kernels.ptr(row_mask), _kernels.ptr(out),
+                    _kernels.ptr(thresh) if stats else None,
+                    _kernels.ptr(count) if stats else None, r, m, c, k)
+    return out, thresh, count
+
+
 def memory_lookup_fused(pillars, memory, k, row_mask=None, return_stats=False):
     """Aggregated top-k memory reconstruction of every pillar row.
 
@@ -86,60 +139,10 @@ def memory_lookup_fused(pillars, memory, k, row_mask=None, return_stats=False):
     Returns:
         (R, C) float32.
     """
-    r, c = pillars.shape
-    m = memory.shape[0]
-    if memory.shape[1] != c:
+    if memory.shape[1] != pillars.shape[1]:
         raise ValueError(f'memory_lookup: memory {tuple(memory.shape)} vs '
                          f'pillars {tuple(pillars.shape)}')
     if not 1 <= k <= NUM_BUCKETS:
         raise ValueError(f'memory_lookup: k={k} outside [1, {NUM_BUCKETS}]')
-    if flops.counter is not None:
-        # the work needs the selected counts: this counted call returns them
-        got = flops.counter.kernel(
-            'memory_lookup', lambda: memory_lookup_fused(pillars, memory, k, row_mask, True),
-            lambda out: flops.memory_lookup_work(
-                r, r if row_mask is None else int(row_mask.sum()), m, c, float(out[2].sum())))
-        return got if return_stats else got[0]
-    if not _kernels.use_kernel(pillars):
-        return memory_lookup_plain(pillars, memory, k, row_mask, return_stats)
-    _kernels.refuse_grad('memory_lookup', pillars, memory)
-
-    _kernels.check_cuda_input('memory_lookup pillars', pillars, torch.float32, 2)
-    _kernels.check_cuda_input('memory_lookup memory', memory, torch.float32, 2)
-    if memory.device != pillars.device:
-        raise ValueError('memory_lookup: memory and pillars on two devices')
-    if row_mask is not None:
-        _kernels.check_cuda_input('memory_lookup row_mask', row_mask,
-                                  torch.bool, 1)
-        if row_mask.shape[0] != r or row_mask.device != pillars.device:
-            raise ValueError('memory_lookup: row_mask must be (R,) on the '
-                             'pillars device')
-    if c % 16 or c > 64:
-        raise ValueError(f'memory_lookup: C={c} must be a multiple of 16, <= 64')
-    lib = _kernels.library('memory_lookup')
-    lib.hvpr_memory_lookup_smem.argtypes = [ctypes.c_int]
-    lib.hvpr_memory_lookup_smem.restype = ctypes.c_longlong
-    smem = lib.hvpr_memory_lookup_smem(m)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f'memory_lookup: M={m}, C={c} need {smem} B of shared '
-                         f'memory per block, above {_SMEM_LIMIT}')
-    out = torch.empty(r, c, dtype=torch.float32, device=pillars.device)
-    thresh = count = None
-    if return_stats:
-        thresh = torch.empty(r, dtype=torch.float32, device=pillars.device)
-        count = torch.empty(r, dtype=torch.int32, device=pillars.device)
-    if r == 0:
-        return (out, thresh, count) if return_stats else out
-    mem_bf = memory.to(torch.bfloat16).contiguous()
-    fn = lib.hvpr_memory_lookup
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    null = ctypes.c_void_p(0)
-    err = fn(_kernels.ptr(pillars), _kernels.ptr(mem_bf),
-             _kernels.ptr(row_mask) if row_mask is not None else null,
-             _kernels.ptr(out),
-             _kernels.ptr(thresh) if return_stats else null,
-             _kernels.ptr(count) if return_stats else null,
-             r, m, c, k, _kernels.stream_handle(pillars))
-    _kernels.launched('memory_lookup', err)
-    return (out, thresh, count) if return_stats else out
+    got = _memory_lookup(pillars, memory, k, row_mask, return_stats)
+    return got if return_stats else got[0]

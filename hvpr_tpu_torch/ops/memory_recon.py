@@ -37,8 +37,6 @@ products on the FP64 tensor cores); on a CPU tensor each runs its plain
 version.
 """
 
-import ctypes
-
 import torch
 
 from ..utils import flops
@@ -129,47 +127,33 @@ def _pad8(t):
     return t if c % 8 == 0 else torch.nn.functional.pad(t, (0, 8 - c % 8))
 
 
+@_kernels.wrapper('memory_recon_fwd', recon_forward_plain,
+                  lambda out, x, w, lam: flops.memory_recon_fwd_work(
+                      x.shape[0], w.shape[0], x.shape[1],
+                      float(nonzero_weights(x, w, lam).sum())))
 def recon_forward(x, w, lam):
     """(R, C) f32 rows, (M, C) f32 memory -> (R, C) f32 reconstructions."""
-    if flops.counter is not None:
-        return flops.counter.kernel(
-            'memory_recon_fwd', lambda: recon_forward(x, w, lam),
-            lambda out: flops.memory_recon_fwd_work(
-                x.shape[0], w.shape[0], x.shape[1], float(nonzero_weights(x, w, lam).sum())))
-    if not _kernels.use_kernel(x):
-        return recon_forward_plain(x, w, lam)
     xb = _pad8(x.to(torch.bfloat16)).contiguous()
     wb = _pad8(w.to(torch.bfloat16)).contiguous()
     r, m, cp = _check('memory_recon', xb, wb)
     c = x.shape[1]
-    lib = _kernels.library('memory_recon')
-    lib.hvpr_memory_recon_fwd_smem.argtypes = [ctypes.c_int]
-    lib.hvpr_memory_recon_fwd_smem.restype = ctypes.c_longlong
-    smem = lib.hvpr_memory_recon_fwd_smem(m)
+    smem = _kernels.entry('memory_recon_fwd_smem')(m)
     if smem > _SMEM_LIMIT:
         raise ValueError(f'memory_recon: M={m} needs {smem} B of shared memory per '
                          f'block, above {_SMEM_LIMIT}')
     y = torch.empty(r, cp, dtype=torch.float32, device=x.device)
     if r == 0:
         return y[:, :c]
-    fn = lib.hvpr_memory_recon_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    err = fn(_kernels.ptr(xb), _kernels.ptr(wb), _kernels.ptr(y), r, m, cp,
-             float(lam), _kernels.stream_handle(x))
-    _kernels.launched('memory_recon_fwd', err)
+    _kernels.launch('memory_recon_fwd', x, _kernels.ptr(xb), _kernels.ptr(wb), _kernels.ptr(y),
+                    r, m, cp, float(lam))
     return y if cp == c else y[:, :c].contiguous()
 
 
+@_kernels.wrapper('memory_recon_bwd', recon_backward_plain,
+                  lambda out, x, w, dy, lam: flops.memory_recon_bwd_work(
+                      x.shape[0], w.shape[0], x.shape[1]))
 def recon_backward(x, w, dy, lam):
     """(dx (R, C), dW (M, C)) f32 for upstream gradient ``dy`` (R, C)."""
-    if flops.counter is not None:
-        return flops.counter.kernel(
-            'memory_recon_bwd', lambda: recon_backward(x, w, dy, lam),
-            lambda out: flops.memory_recon_bwd_work(x.shape[0], w.shape[0], x.shape[1]))
-    if not _kernels.use_kernel(x):
-        return recon_backward_plain(x, w, dy, lam)
     xb = x.to(torch.bfloat16).contiguous()
     wb = w.to(torch.bfloat16).contiguous()
     dyb = dy.to(torch.bfloat16).contiguous()
@@ -193,15 +177,10 @@ def recon_backward(x, w, dy, lam):
     n = torch.empty(r, m, dtype=torch.bfloat16, device=dev)
     splits = max(1, min(16, r // 2048))
     partial = torch.empty(splits, m, c, dtype=torch.float64, device=dev)
-    fn = _kernels.library('memory_recon').hvpr_memory_recon_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    err = fn(_kernels.ptr(xb), _kernels.ptr(wb), _kernels.ptr(dyb),
-             _kernels.ptr(dx), _kernels.ptr(ld), _kernels.ptr(dl), _kernels.ptr(n),
-             _kernels.ptr(partial), _kernels.ptr(dw), r, m, c, float(lam),
-             splits, _kernels.stream_handle(x))
-    _kernels.launched('memory_recon_bwd', err)
+    _kernels.launch('memory_recon_bwd', x, _kernels.ptr(xb), _kernels.ptr(wb),
+                    _kernels.ptr(dyb), _kernels.ptr(dx), _kernels.ptr(ld), _kernels.ptr(dl),
+                    _kernels.ptr(n), _kernels.ptr(partial), _kernels.ptr(dw), r, m, c,
+                    float(lam), splits)
     return dx, dw
 
 

@@ -119,6 +119,15 @@ def _r2(radius):
     return ctypes.c_float(float(radius) * float(radius))
 
 
+def _ball_query_plain(radius, nsample, xyz, new_xyz, mask):
+    _check_nsamples(nsample)
+    return ball_query_bucket_plain(radius, nsample, xyz.detach(), new_xyz.detach(), mask)
+
+
+@_kernels.wrapper('ball_query', _ball_query_plain,
+                  lambda out, radius, nsample, xyz, new_xyz, mask: flops.ball_query_work(
+                      *xyz.shape[:2], new_xyz.shape[1], (nsample,),
+                      float(flops.ball_stop(*out, nsample, xyz.shape[1]).sum())), on=2)
 def ball_query_bucket(radius, nsample, xyz, new_xyz, mask):
     """Bucketed ball query.
 
@@ -130,29 +139,32 @@ def ball_query_bucket(radius, nsample, xyz, new_xyz, mask):
         idx (B, S, nsample) int32, cnt (B, S) int32.
     """
     _check_nsamples(nsample)
-    if flops.counter is not None:
-        return flops.counter.kernel(
-            'ball_query', lambda: ball_query_bucket(radius, nsample, xyz, new_xyz, mask),
-            lambda out: flops.ball_query_work(
-                *xyz.shape[:2], new_xyz.shape[1], (nsample,),
-                float(flops.ball_stop(*out, nsample, xyz.shape[1]).sum())))
-    if not _kernels.use_kernel(xyz):
-        return ball_query_bucket_plain(radius, nsample, xyz.detach(), new_xyz.detach(), mask)
     xyz, new_xyz, mask, (b, n, s) = _ball_query_inputs(xyz, new_xyz, mask)
     idx, cnt = _ball_query_outputs(nsample, b, s, xyz.device)
     if b * s == 0:
         return idx, cnt
-    fn = _kernels.library('ball_query').hvpr_ball_query
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_float]
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    err = fn(_kernels.ptr(xyz), _kernels.ptr(new_xyz), _kernels.ptr(mask),
-             _kernels.ptr(idx), _kernels.ptr(cnt), _r2(radius), b, n, s, nsample,
-             _kernels.stream_handle(xyz))
-    _kernels.launched('ball_query', err)
+    _kernels.launch('ball_query', xyz, _kernels.ptr(xyz), _kernels.ptr(new_xyz),
+                    _kernels.ptr(mask), _kernels.ptr(idx), _kernels.ptr(cnt), _r2(radius), b,
+                    n, s, nsample)
     return idx, cnt
 
 
+def _ball_query2_plain(radii, nsamples, xyz, new_xyz, mask):
+    (r0, r1), (ns0, ns1) = radii, nsamples
+    _check_nsamples(ns0, ns1)
+    return tuple(ball_query_bucket_plain(r, ns, xyz.detach(), new_xyz.detach(), mask)
+                 for r, ns in ((r0, ns0), (r1, ns1)))
+
+
+def _ball_query2_work(out, radii, nsamples, xyz, new_xyz, mask):
+    # a centre's sweep runs until both radii have their buckets
+    return flops.ball_query_work(
+        *xyz.shape[:2], new_xyz.shape[1], nsamples, float(torch.stack(
+            [flops.ball_stop(idx, cnt, ns, xyz.shape[1])
+             for (idx, cnt), ns in zip(out, nsamples)]).amax(dim=0).sum()))
+
+
+@_kernels.wrapper('ball_query', _ball_query2_plain, _ball_query2_work, on=2)
 def ball_query_bucket2(radii, nsamples, xyz, new_xyz, mask):
     """Both radii of a multi-scale grouping level in one sweep (one launch of
     K4): the same outputs as ``ball_query_bucket`` called once per radius.
@@ -165,32 +177,14 @@ def ball_query_bucket2(radii, nsamples, xyz, new_xyz, mask):
     """
     (r0, r1), (ns0, ns1) = radii, nsamples
     _check_nsamples(ns0, ns1)
-    if flops.counter is not None:
-        # a centre's sweep runs until both radii have their buckets
-        return flops.counter.kernel(
-            'ball_query', lambda: ball_query_bucket2(radii, nsamples, xyz, new_xyz, mask),
-            lambda out: flops.ball_query_work(
-                *xyz.shape[:2], new_xyz.shape[1], nsamples, float(torch.stack(
-                    [flops.ball_stop(idx, cnt, ns, xyz.shape[1])
-                     for (idx, cnt), ns in zip(out, nsamples)]).amax(dim=0).sum())))
-    if not _kernels.use_kernel(xyz):
-        return tuple(ball_query_bucket_plain(r, ns, xyz.detach(), new_xyz.detach(), mask)
-                     for r, ns in ((r0, ns0), (r1, ns1)))
     xyz, new_xyz, mask, (b, n, s) = _ball_query_inputs(xyz, new_xyz, mask)
     out0 = _ball_query_outputs(ns0, b, s, xyz.device)
     out1 = _ball_query_outputs(ns1, b, s, xyz.device)
     if b * s == 0:
         return out0, out1
-    fn = _kernels.library('ball_query').hvpr_ball_query2
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_int]
-                   + [ctypes.c_void_p] * 2 + [ctypes.c_float] + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    err = fn(_kernels.ptr(xyz), _kernels.ptr(new_xyz), _kernels.ptr(mask),
-             _kernels.ptr(out0[0]), _kernels.ptr(out0[1]), _r2(r0), ns0,
-             _kernels.ptr(out1[0]), _kernels.ptr(out1[1]), _r2(r1), ns1, b, n, s,
-             _kernels.stream_handle(xyz))
-    _kernels.launched('ball_query', err)
+    _kernels.launch('ball_query2', xyz, _kernels.ptr(xyz), _kernels.ptr(new_xyz),
+                    _kernels.ptr(mask), _kernels.ptr(out0[0]), _kernels.ptr(out0[1]), _r2(r0),
+                    ns0, _kernels.ptr(out1[0]), _kernels.ptr(out1[1]), _r2(r1), ns1, b, n, s)
     return out0, out1
 
 
@@ -221,9 +215,11 @@ def three_nn_bucket_plain(unknown, known, known_mask, chunk=512):
     return torch.sqrt(torch.clamp(d2, min=0.0)), idx
 
 
-_THREE_NN = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-
-
+@_kernels.wrapper('three_nn_bucket',
+                  lambda unknown, known, known_mask: three_nn_bucket_plain(
+                      unknown.detach(), known.detach(), known_mask),
+                  lambda out, unknown, known, known_mask: flops.three_nn_work(
+                      *unknown.shape[:2], known.shape[1]), on=1)
 def three_nn_bucket(unknown, known, known_mask):
     """Bucketed 3-NN, with the interface of ``pointnet2.three_nn``.
 
@@ -233,16 +229,8 @@ def three_nn_bucket(unknown, known, known_mask):
     Returns:
         dist (B, N, 3) f32 and idx (B, N, 3) int32, neither with a gradient.
     """
-    if flops.counter is not None:
-        return flops.counter.kernel(
-            'three_nn_bucket', lambda: three_nn_bucket(unknown, known, known_mask),
-            lambda out: flops.three_nn_work(*unknown.shape[:2], known.shape[1]))
-    unknown = unknown.detach()
-    known = known.detach()
-    if not _kernels.use_kernel(known):
-        return three_nn_bucket_plain(unknown, known, known_mask)
-    unknown = unknown.float().contiguous()
-    known = known.float().contiguous()
+    unknown = unknown.detach().float().contiguous()
+    known = known.detach().float().contiguous()
     known_mask = known_mask.contiguous()
     _kernels.check_cuda_input('three_nn unknown', unknown, torch.float32, 3)
     _kernels.check_cuda_input('three_nn known', known, torch.float32, 3)
@@ -260,13 +248,11 @@ def three_nn_bucket(unknown, known, known_mask):
         return dist, idx
     # the known points packed as (x, y, z, 0), masked ones and the padding
     # to a whole tile at +inf
-    s_pad = _kernels.entry('three_nn', 'hvpr_three_nn_padded', [ctypes.c_int])(s)
+    s_pad = _kernels.entry('three_nn_padded')(s)
     packed = torch.empty(b, s_pad, 4, dtype=torch.float32, device=known.device)
-    err = _kernels.entry('three_nn', 'hvpr_three_nn', _THREE_NN)(
-        unknown.data_ptr(), known.data_ptr(), known_mask.data_ptr(), packed.data_ptr(),
-        dist.data_ptr(), idx.data_ptr(), b, n, s,
-        torch.cuda.current_stream(known.device).cuda_stream)
-    _kernels.launched('three_nn_bucket', err)
+    _kernels.launch('three_nn_bucket', known, unknown.data_ptr(), known.data_ptr(),
+                    known_mask.data_ptr(), packed.data_ptr(), dist.data_ptr(), idx.data_ptr(),
+                    b, n, s)
     return dist, idx
 
 
@@ -289,6 +275,9 @@ def fps_chunks_plain(pts, valid, nsamp):
     return out
 
 
+@_kernels.wrapper('fps_chunks',
+                  lambda pts, valid, nsamp: fps_chunks_plain(pts.detach(), valid, nsamp),
+                  lambda out, pts, valid, nsamp: flops.fps_work(*pts.shape[:2], nsamp))
 def fps_chunks(pts, valid, nsamp):
     """Exact FPS inside each of R independent point sets.
 
@@ -299,14 +288,7 @@ def fps_chunks(pts, valid, nsamp):
     Returns:
         (R, nsamp) int32 local row indices.
     """
-    if flops.counter is not None:
-        return flops.counter.kernel(
-            'fps_chunks', lambda: fps_chunks(pts, valid, nsamp),
-            lambda out: flops.fps_work(*pts.shape[:2], nsamp))
-    pts = pts.detach()
-    if not _kernels.use_kernel(pts):
-        return fps_chunks_plain(pts, valid, nsamp)
-    pts = pts.float().contiguous()
+    pts = pts.detach().float().contiguous()
     valid = valid.contiguous()
     _kernels.check_cuda_input('fps_chunks pts', pts, torch.float32, 3)
     _kernels.check_cuda_input('fps_chunks valid', valid, torch.bool, 2)
@@ -319,22 +301,13 @@ def fps_chunks(pts, valid, nsamp):
     out = torch.empty(r, nsamp, dtype=torch.int32, device=pts.device)
     if r * nsamp == 0:
         return out
-    lib = _kernels.library('fps_chunks')
     if l <= _FPS_MAX_ROWS:
-        fn = lib.hvpr_fps_chunks
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        err = fn(_kernels.ptr(pts), _kernels.ptr(valid), _kernels.ptr(out),
-                 r, l, nsamp, _kernels.stream_handle(pts))
+        _kernels.launch('fps_chunks', pts, _kernels.ptr(pts), _kernels.ptr(valid),
+                        _kernels.ptr(out), r, l, nsamp)
     else:
-        lib.hvpr_fps_long_head.restype = ctypes.c_int
         # the running minima of the rows past the on-chip head
-        tail = torch.empty(r, max(1, l - lib.hvpr_fps_long_head()),
+        tail = torch.empty(r, max(1, l - _kernels.entry('fps_long_head')()),
                            dtype=torch.float32, device=pts.device)
-        fn = lib.hvpr_fps_long
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        err = fn(_kernels.ptr(pts), _kernels.ptr(valid), _kernels.ptr(tail),
-                 _kernels.ptr(out), r, l, nsamp, _kernels.stream_handle(pts))
-    _kernels.launched('fps_chunks', err)
+        _kernels.launch('fps_long', pts, _kernels.ptr(pts), _kernels.ptr(valid),
+                        _kernels.ptr(tail), _kernels.ptr(out), r, l, nsamp)
     return out

@@ -33,8 +33,6 @@ the host (the KITTI evaluator) and run the native C++ library of
 formula (the JAX package's host fallback).
 """
 
-import ctypes
-
 import numpy as np
 import torch
 
@@ -156,26 +154,21 @@ def records_on_card(boxes):
     21) like :func:`box_records`: for holding the kernel to it."""
     boxes, cosa, sina = _card_boxes('boxes', boxes, boxes.device)
     out = torch.empty(boxes.shape[0], 25, dtype=torch.float32, device=boxes.device)
-    fn = _kernels.entry('rotated_iou', 'hvpr_rotated_iou_records',
-                        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2
-                        + [ctypes.c_int] + [ctypes.c_void_p] * 2)
-    err = fn(_kernels.ptr(boxes), boxes.stride(0), _kernels.ptr(cosa), _kernels.ptr(sina),
-             boxes.shape[0], _kernels.ptr(out), _kernels.stream_handle(out))
-    if err != 0:
-        raise RuntimeError(f'CUDA kernel rotated_iou records failed to launch: cudaError {err}')
+    _kernels.launch('rotated_iou_records', out, _kernels.ptr(boxes), boxes.stride(0),
+                    _kernels.ptr(cosa), _kernels.ptr(sina), boxes.shape[0], _kernels.ptr(out))
     return out[:, :21]
 
 
+def _pairs_plain(boxes_a, boxes_b, iou):
+    return (boxes_iou_bev_plain if iou else boxes_overlap_bev_plain)(boxes_a, boxes_b)
+
+
+@_kernels.wrapper('rotated_iou', _pairs_plain,
+                  lambda out, boxes_a, boxes_b, iou: flops.rotated_iou_work(
+                      boxes_a.shape[0], boxes_b.shape[0], iou), no_backward=True)
 def _pairs(boxes_a, boxes_b, iou):
     """(N, M) overlaps, or IoUs when ``iou``: K13 on the card, the plain
     version on the CPU."""
-    if flops.counter is not None:
-        return flops.counter.kernel(
-            'rotated_iou', lambda: _pairs(boxes_a, boxes_b, iou),
-            lambda out: flops.rotated_iou_work(boxes_a.shape[0], boxes_b.shape[0], iou))
-    if not _kernels.use_kernel(boxes_a):
-        return (boxes_iou_bev_plain if iou else boxes_overlap_bev_plain)(boxes_a, boxes_b)
-    _kernels.refuse_grad('rotated_iou', boxes_a, boxes_b)
     a, cos_a, sin_a = _card_boxes('boxes_a', boxes_a, boxes_a.device)
     b, cos_b, sin_b = ((a, cos_a, sin_a) if boxes_b is boxes_a
                        else _card_boxes('boxes_b', boxes_b, boxes_a.device))
@@ -187,14 +180,10 @@ def _pairs(boxes_a, boxes_b, iou):
     # recorder is on and read with the spans (utils/profiler.py)
     clipped = (torch.zeros((), dtype=torch.int64, device=a.device)
                if profiler.recording() else None)
-    fn = _kernels.entry('rotated_iou', 'hvpr_rotated_iou',
-                        ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2) * 2
-                        + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
-    err = fn(_kernels.ptr(a), a.stride(0), _kernels.ptr(cos_a), _kernels.ptr(sin_a),
-             _kernels.ptr(b), b.stride(0), _kernels.ptr(cos_b), _kernels.ptr(sin_b),
-             _kernels.ptr(out), n, m, int(iou),
-             None if clipped is None else _kernels.ptr(clipped), _kernels.stream_handle(out))
-    _kernels.launched('rotated_iou', err)
+    _kernels.launch('rotated_iou', out, _kernels.ptr(a), a.stride(0), _kernels.ptr(cos_a),
+                    _kernels.ptr(sin_a), _kernels.ptr(b), b.stride(0), _kernels.ptr(cos_b),
+                    _kernels.ptr(sin_b), _kernels.ptr(out), n, m, int(iou),
+                    None if clipped is None else _kernels.ptr(clipped))
     if clipped is not None:
         profiler.count('nms.iou_pairs', n * m)
         profiler.count_device('nms.iou_clipped', clipped)
@@ -203,12 +192,12 @@ def _pairs(boxes_a, boxes_b, iou):
 
 def boxes_overlap_bev(boxes_a, boxes_b):
     """(N, 7+) x (M, 7+) -> (N, M) rotated BEV intersection areas."""
-    return _pairs(boxes_a, boxes_b, iou=False)
+    return _pairs(boxes_a, boxes_b, False)
 
 
 def boxes_iou_bev(boxes_a, boxes_b):
     """Pairwise rotated BEV IoU, (N, 7) x (M, 7) -> (N, M)."""
-    return _pairs(boxes_a, boxes_b, iou=True)
+    return _pairs(boxes_a, boxes_b, True)
 
 
 def boxes_iou3d(boxes_a, boxes_b):

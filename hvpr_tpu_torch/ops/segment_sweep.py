@@ -16,8 +16,6 @@ enabled) :func:`segment_sweep` raises. The training forward calls the plain
 sweeps directly, as the JAX package runs their XLA twins when training.
 """
 
-import ctypes
-
 import torch
 
 from ..utils import flops
@@ -35,6 +33,8 @@ def segment_sweep_plain(x_t, safe_slot, max_seg=32, op='max'):
     raise ValueError(op)
 
 
+@_kernels.wrapper('segment_sweep', segment_sweep_plain,
+                  lambda out, x_t, *_: flops.segment_sweep_work(*x_t.shape), no_backward=True)
 def segment_sweep(x_t, safe_slot, max_seg=32, op='max'):
     """(C, R) rows -> (C, R), every row holding its segment's max or sum.
 
@@ -47,13 +47,6 @@ def segment_sweep(x_t, safe_slot, max_seg=32, op='max'):
     """
     if op not in _OPS:
         raise ValueError(op)
-    if flops.counter is not None:
-        return flops.counter.kernel(
-            'segment_sweep', lambda: segment_sweep(x_t, safe_slot, max_seg, op),
-            lambda out: flops.segment_sweep_work(*x_t.shape))
-    if not _kernels.use_kernel(x_t):
-        return segment_sweep_plain(x_t, safe_slot, max_seg, op)
-    _kernels.refuse_grad('segment_sweep', x_t)
     _kernels.check_cuda_input('segment_sweep x_t', x_t, torch.float32, 2)
     _kernels.check_cuda_input('segment_sweep safe_slot', safe_slot,
                               torch.int32, 1)
@@ -65,11 +58,6 @@ def segment_sweep(x_t, safe_slot, max_seg=32, op='max'):
     out = torch.empty_like(x_t)
     if c == 0 or r == 0:
         return out
-    lib = _kernels.library('segment_sweep')
-    fn = lib.hvpr_segment_sweep
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(_kernels.ptr(x_t), _kernels.ptr(safe_slot), _kernels.ptr(out),
-             c, r, max_seg, _OPS[op], _kernels.stream_handle(x_t))
-    _kernels.launched('segment_sweep', err)
+    _kernels.launch('segment_sweep', x_t, _kernels.ptr(x_t), _kernels.ptr(safe_slot),
+                    _kernels.ptr(out), c, r, max_seg, _OPS[op])
     return out

@@ -44,8 +44,6 @@ device), ``sparse.sites`` (valid output sites, on the device) and
 ``sparse.slots`` (output site slots).
 """
 
-import ctypes
-
 import numpy as np
 import torch
 
@@ -118,10 +116,12 @@ def _tap_lookups(in_lin, query_coords, query_ok, offs, grid):
     return torch.stack(pos), torch.stack(hit)
 
 
-_RULEBOOK = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-             + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 3)
-
-
+@_kernels.wrapper('sparse_rulebook',
+                  lambda in_lin, query_coords, query_ok, kernel, centered, grid: _tap_lookups(
+                      in_lin, query_coords.long(), query_ok, _offsets(kernel, centered), grid),
+                  lambda out, in_lin, query_coords, query_ok, *_: flops.sparse_rulebook_work(
+                      in_lin.shape[0], in_lin.shape[1], query_ok.shape[1], out[0].shape[0],
+                      query_coords.element_size()), on=1)
 def tap_rulebook(in_lin, query_coords, query_ok, kernel, centered, grid):
     """(pos, hit), each (prod(kernel), B, M): for tap t in the raster order
     of ``_offsets(kernel, centered)``, the row of the site at query +
@@ -129,16 +129,6 @@ def tap_rulebook(in_lin, query_coords, query_ok, kernel, centered, grid):
     it is there; a miss gets the spread row m % V (:func:`spread_rows`).
     ``query_coords`` (B, M, 3) int zyx, ``query_ok`` (B, M) bool. Kernel
     K14 on CUDA tensors, one launch; :func:`_tap_lookups` on the CPU."""
-    if flops.counter is not None:
-        return flops.counter.kernel(
-            'sparse_rulebook',
-            lambda: tap_rulebook(in_lin, query_coords, query_ok, kernel, centered, grid),
-            lambda out: flops.sparse_rulebook_work(
-                in_lin.shape[0], in_lin.shape[1], query_ok.shape[1], out[0].shape[0],
-                query_coords.element_size()))
-    if not _kernels.use_kernel(query_coords):
-        return _tap_lookups(in_lin, query_coords.long(), query_ok,
-                            _offsets(kernel, centered), grid)
     b, m = query_ok.shape
     v = in_lin.shape[1]
     if query_coords.dtype not in (torch.int32, torch.int64):
@@ -158,12 +148,9 @@ def tap_rulebook(in_lin, query_coords, query_ok, kernel, centered, grid):
     hit = torch.empty(taps, b, m, dtype=torch.bool, device=in_lin.device)
     if b * m == 0:
         return pos, hit
-    err = _kernels.entry('sparse_rulebook', 'hvpr_sparse_rulebook', _RULEBOOK)(
-        _kernels.ptr(in_lin), v, _kernels.ptr(query_coords),
-        int(query_coords.dtype == torch.int64), _kernels.ptr(query_ok), b, m, *kernel,
-        int(centered), *grid, _kernels.ptr(pos), _kernels.ptr(hit),
-        _kernels.stream_handle(pos))
-    _kernels.launched('sparse_rulebook', err)
+    _kernels.launch('sparse_rulebook', pos, _kernels.ptr(in_lin), v, _kernels.ptr(query_coords),
+                    int(query_coords.dtype == torch.int64), _kernels.ptr(query_ok), b, m,
+                    *kernel, int(centered), *grid, _kernels.ptr(pos), _kernels.ptr(hit))
     return pos, hit
 
 

@@ -71,8 +71,6 @@ On a CUDA tensor each wrapper launches its kernel from
 it is handed a selection); on a CPU tensor it runs the plain version.
 """
 
-import ctypes
-
 import torch
 
 from ..utils import flops
@@ -302,16 +300,22 @@ def pair_counts(cnt, row_mask):
     return int(((cnt > PAIR_CAP) & row_mask).sum()), float(torch.where(listed, cnt, 0).sum())
 
 
-def _fwd_work(pillars, sel_table, shared, row_mask, selection, cnt):
-    """The :class:`flops.Work` of a K9 call that selected ``cnt``."""
-    dims = (*pillars.shape[:2], sel_table.shape[1], pillars.shape[2])
-    if selection is None:
-        return flops.masked_attend_fwd_work(*dims, *_selection_counts(cnt, row_mask), shared,
-                                            PAIR_CAP)
-    return flops.masked_attend_pairs_work(*dims, *_selection_counts(cnt, row_mask), shared,
-                                          *pair_counts(selection[0], row_mask), PAIR_CAP)
+def _check_k(k):
+    if k > NUM_BUCKETS or k < 1:
+        raise ValueError(
+            f'bucket_threshold requires 1 <= k <= {NUM_BUCKETS} (got k={k}): '
+            f'the per-bucket-max superset guarantee breaks past the bucket count')
 
 
+def _threshold_plain(pillars, table, neg, k, row_mask):
+    _check_k(k)
+    return bucket_threshold_plain(pillars.detach(), table.detach(), neg, k, row_mask)
+
+
+@_kernels.wrapper('bucket_threshold', _threshold_plain,
+                  lambda out, pillars, table, neg, k, row_mask: flops.bucket_threshold_work(
+                      *pillars.shape[:2], table.shape[1], pillars.shape[2],
+                      int(row_mask.sum())))
 def bucket_threshold(pillars, table, neg, k, row_mask):
     """Per-pillar top-k score threshold over the pillar's scan (kernel K8).
 
@@ -324,34 +328,38 @@ def bucket_threshold(pillars, table, neg, k, row_mask):
         the exact top-k (0 outside ``row_mask``). No gradient flows
         through it.
     """
-    if k > NUM_BUCKETS or k < 1:
-        raise ValueError(
-            f'bucket_threshold requires 1 <= k <= {NUM_BUCKETS} (got k={k}): '
-            f'the per-bucket-max superset guarantee breaks past the bucket count')
-    if flops.counter is not None:
-        return flops.counter.kernel(
-            'bucket_threshold', lambda: bucket_threshold(pillars, table, neg, k, row_mask),
-            lambda out: flops.bucket_threshold_work(*pillars.shape[:2], table.shape[1],
-                                                    pillars.shape[2], int(row_mask.sum())))
-    pillars, table = pillars.detach(), table.detach()
-    if not _kernels.use_kernel(pillars):
-        return bucket_threshold_plain(pillars, table, neg, k, row_mask)
+    _check_k(k)
     pb, tb = _bf16(pillars), _bf16(table)
     ng = neg.float().contiguous()
     b, v, n, c = _check('bucket_threshold', pb, (tb,), ng, (), row_mask)
     th = torch.empty(b, v, dtype=torch.float32, device=pillars.device)
     if b * v == 0:
         return th
-    fn = _kernels.library('topk_attend').hvpr_bucket_threshold
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(_kernels.ptr(pb), _kernels.ptr(tb), _kernels.ptr(ng),
-             _kernels.ptr(row_mask), _kernels.ptr(th), b, v, n, c, int(k),
-             _kernels.stream_handle(pillars))
-    _kernels.launched('bucket_threshold', err)
+    _kernels.launch('bucket_threshold', pillars, _kernels.ptr(pb), _kernels.ptr(tb),
+                    _kernels.ptr(ng), _kernels.ptr(row_mask), _kernels.ptr(th), b, v, n, c,
+                    int(k))
     return th
 
 
+def _attend_kernel(pillars, sel_table, val_table, neg, thresh, shared, row_mask,
+                   selection=None):
+    """K9's kernel of a call: the pair pass when it is handed a selection,
+    else the dense sweep."""
+    return 'masked_attend_fwd' if selection is None else 'masked_attend_pairs'
+
+
+def _fwd_work(out, pillars, sel_table, val_table, neg, thresh, shared, row_mask,
+              selection=None):
+    """The :class:`flops.Work` of a K9 call that returned ``out``."""
+    dims = (*pillars.shape[:2], sel_table.shape[1], pillars.shape[2])
+    if selection is None:
+        return flops.masked_attend_fwd_work(*dims, *_selection_counts(out[3], row_mask),
+                                            shared, PAIR_CAP)
+    return flops.masked_attend_pairs_work(*dims, *_selection_counts(out[3], row_mask), shared,
+                                          *pair_counts(selection[0], row_mask), PAIR_CAP)
+
+
+@_kernels.wrapper(_attend_kernel, masked_attend_fwd_plain, _fwd_work)
 def masked_attend_fwd(pillars, sel_table, val_table, neg, thresh, shared,
                       row_mask, selection=None):
     """Forward of :func:`masked_attend` (kernel K9): (out (B, V, C), mx, den,
@@ -359,15 +367,6 @@ def masked_attend_fwd(pillars, sel_table, val_table, neg, thresh, shared,
     pairs (B, V, 128) (see the module docstring). ``selection``: the (count,
     pair_idx) of an earlier call over the same pillars, sel_table, neg,
     thresh and row_mask; K9's pair pass then replaces its dense sweep."""
-    if flops.counter is not None:
-        return flops.counter.kernel(
-            'masked_attend_fwd' if selection is None else 'masked_attend_pairs',
-            lambda: masked_attend_fwd(pillars, sel_table, val_table, neg, thresh, shared,
-                                      row_mask, selection),
-            lambda out: _fwd_work(pillars, sel_table, shared, row_mask, selection, out[3]))
-    if not _kernels.use_kernel(pillars):
-        return masked_attend_fwd_plain(pillars, sel_table, val_table, neg,
-                                       thresh, shared, row_mask, selection)
     pb, sb = _bf16(pillars), _bf16(sel_table)
     vb = sb if shared else _bf16(val_table)
     ng, th = neg.float().contiguous(), thresh.detach().float().contiguous()
@@ -391,40 +390,29 @@ def masked_attend_fwd(pillars, sel_table, val_table, neg, thresh, shared,
     pair_w = torch.empty(b, v, PAIR_CAP, dtype=torch.bfloat16, device=dev)
     if b * v == 0:
         return out, mx, den, cnt, pair_idx, pair_w
-    lib = _kernels.library('topk_attend')
     outs = [_kernels.ptr(t) for t in (out, mx, den, cnt, pair_idx, pair_w)]
     ins = [_kernels.ptr(t) for t in (pb, sb, vb, ng, th, row_mask)]
     if selection is None:
-        fn, name, extra = lib.hvpr_masked_attend_fwd, 'masked_attend_fwd', []
+        name, extra = 'masked_attend_fwd', []
     else:
-        fn, name = lib.hvpr_masked_attend_pairs, 'masked_attend_pairs'
-        extra = [_kernels.ptr(sel_cnt), _kernels.ptr(sel_idx)]
-    fn.argtypes = ([ctypes.c_void_p] * (12 + len(extra)) + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    err = fn(*ins, *extra, *outs, b, v, n, c, int(bool(shared)),
-             _kernels.stream_handle(pillars))
-    _kernels.launched(name, err)
+        name, extra = 'masked_attend_pairs', [_kernels.ptr(sel_cnt), _kernels.ptr(sel_idx)]
+    _kernels.launch(name, pillars, *ins, *extra, *outs, b, v, n, c, int(bool(shared)))
     return out, mx, den, cnt, pair_idx, pair_w
 
 
+def _bwd_work(out, pillars, sel_table, val_table, neg, thresh, mx, den, dout, shared,
+              row_mask, pair_idx, pair_w, cnt):
+    return flops.masked_attend_bwd_work(
+        *pillars.shape[:2], sel_table.shape[1], pillars.shape[2],
+        *_selection_counts(cnt, row_mask), shared, *pair_counts(cnt, row_mask))
+
+
+@_kernels.wrapper('masked_attend_bwd', masked_attend_bwd_pairs_plain, _bwd_work)
 def masked_attend_bwd(pillars, sel_table, val_table, neg, thresh, mx, den, dout,
                       shared, row_mask, pair_idx, pair_w, cnt):
     """Backward of :func:`masked_attend` (kernel K10): the (B, N, C) f32
     gradient of ``val_table`` for upstream gradient ``dout`` (B, V, C), from
     the forward's outputs ``mx``, ``den``, ``cnt`` and pairs."""
-    if flops.counter is not None:
-        return flops.counter.kernel(
-            'masked_attend_bwd',
-            lambda: masked_attend_bwd(pillars, sel_table, val_table, neg, thresh, mx, den,
-                                      dout, shared, row_mask, pair_idx, pair_w, cnt),
-            lambda out: flops.masked_attend_bwd_work(
-                *pillars.shape[:2], sel_table.shape[1], pillars.shape[2],
-                *_selection_counts(cnt, row_mask), shared, *pair_counts(cnt, row_mask)))
-    if not _kernels.use_kernel(pillars):
-        return masked_attend_bwd_pairs_plain(pillars, sel_table, val_table, neg,
-                                             thresh, mx, den, dout, shared,
-                                             row_mask, pair_idx, pair_w, cnt)
     pb, sb = _bf16(pillars), _bf16(sel_table)
     vb = sb if shared else _bf16(val_table)
     ng, th = neg.float().contiguous(), thresh.detach().float().contiguous()
@@ -446,21 +434,13 @@ def masked_attend_bwd(pillars, sel_table, val_table, neg, thresh, mx, den, dout,
     dval = torch.empty(b, n, c, dtype=torch.float32, device=pillars.device)
     if b * v == 0:
         return dval.zero_()
-    lib = _kernels.library('topk_attend')
-    size = lib.hvpr_masked_attend_bwd_work
-    size.argtypes = [ctypes.c_int] * 3
-    size.restype = ctypes.c_longlong
-    work = torch.empty(size(b, v, n), dtype=torch.int32, device=pillars.device)
-    fn = lib.hvpr_masked_attend_bwd
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(_kernels.ptr(pb), _kernels.ptr(sb), _kernels.ptr(vb),
-             _kernels.ptr(ng), _kernels.ptr(th), _kernels.ptr(mx),
-             _kernels.ptr(den), _kernels.ptr(cnt), _kernels.ptr(pair_idx),
-             _kernels.ptr(pair_w), _kernels.ptr(dy), _kernels.ptr(dval),
-             _kernels.ptr(work), b, v, n, c, int(bool(shared)),
-             _kernels.stream_handle(pillars))
-    _kernels.launched('masked_attend_bwd', err)
+    work = torch.empty(_kernels.entry('masked_attend_bwd_work')(b, v, n), dtype=torch.int32,
+                       device=pillars.device)
+    _kernels.launch('masked_attend_bwd', pillars, _kernels.ptr(pb), _kernels.ptr(sb),
+                    _kernels.ptr(vb), _kernels.ptr(ng), _kernels.ptr(th), _kernels.ptr(mx),
+                    _kernels.ptr(den), _kernels.ptr(cnt), _kernels.ptr(pair_idx),
+                    _kernels.ptr(pair_w), _kernels.ptr(dy), _kernels.ptr(dval),
+                    _kernels.ptr(work), b, v, n, c, int(bool(shared)))
     return dval
 
 

@@ -23,7 +23,8 @@ Three sources, combined by the profilers of ``hvpr_tpu_torch/tools/``:
     ``hbm_frac`` above 1 is a finding about that, not a rate.
 
 - **The kernels' reports.** Each kernel wrapper of ``ops/`` checks
-  :data:`counter` at its entry: with a counter active it runs through
+  :data:`counter` at its entry (``ops/_kernels.wrapper``, the call path
+  they share): with a counter active it runs through
   :meth:`Counter.kernel`, which suspends the aten count inside it (on the
   CPU the plain version's own ops, on the card the wrapper's conversions)
   and adds the work its data-dependent function below gives for the call
@@ -67,7 +68,7 @@ H100 = {'bf16': 989e12, 'tf32': 495e12, 'f32': 67e12, 'f64_tc': 67e12, 'hbm': 3.
 # torch.cuda.get_device_name substring (lower case) -> rates
 _CARDS = {'h100 80gb hbm3': H100, 'h100 sxm': H100}
 
-counter = None      # the active Counter, read by every kernel wrapper of ops/
+counter = None      # the active Counter, read by ops/_kernels.wrapper's call path
 
 
 def device_rates(device=None):

@@ -56,7 +56,8 @@ def realistic_scans(rng, batch, n, pcr):
 def realistic_scans_with_boxes(rng, batch, n, pcr):
     """:func:`realistic_scans` (the same draws in the same order) and each
     scan's car boxes as ``gt_boxes`` (batch, 49, 8) float32: x, y, z, dx,
-    dy, dz, heading, class 1."""
+    dy, dz, heading, class 1. A scan of fewer points than the cars' 9,800
+    holds the first cars' points only."""
     pts = np.zeros((batch, n, 4), dtype=np.float32)
     gt = np.zeros((batch, 49, 8), dtype=np.float32)
     n_obj_pts = 200
@@ -75,7 +76,7 @@ def realistic_scans_with_boxes(rng, batch, n, pcr):
             ], axis=1))
         obj = np.concatenate(clusters, axis=0)
 
-        n_bg = n - len(obj)
+        n_bg = max(n - len(obj), 0)
         r_min, r_max = 2.0, float(pcr[3]) - 0.5
         u = rng.uniform(0, 1, n_bg)
         r = r_min * (r_max / r_min) ** u

@@ -336,11 +336,13 @@ TOOLS = {
 
 @pytest.mark.parametrize('name', sorted(TOOLS))
 def test_profiler_record_on_cpu(name):
-    """Each profiler's ``run`` at hvpr_mini.yaml, batch 1, on the CPU: the
-    JAX record's stage names and keys, device metrics null, counts >= 0."""
+    """Each profiler's ``run`` at hvpr_mini.yaml, batch 1, on the CPU (the
+    train profilers at the mini tests' 2,048 points a scan): the JAX
+    record's stage names and keys, device metrics null, counts >= 0."""
     module, stages, keys = TOOLS[name]
+    points = {'n_points': 2048} if name in ('profile_train_stages', 'profile_train') else {}
     with torch.random.fork_rng():
-        rec = module.run(mini_cfg(), batch=1, device='cpu', iters=1)
+        rec = module.run(mini_cfg(), batch=1, device='cpu', iters=1, **points)
     assert rec['device'] == 'cpu' and rec['peak_tflops_bf16'] is None
     rows = [rec] if stages is None else rec['stages']
     if stages is not None:

@@ -306,3 +306,66 @@ def test_scans_match_bench():
         want = getattr(bench, name)(np.random.default_rng(3), 2, 12000, pcr)
         got = getattr(scans, name)(np.random.default_rng(3), 2, 12000, pcr)
         np.testing.assert_array_equal(got, want)
+
+
+# ------------------------------------------------------------ kernel table
+
+def test_kernel_table_is_the_only_list_of_sources():
+    """Every csrc/*.cu is the source of a declared kernel, and every source
+    the table declares exists."""
+    from pathlib import Path
+    from hvpr_tpu_torch.ops import _kernels
+    csrc = Path(__file__).resolve().parent.parent / 'hvpr_tpu_torch' / 'csrc'
+    on_disk = {p.stem for p in csrc.glob('*.cu')}
+    declared = {e.source for e in _kernels.ENTRIES.values()}
+    assert {e.source for e in _kernels.ENTRIES.values() if e.counts} == on_disk
+    assert declared == on_disk == set(_kernels.SOURCES)
+
+
+def test_kernel_table_is_the_only_list_of_kernels():
+    """KERNELS, the launch counts' keys and chip_smoke's table of the TPU
+    kernels each kernel replaces name the same kernels."""
+    import chip_smoke
+    from hvpr_tpu_torch.ops import _kernels
+    assert list(_kernels.launch_counts()) == list(_kernels.KERNELS)
+    assert set(_kernels.KERNELS) == set(chip_smoke.META)
+    assert all(_kernels.ENTRIES[k].counts == k for k in _kernels.KERNELS)
+
+
+def _rulebook_call():
+    from hvpr_tpu_torch.ops.sparse_conv import tap_rulebook
+    cells = torch.tensor([[0, 0, 1], [0, 1, 1], [1, 2, 3], [3, 3, 0]], dtype=torch.int32)
+    lin = (cells[:, 0] * 16 + cells[:, 1] * 4 + cells[:, 2]).long()
+    return lambda: tap_rulebook(lin[None], cells[None], torch.ones(1, 4, dtype=torch.bool),
+                                (3, 3, 3), True, (4, 4, 4))
+
+
+def _canvas_call():
+    coords = torch.zeros(1, 8, 3, dtype=torch.int32)
+    coords[0, :, 2] = torch.arange(8, dtype=torch.int32)
+    return lambda: canvas_from_sorted(torch.randn(1, 8, 16), coords,
+                                      torch.ones(1, 8, dtype=torch.bool), 1, 8)
+
+
+INFERENCE_CALLS = {
+    'segment_sweep': lambda: (lambda: segment_sweep(
+        torch.randn(4, 64), torch.arange(64, dtype=torch.int32), 32, 'max')),
+    'memory_lookup': lambda: (lambda: memory_lookup_fused(
+        torch.randn(100, 16), torch.randn(40, 16), 4)),
+    'bev_canvas': _canvas_call,
+    'rotated_iou': lambda: (lambda: boxes_iou_bev(*[torch.rand(6, 7)] * 2)),
+    'sparse_rulebook': _rulebook_call,
+}
+
+
+@pytest.mark.parametrize('name', sorted(INFERENCE_CALLS))
+def test_inference_wrapper_reports_under_its_table_name(name):
+    """Under a flops.Counter on the CPU, one call of an inference wrapper
+    (K1, K2, K3, K13, K14) is one report under its kernel's table name."""
+    from hvpr_tpu_torch.ops import _kernels
+    from hvpr_tpu_torch.utils import flops
+    call = INFERENCE_CALLS[name]()
+    with flops.Counter() as counter:
+        call()
+    assert name in _kernels.KERNELS
+    assert {k: v['calls'] for k, v in counter.kernels.items()} == {name: 1}
